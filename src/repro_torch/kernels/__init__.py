@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Nothing here imports a compiler or builds anything at import time: the
+CUDA sources under ``csrc/`` build at the first launch on a CUDA tensor.
+"""
+from . import ops, ref
+from .bsr_spmm import bsr_spmm
+from .ell_spmm import ragged_ell_spmm
+
+__all__ = ["ops", "ref", "bsr_spmm", "ragged_ell_spmm"]
