@@ -16,6 +16,10 @@ The three components mirror the paper's three engines:
                       real per-unit width in ``unit_k`` (sparse engine).
   * ``CooResidual`` — scattered nnz in COO (flexible engine).
 
+The per-K view (``EllTileBucket``) is derived from the ragged array by
+``ell_buckets`` for the "fused"/"loop" dispatches, one fixed-K kernel
+launch per bucket; the device format of record stays the ragged array.
+
 Deterministic reductions. Several dense tiles, ELL units and COO entries
 add into the same output row. On CUDA, ``index_add_``/``scatter_add_``
 use atomics whose order changes from run to run, so the port never uses
@@ -53,6 +57,20 @@ class DenseTiles(NamedTuple):
     tile_col: torch.Tensor  # [n_tiles] int32 — block-col of each tile
 
 
+class EllTileBucket(NamedTuple):
+    """Per-K view of ELL *units*: a slice of the ragged array whose units
+    share one band width K (``cols``/``vals`` are views ``[..., :K]`` of
+    the ragged slab, not copies). Padded entries have ``vals == 0`` and
+    ``cols == 0``; padded rows carry the sentinel row id. A leading group
+    axis is kept when the ragged array has one.
+    """
+
+    cols: torch.Tensor      # [(G,) n_units, R_BLOCK, K] int32
+    vals: torch.Tensor      # [(G,) n_units, R_BLOCK, K] float32
+    rows: torch.Tensor      # [(G,) n_units, R_BLOCK] int32
+    tile_col: torch.Tensor  # [(G,) n_units] int32
+
+
 class RaggedEll(NamedTuple):
     """ALL ELL units in one concatenated array, padded to the global Kmax.
 
@@ -79,6 +97,40 @@ class RaggedEll(NamedTuple):
     @property
     def kmax(self) -> int:
         return self.cols.shape[-1]
+
+
+def _bucket_slices(u: int, kmax: int, segments) -> list:
+    """[(K, unit slice), ...] of the buckets of a ``u``-unit array."""
+    if u == 0:
+        return []
+    segs = tuple(segments) if segments else ((kmax, u),)
+    if sum(n for _, n in segs) != u:
+        raise ValueError(f"ell_segments {segs} do not cover {u} units")
+    out, start = [], 0
+    for k, n in segs:
+        out.append((int(k), slice(start, start + n)))
+        start += n
+    return out
+
+
+def ell_buckets(ell: RaggedEll, segments: tuple = ()) -> tuple:
+    """The fixed-K bucket tuple of the ragged array (reference
+    ``repro.core.formats.ell_buckets``).
+
+    ``segments`` is the ((K, n_units), ...) run-length description of
+    the unit axis (``PartitionMeta.ell_segments``); without it the whole
+    array is one Kmax-wide bucket (correct because entries past
+    ``unit_k`` are zero). Raises ``ValueError`` when the segments do not
+    cover the units. Works on numpy arrays and tensors, with or without
+    a leading group axis; slices are views.
+    """
+    return tuple(
+        EllTileBucket(cols=ell.cols[..., sl, :, :k],
+                      vals=ell.vals[..., sl, :, :k],
+                      rows=ell.rows[..., sl, :],
+                      tile_col=ell.tile_col[..., sl])
+        for k, sl in _bucket_slices(int(ell.cols.shape[-3]),
+                                    int(ell.cols.shape[-1]), segments))
 
 
 class CooResidual(NamedTuple):
@@ -212,11 +264,19 @@ class SegmentPlan(NamedTuple):
 
 
 class ReductionPlan(NamedTuple):
-    """The three per-partition reductions onto output rows."""
+    """The per-partition reductions onto output rows.
+
+    ``ell_buckets`` holds one plan per ``ell_buckets`` bucket of
+    ``meta.ell_segments`` for the "loop" dispatch: bucket b's plan sums,
+    per padded row, the running buffer's row first and then the
+    bucket's unit rows (``bucket_plans``). It is built only for that
+    dispatch (``reduction_plan(..., loop=True)``) and is ``()`` else.
+    """
 
     dense: SegmentPlan   # dense tile products -> row tiles (over tile_row)
     ell: SegmentPlan     # ELL unit rows -> padded rows (sentinel dropped)
     coo: SegmentPlan     # COO products -> padded rows
+    ell_buckets: tuple = ()   # SegmentPlan per bucket ("loop" dispatch)
 
 
 def segment_plan(dest: np.ndarray, n_segments: int,
@@ -249,7 +309,33 @@ def _ell_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
                         rows != meta.ell_sentinel_row)
 
 
-def _member_plan(part: TriPartition, meta: PartitionMeta) -> ReductionPlan:
+def bucket_plans(rows: np.ndarray, meta: PartitionMeta) -> tuple:
+    """Host plans of the "loop" dispatch, one per bucket of
+    ``meta.ell_segments``, for one member's ELL ``rows`` [U, R].
+
+    Bucket b's entries are the running buffer's ``n_padded_rows`` rows
+    followed by the bucket's unit rows, and each padded row sums its
+    running value first, then the bucket's entries in unit order.
+    Applied bucket after bucket from a zero buffer, this adds every
+    entry in the order of one sequential scatter-add per bucket (the
+    reference's "loop"), which is also the order of the one "fused"
+    reduction.
+    """
+    rows = np.asarray(rows, np.int64)
+    return tuple(_bucket_plan(rows[sl], meta) for _, sl in
+                 _bucket_slices(rows.shape[0], 0, meta.ell_segments))
+
+
+def _bucket_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
+    br = np.asarray(rows, np.int64).reshape(-1)
+    p = meta.n_padded_rows
+    return segment_plan(
+        np.concatenate([np.arange(p), br]), p,
+        np.concatenate([np.ones(p, bool), br != meta.ell_sentinel_row]))
+
+
+def _member_plan(part: TriPartition, meta: PartitionMeta,
+                 loop: bool = False) -> ReductionPlan:
     """Host reduction plan of one (unstacked) partition.
 
     Class padding appends all-zero dense tiles on (row tile 0, col tile
@@ -270,7 +356,8 @@ def _member_plan(part: TriPartition, meta: PartitionMeta) -> ReductionPlan:
     dense = segment_plan(trow, meta.n_row_tiles, _first_of_each(
         np.stack([trow, tcol], 1), zero_tile))
 
-    ell = _ell_plan(to_numpy(part.ell.rows), meta)
+    ell_rows = to_numpy(part.ell.rows)
+    ell = _ell_plan(ell_rows, meta)
 
     crow = to_numpy(part.coo.rows).astype(np.int64)
     ccol = to_numpy(part.coo.cols).astype(np.int64)
@@ -278,7 +365,8 @@ def _member_plan(part: TriPartition, meta: PartitionMeta) -> ReductionPlan:
         to_numpy(part.coo.vals), np.float32).view(np.uint32) == 0
     coo = segment_plan(crow, meta.n_padded_rows, _first_of_each(
         np.stack([crow, ccol], 1), pos_zero))
-    return ReductionPlan(dense, ell, coo)
+    return ReductionPlan(dense, ell, coo,
+                         bucket_plans(ell_rows, meta) if loop else ())
 
 
 def _stack_segments(segs) -> SegmentPlan:
@@ -292,25 +380,28 @@ def _stack_segments(segs) -> SegmentPlan:
 
 def stack_plans(plans) -> ReductionPlan:
     """Concatenate members' plans into one plan over a group axis."""
-    return ReductionPlan(*(_stack_segments([p[i] for p in plans])
-                           for i in range(3)))
+    return ReductionPlan(
+        *(_stack_segments([p[i] for p in plans]) for i in range(3)),
+        ell_buckets=tuple(_stack_segments(list(segs)) for segs in
+                          zip(*[p.ell_buckets for p in plans])))
 
 
 def reduction_plan(part: TriPartition, meta: PartitionMeta,
-                   device=None) -> ReductionPlan:
+                   device=None, *, loop: bool = False) -> ReductionPlan:
     """The partition's reduction plan, built on the host with numpy.
 
     ``part`` may carry a leading group axis; the plan then covers the
     whole group. With ``device`` the plan's index tensors are placed
-    there (else they stay numpy).
+    there (else they stay numpy). ``loop`` also builds the "loop"
+    dispatch's per-bucket plans (``ReductionPlan.ell_buckets``).
     """
     if part.dense.tiles.ndim == 4:
         g = part.dense.tiles.shape[0]
         members = [TriPartition(*(type(c)(*(a[i] for a in c)) for c in part))
                    for i in range(g)]
-        plan = stack_plans([_member_plan(m, meta) for m in members])
+        plan = stack_plans([_member_plan(m, meta, loop) for m in members])
     else:
-        plan = _member_plan(part, meta)
+        plan = _member_plan(part, meta, loop)
     return plan if device is None else plan_to(plan, device)
 
 
@@ -321,7 +412,9 @@ def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
 
 
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:
-    return ReductionPlan(*(_segments_to(s, device) for s in plan))
+    return ReductionPlan(
+        *(_segments_to(s, device) for s in plan[:3]),
+        ell_buckets=tuple(_segments_to(s, device) for s in plan.ell_buckets))
 
 
 def segment_sum(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
@@ -339,15 +432,23 @@ def segment_sum(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
 
 
 def scatter_ell_partials(rows, partials, meta: PartitionMeta, *,
-                         plan: SegmentPlan = None) -> torch.Tensor:
+                         plan=None) -> torch.Tensor:
     """Reduce flattened ELL partial products onto padded output rows.
 
     ``rows`` [(G,) N] holds global output-row ids, with padded unit rows
     carrying ``meta.ell_sentinel_row``; ``partials`` is [(G,) N, F].
     Entries bound for the sentinel row are never read, so callers
     receive exactly [(G,) n_padded_rows, F]. The sum per row runs in
-    unit order, fixed by ``plan`` (built from ``rows`` when not given).
+    unit order, fixed by ``plan`` (a ``SegmentPlan``; built from ``rows``
+    when not given).
+
+    ``rows`` and ``partials`` may instead be aligned lists, one entry
+    per bucket (the "loop" dispatch): one reduction per bucket into the
+    same running buffer, in bucket order, through ``plan`` = the
+    buckets' plans (``ReductionPlan.ell_buckets``; built when not given).
     """
+    if isinstance(partials, (list, tuple)):
+        return _scatter_buckets(rows, partials, meta, plan)
     grouped = partials.dim() == 3
     if not grouped:
         rows, partials = rows[None], partials[None]
@@ -358,6 +459,26 @@ def scatter_ell_partials(rows, partials, meta: PartitionMeta, *,
             [_ell_plan(r[i], meta) for i in range(g)]), partials.device)
     out = segment_sum(partials.reshape(g * n, f), plan)
     out = out.reshape(g, meta.n_padded_rows, f)
+    return out if grouped else out[0]
+
+
+def _scatter_buckets(rows, partials, meta: PartitionMeta, plans):
+    grouped = partials[0].dim() == 3
+    if not grouped:
+        rows, partials = [r[None] for r in rows], [p[None] for p in partials]
+    g, _, f = partials[0].shape
+    if plans is None:
+        plans = [_segments_to(_stack_segments(
+            [_bucket_plan(r[i], meta) for i in range(g)]),
+            partials[0].device) for r in map(to_numpy, rows)]
+    if len(plans) != len(partials):
+        raise ValueError(f"{len(plans)} bucket plans for {len(partials)} "
+                         "buckets (build the plan with loop=True)")
+    p = meta.n_padded_rows
+    out = partials[0].new_zeros((g, p, f))
+    for pp, plan in zip(partials, plans):
+        data = torch.cat([out, pp], dim=1)
+        out = segment_sum(data.reshape(-1, f), plan).reshape(g, p, f)
     return out if grouped else out[0]
 
 

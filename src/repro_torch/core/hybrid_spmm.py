@@ -5,6 +5,8 @@ TriPartition, dispatching each component to its engine:
 
   dense tiles -> per-tile T×T products, summed over tile_row
   ELL units   -> gather + FMA over the ragged unit array
+                 (``ell_dispatch="ragged"``), or per fixed-K bucket
+                 (``"fused"``/``"loop"``, the per-K A/B dispatches)
   COO residual-> take + segment sum        (flexible engine)
 
 Two backends:
@@ -26,11 +28,12 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import bsr_spmm_ref, ragged_ell_spmm_ref
+from repro_torch.kernels.ref import (bsr_spmm_ref, ell_spmm_ref,
+                                     ragged_ell_spmm_ref)
 
 from .formats import (PartitionMeta, ReductionPlan, TriPartition, b_tiles_of,
-                      pad_b_to_tiles, partition_to, plan_to, reduction_plan,
-                      scatter_ell_partials, segment_sum)
+                      ell_buckets, pad_b_to_tiles, partition_to, plan_to,
+                      reduction_plan, segment_sum)
 
 BACKENDS = ("cuda", "torch")
 
@@ -53,22 +56,27 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
 def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
                plan: ReductionPlan, *, dispatch: str = "ragged"
                ) -> torch.Tensor:
-    """Sparse-engine partial product, [G, n_padded_rows, F]: one masked
-    Kmax pass over the concatenated unit array."""
-    if dispatch != "ragged":
-        raise ValueError(
-            f"ell dispatch {dispatch!r} is not ported yet: only 'ragged' "
-            "runs here ('fused'/'loop' come in a later PR of the port)")
+    """Sparse-engine partial product, [G, n_padded_rows, F].
+
+    ``"ragged"`` runs one masked Kmax pass over the concatenated unit
+    array; ``"fused"``/``"loop"`` run one fixed-K pass per bucket of
+    ``meta.ell_segments`` and reduce the products at once ("fused") or
+    bucket by bucket ("loop"), as ``repro_torch.kernels.ops.ell_matmul``
+    does with the kernels.
+    """
+    kops.check_ell_dispatch(dispatch)
     g, _, f = b.shape
-    u, r = part.ell.cols.shape[-3], part.ell.cols.shape[-2]
-    if u == 0:
+    if part.ell.cols.shape[-3] == 0:
         return b.new_zeros((g, meta.n_padded_rows, f))
-    prod = ragged_ell_spmm_ref(part.ell.cols, part.ell.vals,
-                               part.ell.tile_col, part.ell.unit_k,
-                               b_tiles_of(b, meta))
-    return scatter_ell_partials(part.ell.rows.reshape(g, u * r),
-                                prod.reshape(g, u * r, f), meta,
-                                plan=plan.ell)
+    bt = b_tiles_of(b, meta)
+    if dispatch == "ragged":
+        prod = ragged_ell_spmm_ref(part.ell.cols, part.ell.vals,
+                                   part.ell.tile_col, part.ell.unit_k, bt)
+    else:
+        prod = torch.cat([ell_spmm_ref(bk.cols, bk.vals, bk.tile_col, bt)
+                          for bk in ell_buckets(part.ell, meta.ell_segments)],
+                         dim=1)
+    return kops.reduce_ell(part, prod, meta, plan, dispatch)
 
 
 def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
@@ -86,7 +94,7 @@ def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     return out.reshape(g, meta.n_padded_rows, f)
 
 
-def _grouped(part: TriPartition, b, plan, meta, dev):
+def _grouped(part: TriPartition, b, plan, meta, dev, ell_dispatch):
     """Place everything on ``dev`` and give it a leading group axis.
 
     Returns (part, b, plan, squeeze): ``squeeze`` says the caller passed
@@ -95,7 +103,7 @@ def _grouped(part: TriPartition, b, plan, meta, dev):
     part = partition_to(part, dev)
     b = torch.as_tensor(b, dtype=torch.float32).to(dev)
     if plan is None:
-        plan = reduction_plan(part, meta)
+        plan = reduction_plan(part, meta, loop=ell_dispatch == "loop")
     plan = plan_to(plan, dev)
     squeeze = b.dim() == 2
     if squeeze:
@@ -110,7 +118,8 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
     """Y = A @ B via the three engines. Returns [(G,) n_rows, F] on
     ``device``."""
     dev = resolve_device(device)
-    part, b, plan, squeeze = _grouped(part, b, plan, meta, dev)
+    part, b, plan, squeeze = _grouped(part, b, plan, meta, dev,
+                                      ell_dispatch)
     y = _hybrid(part, b, meta, plan, backend, ell_dispatch)
     return y[0] if squeeze else y
 
@@ -164,7 +173,8 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
     leaves it to XLA.
     """
     dev = resolve_device(device)
-    part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
+    part, x, plan, squeeze = _grouped(part, x, plan, meta, dev,
+                                      ell_dispatch)
     w = torch.as_tensor(w, dtype=torch.float32).to(dev)
     y = _layer(part, x, w if w.dim() == 3 else w[None], meta, plan, backend,
                block_cols, activation, ell_dispatch)
@@ -183,7 +193,8 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     layer.
     """
     dev = resolve_device(device)
-    part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
+    part, h, plan, squeeze = _grouped(part, x, plan, meta, dev,
+                                      ell_dispatch)
     for i, w in enumerate(weights):
         w = torch.as_tensor(w, dtype=torch.float32).to(dev)
         act = torch.relu if i < len(weights) - 1 else None

@@ -10,8 +10,10 @@ keys, LRU bound and per-class telemetry so that the serving layers
 above it see the same behaviour.
 
 The batched variant runs the same forward over a leading group axis
-``G``: both CUDA kernels take ``G`` as a grid dimension, so a group of
-any size costs one launch of each kernel per layer.
+``G``: every CUDA kernel takes ``G`` as a grid dimension, so a group of
+any size costs the launches of one graph per layer (one of each kernel
+with the ragged ELL dispatch; one ``ell_spmm`` per class band with
+"fused"/"loop").
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import collections
 import threading
 
 from repro_torch.core.hybrid_spmm import gcn_forward, hybrid_spmm
+from repro_torch.kernels.ops import check_ell_dispatch
 from repro_torch.obs.metrics import Counter, MetricsRegistry
 
 from .shape_class import ShapeClass
@@ -84,6 +87,7 @@ class ExecutorCache:
                  device="cuda"):
         if max_entries < 1:
             raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        check_ell_dispatch(ell_dispatch)
         self.backend = backend
         self.block_cols = block_cols
         self.ell_dispatch = ell_dispatch
@@ -141,6 +145,13 @@ class ExecutorCache:
         with self._lock:
             return {sc.summary(): st.as_dict()
                     for sc, st in self._class_stats.items()}
+
+    def traffic_by_class(self) -> dict:
+        """Cumulative executor lookups (hits + misses) per ShapeClass:
+        the lifecycle manager's traffic gate (a class with no lookups in
+        a window ran no kernels, so retiring it buys nothing)."""
+        with self._lock:
+            return {sc: st.total for sc, st in self._class_stats.items()}
 
     def invalidate_class(self, sc: ShapeClass) -> int:
         """Drop every cached executor keyed on ``sc``; counted apart from

@@ -15,8 +15,15 @@ Port of ``repro.engine.serving``. Request path:
 stages and enqueues the device work (CUDA launches return before the
 card finishes) and returns completion hooks backed by a CUDA event.
 
-Not ported yet (later slices): replica views, the autotuner, the
-lifecycle hooks, tracer/chaos attachment and the latency prior.
+``replica_view(i)`` hands out a per-replica view with its own executor
+cache over the shared graphs. The shape-class lifecycle
+(``repro_torch.engine.lifecycle``) reads ``class_waste_by_class`` and
+``class_traffic`` and acts through ``plan_retirement`` /
+``execute_retirement``, which re-pads a retired class's members into
+tighter classes and invalidates every executor cache.
+
+Not ported yet (later slices): the autotuner, tracer/chaos attachment
+and the latency prior.
 """
 from __future__ import annotations
 
@@ -37,11 +44,13 @@ from repro_torch.core.hybrid_spmm import BACKENDS
 from repro_torch.core.partition import PartitionConfig, analyze_and_partition
 from repro_torch.core.reorder import reorder as reorder_csr
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import check_ell_dispatch
 from repro_torch.obs.metrics import Counter, MetricsRegistry
 
 from .executor import ExecutorCache
+from .lifecycle import RetirementPlan
 from .shape_class import (ClassNeed, ClassRegistry, ShapeClass, ShapePolicy,
-                          class_requirements, pad_to_class)
+                          class_requirements, pad_to_class, unpad_from_class)
 
 
 @dataclasses.dataclass
@@ -85,6 +94,38 @@ def _check_indices(part: TriPartition, meta: PartitionMeta) -> None:
                              f"[0, {hi})")
 
 
+class _EngineReplicaView:
+    """One replica's engine-facing view.
+
+    Shares the owning engine's ``ClassRegistry``, registered graphs and
+    stack cache, but owns a PRIVATE ``ExecutorCache`` on the engine's
+    device: executors are per-replica state, so one replica's builds
+    never invalidate or evict another's. Dispatches route through the
+    engine's ``serve_group_async`` with this view's cache.
+    """
+
+    def __init__(self, engine: "Engine", replica_id: int, executors):
+        self._engine = engine
+        self.replica_id = replica_id
+        self.executors = executors
+
+    def group_key(self, name: str, x) -> tuple:
+        return self._engine.group_key(name, x)
+
+    def handle(self, name: str):
+        return self._engine.handle(name)
+
+    def prepare_x(self, name: str, x):
+        return self._engine.prepare_x(name, x)
+
+    def serve_group_async(self, requests, prepared=None) -> tuple:
+        return self._engine.serve_group_async(
+            requests, prepared, executors=self.executors)
+
+    def serve_group(self, requests) -> list:
+        return self.serve_group_async(requests)[0]
+
+
 class Engine:
     """Shape-class serving engine for the tri-hybrid SpMM/GCN.
 
@@ -92,6 +133,9 @@ class Engine:
     ``device="cpu"`` is given. ``backend="cuda"`` (the default) runs the
     hand-written kernels on CUDA tensors; ``backend="torch"`` runs the
     plain PyTorch versions (the reference's ``"xla"`` counterpart).
+    ``ell_dispatch`` is ``"ragged"`` (one ``ragged_ell_spmm`` launch per
+    layer) or one of the per-K A/B dispatches ``"fused"``/``"loop"``
+    (one ``ell_spmm`` launch per class band per layer).
     """
 
     def __init__(self, *, policy: ShapePolicy = ShapePolicy(),
@@ -103,11 +147,7 @@ class Engine:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{BACKENDS}")
-        if ell_dispatch != "ragged":
-            raise ValueError(
-                f"ell dispatch {ell_dispatch!r} is not ported yet: only "
-                "'ragged' runs here ('fused'/'loop' come in a later PR of "
-                "the port)")
+        check_ell_dispatch(ell_dispatch)
         if max_stacks < 1:
             raise ValueError(f"max_stacks must be >= 1, got {max_stacks}")
         self.policy = policy
@@ -129,6 +169,11 @@ class Engine:
         self._stack_misses = Counter("engine.stack_misses", self.metrics)
         self._stack_evictions = Counter("engine.stack_evictions",
                                         self.metrics)
+        self._lifecycle = None  # attached LifecycleManager
+        # Per-replica executor caches handed out by replica_view();
+        # retirement invalidates a retired class in every one.
+        self._replica_views: dict = {}
+        self._replica_caches: list = []
 
     @property
     def stack_hits(self) -> int:
@@ -169,12 +214,10 @@ class Engine:
         need = class_requirements(part, meta, self.policy)
         sc = self.registry.classify_need(need)
         padded, pmeta = pad_to_class(part, meta, sc)
-        _check_indices(padded, pmeta)
-        host_plan = reduction_plan(padded, pmeta)
+        placed, plan, host_plan = self._place(padded, pmeta)
         handle = GraphHandle(
-            name=name, part=partition_to(padded, self.device), meta=meta,
-            padded_meta=pmeta, sclass=sc,
-            plan=plan_to(host_plan, self.device), host_plan=host_plan,
+            name=name, part=placed, meta=meta, padded_meta=pmeta, sclass=sc,
+            plan=plan, host_plan=host_plan,
             perm=None if perm is None else torch.from_numpy(perm).to(
                 self.device),
             inv_perm=inv_perm,
@@ -188,8 +231,39 @@ class Engine:
                 (k, v) for k, v in self._stacks.items() if name not in k)
         return handle
 
+    def _place(self, padded: TriPartition, pmeta: PartitionMeta) -> tuple:
+        """Check a class-padded partition's indices, build its reduction
+        plan on the host (with per-bucket plans on the "loop" dispatch
+        only), and put both on the device.
+
+        Returns (partition on the device, plan on the device, host plan).
+        """
+        _check_indices(padded, pmeta)
+        host_plan = reduction_plan(
+            padded, pmeta, loop=self.executors.ell_dispatch == "loop")
+        return (partition_to(padded, self.device),
+                plan_to(host_plan, self.device), host_plan)
+
     def handle(self, name: str) -> GraphHandle:
         return self._graphs[name]
+
+    def replica_view(self, i: int) -> _EngineReplicaView:
+        """The per-replica engine view of replica ``i``: shared registry
+        and graphs, a private ``ExecutorCache`` on the engine's device
+        with the engine's backend/dispatch configuration. Idempotent per
+        index: a replica's cache survives re-wiring."""
+        view = self._replica_views.get(i)
+        if view is None:
+            ex = self.executors
+            cache = ExecutorCache(backend=ex.backend,
+                                  block_cols=ex.block_cols,
+                                  ell_dispatch=ex.ell_dispatch,
+                                  max_entries=ex.max_entries,
+                                  device=self.device)
+            self._replica_caches.append(cache)
+            view = self._replica_views[i] = _EngineReplicaView(
+                self, i, cache)
+        return view
 
     # ---------------------------------------------------------- online -----
     def _pad_x(self, h: GraphHandle, x) -> torch.Tensor:
@@ -297,7 +371,8 @@ class Engine:
                 self._stack_hits.inc()
         return stacks
 
-    def serve_group_async(self, requests, prepared=None) -> tuple:
+    def serve_group_async(self, requests, prepared=None, *,
+                          executors=None) -> tuple:
         """Non-blocking ``serve_group``: stage + enqueue, don't wait.
 
         Returns ``(outs, meta)``: ``outs`` are the per-request outputs
@@ -310,9 +385,11 @@ class Engine:
           ``complete()``  block until it finished.
 
         ``prepared`` optionally carries pre-staged padded features
-        (``prepare_x``, aligned with ``requests``).
+        (``prepare_x``, aligned with ``requests``). ``executors``
+        substitutes a per-replica ``ExecutorCache`` (what
+        ``replica_view`` dispatches through); None uses the engine's own.
         """
-        ex = self.executors
+        ex = executors if executors is not None else self.executors
         if not requests:
             return [], {"cold": False, "ready": lambda: True,
                         "complete": lambda: None}
@@ -341,7 +418,7 @@ class Engine:
             fn = ex.gcn(sc, f_in, w_shapes)
             outs = [self._unpad_y(h, fn(h.part, pad(h, x, xp), h.weights,
                                         h.plan))]
-            return outs, self._completion_meta(misses0)
+            return outs, self._completion_meta(misses0, ex)
         # Canonicalize group order by name so (g0,g1) and (g1,g0) share
         # one cached stack, then pad to the next power-of-two group
         # (repeating the last member; its extra outputs are dropped).
@@ -355,13 +432,14 @@ class Engine:
         results: list = [None] * len(members)
         for j, (i, h, _, _) in enumerate(members):
             results[i] = self._unpad_y(h, ys[j])
-        return results, self._completion_meta(misses0)
+        return results, self._completion_meta(misses0, ex)
 
-    def _completion_meta(self, misses0: int) -> dict:
+    def _completion_meta(self, misses0: int, ex: ExecutorCache) -> dict:
         """Completion hooks for the work enqueued so far on the current
         stream (a CUDA event recorded after it), or trivially complete
-        hooks on the CPU."""
-        cold = self.executors.stats.misses > misses0
+        hooks on the CPU. ``cold`` is the miss-counter delta of the cache
+        ``ex`` that served the dispatch."""
+        cold = ex.stats.misses > misses0
         if self.device.type != "cuda":
             return {"cold": cold, "ready": lambda: True,
                     "complete": lambda: None}
@@ -369,6 +447,122 @@ class Engine:
         event.record(torch.cuda.current_stream(self.device))
         return {"cold": cold, "ready": event.query,
                 "complete": event.synchronize}
+
+    # ------------------------------------------------------- lifecycle -----
+    def class_waste_by_class(self) -> dict:
+        """Per-shape-class padded-MAC waste, keyed by ShapeClass: members'
+        true nnz against the class's padded capacity, per engine slice.
+
+        ``ell_capacity`` counts the MAC slots of the class's band plan
+        per member, so ``ell_waste_frac`` is the fraction of ELL kernel
+        work spent on padding. The lifecycle manager retires a class
+        whose rolling waste stays above its budget.
+        """
+        agg: dict = {}
+        for h in self._graphs.values():
+            d = agg.setdefault(h.sclass, {
+                "members": 0, "ell_nnz": 0, "dense_nnz": 0, "coo_nnz": 0})
+            d["members"] += 1
+            d["ell_nnz"] += h.meta.nnz_ell
+            d["dense_nnz"] += h.meta.nnz_dense
+            d["coo_nnz"] += h.meta.nnz_coo
+        out: dict = {}
+        for sc, d in agg.items():
+            m = d["members"]
+            caps = {
+                "ell_capacity": sc.ell_mac_capacity * m,
+                "dense_capacity": sc.n_dense_tiles * sc.tile * sc.tile * m,
+                "coo_capacity": sc.coo_nnz * m,
+            }
+            true_total = d["ell_nnz"] + d["dense_nnz"] + d["coo_nnz"]
+            cap_total = sum(caps.values())
+            entry = dict(d)
+            entry.update(caps)
+            entry["ell_waste_frac"] = (
+                1.0 - d["ell_nnz"] / caps["ell_capacity"]
+                if caps["ell_capacity"] else 0.0)
+            entry["padded_mac_waste_frac"] = (
+                1.0 - true_total / cap_total if cap_total else 0.0)
+            out[sc] = entry
+        return out
+
+    def class_waste(self) -> dict:
+        """``class_waste_by_class`` keyed by class summary strings (the
+        ``stats()["class_waste"]`` block)."""
+        return {sc.summary(): entry
+                for sc, entry in self.class_waste_by_class().items()}
+
+    def class_traffic(self) -> dict:
+        """Cumulative executor lookups per ShapeClass, summed over the
+        engine's own cache and every replica view's."""
+        out = collections.Counter(self.executors.traffic_by_class())
+        for cache in self._replica_caches:
+            out.update(cache.traffic_by_class())
+        return dict(out)
+
+    def attach_lifecycle(self, manager) -> None:
+        """Register a ``LifecycleManager`` so its counters surface through
+        ``stats()["lifecycle"]``. One slot."""
+        self._lifecycle = manager
+
+    def members_of(self, sc: ShapeClass) -> list:
+        """Names of every registered graph currently padded into ``sc``."""
+        return [h.name for h in self._graphs.values() if h.sclass == sc]
+
+    def plan_retirement(self, sc: ShapeClass) -> Optional[RetirementPlan]:
+        """Plan (without mutating anything) the re-classing that retiring
+        ``sc`` implies: members re-fit largest first, into surviving
+        live classes or into tight classes founded for this plan.
+        Returns None when ``sc`` has no members."""
+        members = [h for h in self._graphs.values() if h.sclass == sc]
+        if not members:
+            return None
+        members.sort(key=lambda h: (
+            -(h.need.ell_kmax * h.need.ell_units * h.need.r_block
+              + h.need.n_dense_tiles * h.need.tile * h.need.tile
+              + h.need.coo_nnz),
+            h.name))
+        targets, new = self.registry.plan_reclass(
+            [h.need for h in members], exclude=(sc,))
+        return RetirementPlan(
+            sclass=sc, names=tuple(h.name for h in members),
+            targets=tuple(targets), new_classes=tuple(new))
+
+    def execute_retirement(self, plan: RetirementPlan) -> dict:
+        """Apply a ``RetirementPlan``: retire the class in the registry,
+        re-pad every member into its successor class (partition and
+        reduction plan placed on the device anew), invalidate the retired
+        class's executors in the engine's cache and in every replica
+        cache, and drop the member stacks that hold moved graphs.
+
+        Callers serving live traffic must drain in-flight batches keyed
+        on the retiring class first.
+        """
+        sc = plan.sclass
+        self.registry.retire(sc)
+        moved = []
+        for name, target in zip(plan.names, plan.targets):
+            h = self._graphs.get(name)
+            if h is None or h.sclass != sc:
+                continue    # re-registered since planning; already moved on
+            self.registry.admit(target)
+            part = unpad_from_class(h.part, h.padded_meta, h.meta)
+            padded, pmeta = pad_to_class(part, h.meta, target)
+            h.part, h.plan, h.host_plan = self._place(padded, pmeta)
+            h.padded_meta = pmeta
+            h.sclass = target
+            moved.append(name)
+        invalidated = self.executors.invalidate_class(sc)
+        for cache in self._replica_caches:
+            invalidated += cache.invalidate_class(sc)
+        moved_set = set(moved)
+        with self._stack_lock:
+            self._stacks = collections.OrderedDict(
+                (k, v) for k, v in self._stacks.items()
+                if not moved_set.intersection(k))
+        return {"members": len(moved),
+                "executors_invalidated": invalidated,
+                "new_classes": len(plan.new_classes)}
 
     # ----------------------------------------------------------- stats -----
     def stats(self) -> dict:
@@ -379,7 +573,7 @@ class Engine:
                      "stack_hits": self.stack_hits,
                      "stack_misses": self.stack_misses,
                      "stack_evictions": self.stack_evictions}
-        return {
+        out = {
             "graphs": len(self._graphs),
             "shape_classes": len(classes),
             "executors": self.executors.size,
@@ -389,9 +583,13 @@ class Engine:
             "cache_evictions": cache["evictions"],
             "per_class": self.executors.class_stats(),
             "stack_max": self._max_stacks,
+            "class_waste": self.class_waste(),
             "registry": self.registry.stats(),
             **stack,
         }
+        if self._lifecycle is not None:
+            out["lifecycle"] = self._lifecycle.snapshot()
+        return out
 
     def summary(self) -> str:
         s = self.stats()

@@ -5,6 +5,8 @@ CUDA sources under ``csrc/`` build at the first launch on a CUDA tensor.
 """
 from . import ops, ref
 from .bsr_spmm import bsr_spmm
-from .ell_spmm import ragged_ell_spmm
+from .ell_spmm import ell_spmm, ragged_ell_spmm
+from .tile_matmul import tile_matmul
 
-__all__ = ["ops", "ref", "bsr_spmm", "ragged_ell_spmm"]
+__all__ = ["ops", "ref", "bsr_spmm", "ell_spmm", "ragged_ell_spmm",
+           "tile_matmul"]

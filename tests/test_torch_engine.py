@@ -126,7 +126,8 @@ def test_group_launches_counted_once_per_layer_on_cuda_only(engines):
     ops.reset_launch_counts()
     port.serve_batch(reqs)
     # CPU tensors take the plain versions: nothing is launched
-    assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0}
+    assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0,
+                                   "ell_spmm": 0, "tile_matmul": 0}
 
 
 def test_spmm_matches_reference(engines):
@@ -239,8 +240,8 @@ def test_entry_points_raise_without_cuda():
 
 
 def test_engine_rejects_what_it_cannot_serve():
-    with pytest.raises(ValueError, match="later PR"):
-        Engine(device="cpu", ell_dispatch="fused")
+    with pytest.raises(ValueError, match="unknown ell dispatch"):
+        Engine(device="cpu", ell_dispatch="bogus")
     with pytest.raises(ValueError, match="backend"):
         Engine(device="cpu", backend="xla")
     eng = Engine(device="cpu")

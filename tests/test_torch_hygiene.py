@@ -66,7 +66,8 @@ def test_importing_the_port_builds_nothing():
 def test_cuda_sources_ship_with_the_package():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "bsr_spmm.cu", "ragged_ell_spmm.cu"}
+        "bsr_spmm.cu", "ragged_ell_spmm.cu", "ell_spmm.cu",
+        "tile_matmul.cu"}
     pyproject = (ROOT / "pyproject.toml").read_text()
     assert 'repro_torch = ["kernels/csrc/*.cu"]' in pyproject
 

@@ -12,7 +12,11 @@ Tests marked ``cuda`` build and launch the CUDA kernels; they skip
 without a card (run them with ``python -m pytest -m cuda
 tests/test_torch_kernels.py`` on a machine with an H100). JAX is
 imported only by the tests that use it, so that those run where JAX is
-not installed.
+not installed. On the card: the ELL kernels equal their plain versions
+bit for bit (multiply and add rounded separately in both);
+``tile_matmul`` is within ``|C - C_ref| <= 1e-6 + 1e-5 * (|A| @ |B|)``
+of cuBLAS (float32 sums of K terms in two orders) and gives the same
+bits for every block shape.
 """
 import numpy as np
 import pytest
@@ -20,8 +24,12 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmm import bsr_spmm
-from repro_torch.kernels.ell_spmm import ragged_ell_spmm
-from repro_torch.kernels.ref import bsr_spmm_ref, ragged_ell_spmm_ref
+from repro_torch.kernels.ell_spmm import ell_spmm, ragged_ell_spmm
+from repro_torch.kernels.ref import (bsr_spmm_ref, ell_spmm_ref,
+                                     ragged_ell_spmm_ref, tile_matmul_ref)
+from repro_torch.kernels.tile_matmul import BLOCK_NS, tile_matmul
+
+from conftest import make_heterogeneous_matrix
 
 torch.set_num_threads(2)
 
@@ -138,7 +146,8 @@ def test_cpu_tensors_never_count_launches():
     ops.reset_launch_counts()
     bsr_spmm(*_t(*bsr_inputs(0)), device="cpu")
     ragged_ell_spmm(*_t(*ell_inputs(0)), device="cpu")
-    assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0}
+    assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0,
+                                   "ell_spmm": 0, "tile_matmul": 0}
 
 
 def test_default_device_raises_without_cuda():
@@ -151,11 +160,14 @@ def test_default_device_raises_without_cuda():
 
 
 def test_ell_dispatch_other_than_ragged_raises():
+    """Only the three dispatches of the reference exist: an unknown one
+    raises (reference ``test_ragged_ell.py`` test_unknown_dispatch_raises);
+    "fused" and "loop" run (tests/test_torch_dispatch.py)."""
     from repro_torch.core.formats import PartitionMeta
     meta = PartitionMeta(64, 64, 64, (), 1, 1, 0, 0, 0, 0, 0, (0.5, 0.01))
-    with pytest.raises(ValueError, match="later PR"):
+    with pytest.raises(ValueError, match="unknown ell dispatch"):
         ops.ell_matmul(None, torch.zeros(1, 64, 4), meta, None,
-                       dispatch="fused")
+                       dispatch="bogus")
 
 
 # ---------------------------------------------------------- on the card ----
@@ -177,7 +189,8 @@ def test_cuda_kernels_match_plain(cuda_device, f, g):
     got = ragged_ell_spmm(*eargs)
     # multiply and add rounded separately in both: bit-identical
     assert torch.equal(got, ragged_ell_spmm_ref(*eargs))
-    assert ops.launch_counts() == {"bsr_spmm": 1, "ragged_ell_spmm": 1}
+    assert ops.launch_counts() == {"bsr_spmm": 1, "ragged_ell_spmm": 1,
+                                   "ell_spmm": 0, "tile_matmul": 0}
 
 
 @pytest.mark.cuda
@@ -185,3 +198,58 @@ def test_cuda_kernel_rejects_non_contiguous(cuda_device):
     tiles, tcol, b = (a.to(cuda_device) for a in _t(*bsr_inputs(0, t=64)))
     with pytest.raises(ValueError, match="contiguous"):
         bsr_spmm(tiles.transpose(1, 2), tcol, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,g", [(7, None), (128, None), (130, 4)])
+def test_cuda_ell_spmm_matches_plain_bitwise(cuda_device, f, g):
+    ops.reset_launch_counts()
+    cols, vals, tcol, _, b = (a.to(cuda_device) for a in _t(*ell_inputs(
+        7, t=64, f=f, g=g, kmax=9)))
+    got = ell_spmm(cols[..., :5], vals[..., :5], tcol, b)   # strided view
+    assert torch.equal(got, ell_spmm_ref(cols[..., :5], vals[..., :5], tcol,
+                                         b))
+    out = torch.full((got.shape[:-3] + (11,) + got.shape[-2:]), 7.0,
+                     device=cuda_device)
+    ell_spmm(cols[..., :5], vals[..., :5], tcol, b,
+             out=out[..., 1:10, :, :])
+    assert torch.equal(out[..., 1:10, :, :], got)
+    assert bool((out[..., 0, :, :] == 7.0).all())
+    assert ops.launch_counts()["ell_spmm"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(70, 33, 5), (257, 300, 130),
+                                   (3328, 1433, 128)])
+def test_cuda_tile_matmul_matches_plain(cuda_device, m, k, n):
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(m)
+    a, b = (x.to(cuda_device) for x in _t(
+        rng.standard_normal((m, k)).astype(np.float32),
+        rng.standard_normal((k, n)).astype(np.float32)))
+    outs = [tile_matmul(a, b, bn=bn) for bn in BLOCK_NS]
+    # one FMA chain per element in ascending k: both block widths agree
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    bound = 1e-6 + 1e-5 * tile_matmul_ref(a.abs(), b.abs())
+    assert bool(((outs[0] - tile_matmul_ref(a, b)).abs() <= bound).all())
+    assert ops.launch_counts()["tile_matmul"] == len(BLOCK_NS)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_and_loop_launch_once_per_band(cuda_device):
+    import repro_torch.core as tc
+    a = make_heterogeneous_matrix(300, seed=0)
+    part, meta, _ = tc.analyze_and_partition(tc.csr_from_dense(a),
+                                             tc.PartitionConfig(tile=64))
+    assert len(meta.ell_segments) > 1
+    b = np.random.default_rng(0).standard_normal((300, 16)).astype(
+        np.float32)
+    ragged = tc.hybrid_spmm(part, b, meta=meta)
+    for d in ("fused", "loop"):
+        ops.reset_launch_counts()
+        y = tc.hybrid_spmm(part, b, meta=meta, ell_dispatch=d)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {
+            "bsr_spmm": 1, "ragged_ell_spmm": 0,
+            "ell_spmm": len(meta.ell_segments), "tile_matmul": 0}
+        assert torch.equal(y, ragged)
