@@ -33,8 +33,14 @@ repository's ``src/`` next to this file. It
      ``kernels.ops.matmul`` (the ``tile_matmul`` kernel);
   8. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
-     library call (``torch.bmm``, ``torch.sparse.mm``, ``torch.matmul``)
-     with CUDA events;
+     library call with CUDA events: ``torch.sparse.mm`` for the ELL
+     kernels, ``torch.matmul`` for ``tile_matmul`` (every block
+     configuration timed, all bitwise-equal), and for the dense engine
+     (``bsr_spmm_rows``: the BSR products summed per row tile in the
+     kernel) ``torch.bmm`` on gathered B tiles followed by
+     ``segment_sum``, with ``torch.bmm`` alone beside it; the folded
+     kernel must equal the per-tile kernel's products summed by
+     ``segment_sum`` bit for bit;
   9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
      "device": ...}`` line.
 
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -81,6 +88,10 @@ LIFECYCLE_DISPATCHES = ("ragged", "fused")
 LAYERS = 2
 TIMING_REPS = 30
 GRAPH_CALLS = 20
+# device kernels counted by name in the profile of one infer
+PROFILE_NAMES = {"bsr_rows_kernel": "bsr_rows_kernel",
+                 "segment_reduce": "segment_reduce",
+                 "index_select": "vectorized_gather"}
 
 
 def fail(msg: str) -> None:
@@ -172,6 +183,23 @@ def bound(nbytes: float, flops: float) -> tuple:
     t_flops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops,
                                                           "operations")
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of an nvcc ``-Xptxas -v`` log, as ptxas reports
+    it: the entry's (mangled) name, its registers, static shared memory
+    and spills."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 # ------------------------------------------------------------ main path ----
@@ -283,16 +311,20 @@ def profile_infer(torch, engine, name, x_dev, calls: int = 5) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel, launches = {}, 0
+    by_name = dict.fromkeys(PROFILE_NAMES, 0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             launches += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
+            for key, pattern in PROFILE_NAMES.items():
+                by_name[key] += pattern in e.name.lower()
     busy_us = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(kernels_per_infer=launches / calls,
                 device_ms_per_infer=busy_us / calls / 1e3,
                 busy_share=busy_us / wall_us if wall_us else 0.0,
+                launches_per_infer={k: v / calls for k, v in by_name.items()},
                 top=[[k[:60], v / calls / 1e3] for k, v in top])
 
 
@@ -514,7 +546,7 @@ def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
     the sparse kernels: each graph's class-padded partition against B of
     width 128 (layer 1) and n_classes (layer 2), alone and stacked G=4."""
-    from repro_torch.core.formats import b_tiles_of
+    from repro_torch.core.formats import b_tiles_of, plan_to, stack_plans
 
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -531,34 +563,72 @@ def kernel_cases(torch, engine, graphs):
                                      h.part.dense.tile_col, h.part.ell.cols,
                                      h.part.ell.vals, h.part.ell.tile_col,
                                      h.part.ell.unit_k, h.part.ell.rows)]
-                yield dict(graph=name, F=int(b.shape[1]), G=G), (part, bt,
-                                                                 meta)
+                dense_plan = plan_to(stack_plans([h.host_plan] * G),
+                                     bt.device).dense
+                yield dict(graph=name, F=int(b.shape[1]), G=G), (
+                    part, bt, meta, dense_plan)
 
 
 def bsr_case(torch, case):
-    from repro_torch.kernels.bsr_spmm import bsr_spmm
-    from repro_torch.kernels.ref import _gather_b_tiles, bsr_spmm_ref
+    """The dense engine as the main path runs it: one ``bsr_spmm_rows``
+    launch, the products summed per row tile in the plan's order.
 
-    part, bt, _ = case
-    tiles, tcol = part[0], part[1]
-    got = bsr_spmm(tiles, tcol, bt, device=bt.device)
-    want = bsr_spmm_ref(tiles, tcol, bt)
-    gathered = _gather_b_tiles(bt, tcol)
+    Gates: within ``KERNEL_TOL`` of its plain version (``bsr_spmm_ref``
+    then ``segment_sum``) relative to the sum of |tile|·|B| (the two add
+    each 64-term dot product in another order); bit for bit equal to the
+    per-tile kernel's products summed by ``segment_sum`` (the order the
+    kernel keeps); the per-tile ``bsr_spmm`` within ``KERNEL_TOL`` of
+    ``bsr_spmm_ref``. Library yardstick: ``torch.bmm`` on the gathered B
+    tiles followed by ``segment_sum``, captured as one CUDA graph
+    (``torch.bmm`` alone beside it)."""
+    from repro_torch.core.formats import segment_sum
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_rows
+    from repro_torch.kernels.ref import (_gather_b_tiles, bsr_spmm_ref,
+                                         bsr_spmm_rows_ref)
+
+    part, bt, _, plan = case
+    tiles, tcol, dev = part[0], part[1], bt.device
     g, n_t, t, _ = tiles.shape
     f = bt.shape[-1]
-    tc = tcol.cpu().numpy()
-    used_b = sum(len(np.unique(tc[i])) for i in range(g)) * t * f * 4
-    nbytes = tiles.numel() * 4 + tcol.numel() * 4 + used_b + g * n_t * t * f * 4
-    flops = 2.0 * g * n_t * t * t * f
+    got = bsr_spmm_rows(tiles, tcol, bt, plan, device=dev)
+    want = bsr_spmm_rows_ref(tiles, tcol, bt, plan)
+    scale = bsr_spmm_rows_ref(tiles.abs(), tcol, bt.abs(), plan)
+    per_tile = bsr_spmm(tiles, tcol, bt, device=dev)
+    folded_bitwise = torch.equal(got, segment_sum(
+        per_tile.reshape(g * n_t, t * f), plan).reshape(got.shape))
+    per_tile_ok = close(per_tile, bsr_spmm_ref(tiles, tcol, bt), **KERNEL_TOL)
+    ok = bool(((got - want).abs() <= KERNEL_TOL["atol"]
+               + KERNEL_TOL["rtol"] * scale).all().item())
+    gathered = _gather_b_tiles(bt, tcol)
+    a3, b3 = tiles.reshape(g * n_t, t, t), gathered.reshape(g * n_t, t, f)
+
+    def folded():
+        return bsr_spmm_rows(tiles, tcol, bt, plan, device=dev)
+
+    def library():
+        return segment_sum(torch.bmm(a3, b3).reshape(g * n_t, t * f), plan)
+
+    # bytes the folded function must move: the tiles the plan sums, the
+    # B tiles they use, the row bands written, and the plan's indices
+    order = plan.order.cpu().numpy()
+    used = order.shape[0]
+    used_b = len(np.unique((order // n_t) * (1 << 32)
+                           + tcol.reshape(-1).cpu().numpy()[order]))
+    n_rt = plan.lengths.shape[0] // g
+    nbytes = (used * (t * t * 4 + 4 + 8) + used_b * t * f * 4
+              + g * n_rt * t * f * 4 + (g * n_rt + 1) * 8)
+    flops = 2.0 * used * t * t * f
     return dict(
-        ok=close(got, want, **KERNEL_TOL), err=max_err(got, want),
-        ms=device_ms(torch, lambda: bsr_spmm(tiles, tcol, bt,
-                                              device=bt.device)),
-        call_ms=call_ms(torch, lambda: bsr_spmm(tiles, tcol, bt,
-                                                device=bt.device)),
-        plain_ms=device_ms(torch, lambda: bsr_spmm_ref(tiles, tcol, bt)),
-        library_ms=device_ms(torch, lambda: torch.bmm(
-            tiles.reshape(g * n_t, t, t), gathered.reshape(g * n_t, t, f))),
+        ok=ok and folded_bitwise and per_tile_ok, err=max_err(got, want),
+        folded_bitwise=folded_bitwise, per_tile_ok=per_tile_ok,
+        tiles_summed=used, row_tiles=n_rt,
+        ms=device_ms(torch, folded), call_ms=call_ms(torch, folded),
+        per_tile_ms=device_ms(torch, lambda: bsr_spmm(tiles, tcol, bt,
+                                                      device=dev)),
+        plain_ms=device_ms(torch, lambda: bsr_spmm_rows_ref(tiles, tcol, bt,
+                                                            plan)),
+        library_ms=device_ms(torch, library),
+        library_bmm_ms=device_ms(torch, lambda: torch.bmm(a3, b3)),
         bound=bound(nbytes, flops))
 
 
@@ -595,7 +665,7 @@ def ell_case(torch, case):
     from repro_torch.kernels.ell_spmm import ragged_ell_spmm
     from repro_torch.kernels.ref import ragged_ell_spmm_ref
 
-    part, bt, _ = case
+    part, bt = case[:2]
     cols, vals, tcol, uk = part[2:6]
     got = ragged_ell_spmm(cols, vals, tcol, uk, bt, device=bt.device)
     want = ragged_ell_spmm_ref(cols, vals, tcol, uk, bt)
@@ -629,7 +699,7 @@ def fixed_ell_case(torch, case):
     from repro_torch.kernels.ell_spmm import ell_spmm
     from repro_torch.kernels.ref import ell_spmm_ref
 
-    part, bt, meta = case
+    part, bt, meta = case[:3]
     cols, vals, tcol, uk, rows = part[2:7]
     buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
                           meta.ell_segments)
@@ -674,16 +744,27 @@ def fixed_ell_case(torch, case):
 
 
 def matmul_case(torch, case):
+    """``tile_matmul`` at the configuration the wrapper picks, held against
+    ``torch.matmul``; every configuration is timed and must give the
+    picked one's bits."""
     from repro_torch.kernels.ref import tile_matmul_ref
-    from repro_torch.kernels.tile_matmul import tile_matmul
+    from repro_torch.kernels.tile_matmul import CONFIGS, tile_matmul
 
     a, b = case
     got = tile_matmul(a, b, device=a.device)
     want = tile_matmul_ref(a, b)
     m, k = a.shape
     n = b.shape[1]
+    configs_bitwise = all(torch.equal(tile_matmul(a, b, config=c,
+                                                      device=a.device), got)
+                          for c in CONFIGS)
+    config_ms = {c: device_ms(torch, lambda c=c: tile_matmul(
+                     a, b, config=c, device=a.device))
+                 for c in CONFIGS}
     return dict(
-        ok=matmul_close(torch, got, want, a, b), err=max_err(got, want),
+        ok=matmul_close(torch, got, want, a, b) and configs_bitwise,
+        err=max_err(got, want), configs_bitwise=configs_bitwise,
+        config_ms=config_ms,
         ms=device_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
         call_ms=call_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
         plain_ms=device_ms(torch, lambda: tile_matmul_ref(a, b)),
@@ -722,8 +803,12 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
                        plain_ms=res["plain_ms"], library_ms=res["library_ms"],
                        bound_ms=res["bound"][0], bound_by=res["bound"][1],
                        max_abs_err=res["err"])
-            if "launches_per_call" in res:
-                row["launches_per_call"] = res["launches_per_call"]
+            for extra in ("launches_per_call", "folded_bitwise",
+                          "per_tile_ok", "tiles_summed", "row_tiles",
+                          "per_tile_ms", "library_bmm_ms",
+                          "configs_bitwise", "config_ms"):
+                if extra in res:
+                    row[extra] = res[extra]
             rows.append(row)
             print(f"  {kname:16s} {json.dumps(label):52s} kernel "
                   f"{res['ms']:.4f} ms (call {res['call_ms']:.4f})  plain "
@@ -731,6 +816,15 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
                   f"{res['library_ms']:.4f} ms  bound "
                   f"{res['bound'][0]:.5f} ms "
                   f"({res['bound'][1]})  max_abs_err {res['err']:.3g}")
+            if "config_ms" in res:
+                print("    configs " + json.dumps(res["config_ms"])
+                      + f" bitwise {res['configs_bitwise']}")
+            if "library_bmm_ms" in res:
+                print(f"    per-tile kernel {res['per_tile_ms']:.4f} ms  "
+                      f"torch.bmm alone {res['library_bmm_ms']:.4f} ms  "
+                      f"folded bitwise {res['folded_bitwise']}  tiles "
+                      f"{res['tiles_summed']} over {res['row_tiles']} "
+                      "row tiles")
             if not res["ok"]:
                 problems.append(f"{kname} {label}: disagrees with its plain "
                                 f"version ({res['err']})")
@@ -775,10 +869,9 @@ def main() -> None:
     log = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(log)} sources")
     for name, entry in sorted(log.items()):
-        ptxas = [ln.strip() for ln in entry["log"].splitlines()
-                 if "registers" in ln or "bytes smem" in ln]
-        print(f"  {name}: {'cached' if entry['cached'] else 'built'}"
-              f"{'; ' if ptxas else ''}{' | '.join(ptxas)}")
+        print(f"  {name}: {'cached' if entry['cached'] else 'built'}")
+        for line in ptxas_summary(entry["log"]):
+            print(f"    {line}")
 
     engine, graphs, counts = main_path(torch)
     print(f"main path launches: {counts}")

@@ -255,12 +255,22 @@ class SegmentPlan(NamedTuple):
     destination segment; ``lengths`` holds the number of entries per
     segment (zero-length segments sum to 0). For a group of G members,
     entries and segments are numbered member by member (member g's
-    entry i is ``g * n_entries + i``).
+    entry i is ``g * n_entries + i``). ``offsets`` is where each segment
+    starts in ``order`` (the cumulative sum of ``lengths`` after a 0,
+    ``segment_offsets``), which the dense engine's kernel reads.
     """
 
     order: torch.Tensor    # [n_sel] int64
     lengths: torch.Tensor  # [G * n_segments] int64
     n_entries: int         # entries per member
+    offsets: torch.Tensor  # [G * n_segments + 1] int64
+
+
+def segment_offsets(lengths: np.ndarray) -> np.ndarray:
+    """[0, cumsum(lengths)...]: segment s of a plan is
+    ``order[offsets[s]:offsets[s + 1]]``."""
+    lengths = np.asarray(lengths, np.int64)
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
 
 
 class ReductionPlan(NamedTuple):
@@ -288,7 +298,8 @@ def segment_plan(dest: np.ndarray, n_segments: int,
     order = idx[np.argsort(dest[idx], kind="stable")]
     lengths = np.bincount(dest[idx], minlength=n_segments)
     return SegmentPlan(order=order.astype(np.int64),
-                       lengths=lengths.astype(np.int64), n_entries=dest.size)
+                       lengths=lengths.astype(np.int64), n_entries=dest.size,
+                       offsets=segment_offsets(lengths))
 
 
 def _first_of_each(keys: np.ndarray, candidates: np.ndarray) -> np.ndarray:
@@ -371,11 +382,11 @@ def _member_plan(part: TriPartition, meta: PartitionMeta,
 
 def _stack_segments(segs) -> SegmentPlan:
     n = segs[0].n_entries
+    lengths = np.concatenate([to_numpy(s.lengths) for s in segs])
     return SegmentPlan(
         order=np.concatenate([to_numpy(s.order) + g * n
                               for g, s in enumerate(segs)]),
-        lengths=np.concatenate([to_numpy(s.lengths) for s in segs]),
-        n_entries=n)
+        lengths=lengths, n_entries=n, offsets=segment_offsets(lengths))
 
 
 def stack_plans(plans) -> ReductionPlan:
@@ -408,7 +419,8 @@ def reduction_plan(part: TriPartition, meta: PartitionMeta,
 def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
     return SegmentPlan(_to_tensor(seg.order, np.int64, device),
                        _to_tensor(seg.lengths, np.int64, device),
-                       seg.n_entries)
+                       seg.n_entries,
+                       _to_tensor(seg.offsets, np.int64, device))
 
 
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:

@@ -3,7 +3,8 @@
 Port of ``repro.core.hybrid_spmm``. Computes ``Y = A @ B`` where A is a
 TriPartition, dispatching each component to its engine:
 
-  dense tiles -> per-tile T×T products, summed over tile_row
+  dense tiles -> per-tile T×T products, summed over tile_row (one
+                 kernel on the ``cuda`` backend)
   ELL units   -> gather + FMA over the ragged unit array
                  (``ell_dispatch="ragged"``), or per fixed-K bucket
                  (``"fused"``/``"loop"``, the per-K A/B dispatches)
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import (bsr_spmm_ref, ell_spmm_ref,
+from repro_torch.kernels.ref import (bsr_spmm_rows_ref, ell_spmm_ref,
                                      ragged_ell_spmm_ref)
 
 from .formats import (PartitionMeta, ReductionPlan, TriPartition, b_tiles_of,
@@ -44,12 +45,10 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
     """Dense-engine partial product, B [G, N, F] -> [G, nrt*T, F]."""
     g, _, f = b.shape
     T, nrt = meta.tile, meta.n_row_tiles
-    n_t = part.dense.tiles.shape[-3]
-    if n_t == 0:
+    if part.dense.tiles.shape[-3] == 0:
         return b.new_zeros((g, nrt * T, f))
-    prod = bsr_spmm_ref(part.dense.tiles, part.dense.tile_col,
-                        b_tiles_of(b, meta))                 # [G,n_t,T,F]
-    out = segment_sum(prod.reshape(g * n_t, T * f), plan.dense)
+    out = bsr_spmm_rows_ref(part.dense.tiles, part.dense.tile_col,
+                            b_tiles_of(b, meta), plan.dense)  # [G,nrt,T,F]
     return out.reshape(g, nrt * T, f)
 
 

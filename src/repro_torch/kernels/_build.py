@@ -2,11 +2,12 @@
 
 Every ``csrc/<name>.cu`` compiles on its own into a shared library with
 a plain C interface, ``build/<name>-<key>.so`` next to this file, where
-``key`` hashes the source and the compiler flags: an edited source
-builds anew, an unchanged one loads from the build directory. The first
-use of any kernel builds every source that is not built yet, one nvcc
-process per source, all started together. Nothing is built when the
-module is imported, and nothing is built for CPU tensors.
+``key`` hashes the source, the shared headers ``csrc/*.cuh`` and the
+compiler flags: an edited source or header builds anew, an unchanged
+one loads from the build directory. The first use of any kernel builds
+every source that is not built yet, one nvcc process per source, all
+started together. Nothing is built when the module is imported, and
+nothing is built for CPU tensors.
 
 Building against PyTorch's headers (``torch.utils.cpp_extension``) takes
 minutes per build; a plain C interface loaded with ``ctypes`` takes
@@ -47,12 +48,20 @@ def _nvcc() -> str:
 
 def _library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list:
+    """The shared headers (``csrc/*.cuh``): every source's key hashes
+    them too, so an edited header rebuilds every library."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def build_all() -> dict:

@@ -1,115 +1,193 @@
-// BSR SpMM: the dense-tile engine of the tri-partition, for Hopper (sm_90a).
+// BSR SpMM: the dense-tile engine of the tri-partition, for Hopper (sm_90a),
+// with the sum over tile_row inside the kernel.
 //
 // Replaces the TPU kernel `_bsr_kernel` / `bsr_spmm`
-// (src/repro/kernels/bsr_spmm.py). For every group member g and tile t:
+// (src/repro/kernels/bsr_spmm.py) together with the segment sum over
+// tile_row that the reference's `dense_tiles_matmul` applies to its
+// per-tile products. For every group member g and row tile r:
 //
-//   out[g,t] = tiles[g,t] (T x T) @ B[g, tile_col[g,t]] (T x F)
+//   out[g,r] = sum over j in [offsets[s], offsets[s+1]), s = g*n_rt + r, of
+//              tiles[e] (T x T) @ B[g, tile_col[e]] (T x F),  e = order[j]
 //
-// in float32 with float32 accumulation; the caller sums the products over
-// tile_row. One launch covers every tile of every member of a group.
+// in float32, where order/offsets are the host-built reduction plan of the
+// dense tiles (entries stably sorted by tile_row, per-segment counts
+// summed). Row tiles without a dense tile come out as zeros. With no plan
+// (order = offsets = null) every tile is its own segment: out[g,t] is the
+// per-tile product, which is the reference's `bsr_spmm`.
 //
-// What bounds it on the H100: bytes, at the main path's shapes. A 64x64
-// tile against a 64-wide feature slab does 2*64 FLOP per byte of the tile
-// it reads, but the output (as large as the B slab) is written back and
-// the tile count is small, so moving tiles, B tiles and products
-// (~4.5 MB for cora at F=128) outweighs the float32 FMA work at 67
-// TFLOP/s. Tensor cores are off the table in this version: the port holds
-// float32 parity with the reference, and TF32 keeps about three digits.
+// What bounds it on the H100: bytes, at the main path's shapes. A 64 x 64
+// tile against a 128-wide slab does 2*64 FLOP per byte of tile, but each
+// tile is used once and the B tiles and the 64-row output band are as
+// large as the tile or larger, so the tiles, the B tiles they use and the
+// band written (~30 MB at pubmed, F = 128) outweigh the FFMA work at 67
+// TFLOP/s; at F = 3..7 the tiles alone are the bytes.
 //
-// Design. One block per (64-row block of a tile, 64-wide feature block,
-// member); the block reads its own tile_col. It walks the tile's k axis
-// in chunks of 32: each chunk of the tile (stored transposed, padded
-// against bank conflicts) and of the B slab is staged in shared memory
-// with coalesced loads, and each of the 256 threads accumulates a 4x4
-// micro-tile with FFMA in ascending k, so the k order is fixed and the
-// result repeats bit for bit. Rows, k and features past T or F are
-// masked (loaded as 0, never stored), so F=7 or F=3 work. A later version
-// can use wgmma and TMA once a lower-precision mode is allowed.
-#include <cuda_runtime.h>
+// Design. One block per (row tile, feature slab, member) walks its row
+// tile's tiles in plan order. Their indices are read once into shared memory;
+// the tiles and the B tiles they use stream through the cp.async ring of
+// ffma_tile.cuh, so the next chunk's loads overlap this chunk's FFMA.
+// Each tile's product is one FMA chain per element in ascending k from
+// +0, kept in registers, then added onto the row accumulator (from +0, one
+// add per tile, in plan order): the order of torch.segment_reduce over the
+// per-tile products, so the result equals per-tile products summed by
+// `segment_sum` bit for bit. The band is written once. The products never
+// go through device memory, and no gather or segment-sum launch follows.
+//
+// The block shape is picked from F alone:
+//   wide    64 x 64 slab, 128 threads of 4 x 8 (F > 16). F = 128 takes
+//           two slabs: the second reads each tile again, from L2. On the
+//           H100 this beat one 128-wide slab of 256 threads at every main
+//           path shape (twice the blocks, a third fewer registers each);
+//   narrow  64 x 8 slab, 128 threads each owning one row and 4 features
+//           (F <= 16): no lane works on 64-wide zero columns.
+//
+// B rows of F = 3, 7 or 130 floats are not 16-byte aligned and are copied
+// 4 bytes at a time; tiles (T = 64) and F = 128 rows 16 bytes at a time.
+// No tensor cores: the port holds float32 parity with the reference.
+#include "ffma_tile.cuh"
 
 namespace {
 
-constexpr int kBM = 64;        // output rows per block
-constexpr int kBN = 64;        // output features per block
-constexpr int kBK = 32;        // k chunk staged per step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using Wide = ffma_tile::Tile<64, 64, 16, 4, 8, 4>;
+using Narrow = ffma_tile::Tile<64, 8, 16, 1, 4, 4>;
 
-__global__ void __launch_bounds__(kThreads)
-bsr_kernel(const float* __restrict__ tiles, const int* __restrict__ tile_col,
-           const float* __restrict__ b, float* __restrict__ out, int n_t,
-           int nct, int T, int F) {
-  __shared__ float as[kBK][kBM + 1];  // tile chunk, transposed: as[k][m]
-  __shared__ float bs[kBK][kBN];      // B chunk: bs[k][f]
+constexpr int kIndexBatch = 256;  // tile indices staged per pass
+constexpr int kNarrowMaxF = 16;   // widest F the narrow shape takes
 
-  const int m_blocks = (T + kBM - 1) / kBM;
-  const int t = blockIdx.x / m_blocks;
-  const int m0 = (blockIdx.x % m_blocks) * kBM;
-  const int f0 = blockIdx.y * kBN;
-  const long long gt = static_cast<long long>(blockIdx.z) * n_t + t;
-  const float* a = tiles + gt * T * T;
-  const float* bt =
-      b + (static_cast<long long>(blockIdx.z) * nct + tile_col[gt]) * T * F;
+// A16/B16: tile rows / B rows are copied 16 bytes at a time (else 4).
+template <class C, bool A16, bool B16>
+__global__ void __launch_bounds__(C::THREADS)
+bsr_rows_kernel(const float* __restrict__ tiles,
+                const int* __restrict__ tile_col,
+                const float* __restrict__ b,
+                const long long* __restrict__ order,
+                const long long* __restrict__ offsets,
+                float* __restrict__ out, int n_rt, int nct, int T, int F,
+                bool c16) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ long long s_tile[kIndexBatch];  // tile entry e
+  __shared__ long long s_b[kIndexBatch];     // B tile (member, col)
+  const int row_blocks = (T + C::BM - 1) / C::BM;
+  const int r = blockIdx.x / row_blocks;
+  const int m0 = (blockIdx.x % row_blocks) * C::BM;
+  const int f0 = blockIdx.y * C::BN;
+  const long long g = blockIdx.z;
+  const long long s = g * n_rt + r;
+  const long long begin = offsets ? offsets[s] : s;
+  const long long end = offsets ? offsets[s + 1] : s + 1;
+  const int tx = threadIdx.x % C::TCOLS;
+  const int ty = threadIdx.x / C::TCOLS;
+  const int rows = min(C::BM, T - m0);
+  const int cols = min(C::BN, F - f0);
+  const int k_chunks = (T + C::BK - 1) / C::BK;
+  const long long tt = static_cast<long long>(T) * T;
+  const long long tf = static_cast<long long>(T) * F;
+  const ffma_tile::Copier<C::BM, C::BK, C::ALD, C::THREADS, A16> copy_a(T);
+  const ffma_tile::Copier<C::BK, C::BN, C::BLD, C::THREADS, B16> copy_b(F);
+  float prod[C::TM][C::TN] = {};
+  float row[C::TM][C::TN] = {};
 
-  const int tx = threadIdx.x % 16;  // feature lane: f0 + tx + 16 * j
-  const int ty = threadIdx.x / 16;  // row lane:     m0 + ty + 16 * i
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-      const int m = i / kBK, k = i % kBK;  // consecutive threads along k
-      as[k][m] = (m0 + m < T && k0 + k < T)
-                     ? a[static_cast<long long>(m0 + m) * T + k0 + k]
-                     : 0.f;
-    }
-    for (int i = threadIdx.x; i < kBK * kBN; i += kThreads) {
-      const int k = i / kBN, f = i % kBN;  // consecutive threads along f
-      bs[k][f] = (k0 + k < T && f0 + f < F)
-                     ? bt[static_cast<long long>(k0 + k) * F + f0 + f]
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kBK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  for (long long b0 = begin; b0 < end; b0 += kIndexBatch) {
+    const int nb = static_cast<int>(min(end - b0, (long long)kIndexBatch));
+    __syncthreads();  // the previous batch's indices are no longer read
+    for (int i = threadIdx.x; i < nb; i += C::THREADS) {
+      const long long e = order ? order[b0 + i] : b0 + i;
+      s_tile[i] = e;
+      s_b[i] = g * nct + tile_col[e];
     }
     __syncthreads();
+    ffma_tile::pipeline<C>(
+        smem, nb * k_chunks,
+        [&](int q, float* as, float* bs) {
+          const int j = q / k_chunks;
+          const int k0 = (q % k_chunks) * C::BK;
+          copy_a.copy(as,
+                      tiles + s_tile[j] * tt + static_cast<long long>(m0) * T
+                          + k0,
+                      rows, T - k0);
+          copy_b.copy(bs, b + s_b[j] * tf + static_cast<long long>(k0) * F
+                              + f0,
+                      T - k0, cols);
+        },
+        [&](int q, const float* as, const float* bs) {
+          const int kq = q % k_chunks;
+          ffma_tile::fma_chunk<C>(prod, as, bs, ty, tx,
+                                  min(C::BK, T - kq * C::BK));
+          if (kq == k_chunks - 1) {  // the tile's product is complete
+#pragma unroll
+            for (int i = 0; i < C::TM; ++i)
+#pragma unroll
+              for (int jj = 0; jj < C::TN; ++jj) {
+                row[i][jj] += prod[i][jj];
+                prod[i][jj] = 0.f;
+              }
+          }
+        });
   }
+  ffma_tile::store<C>(row, out + (s * T + m0) * F + f0, F, rows, cols, ty,
+                      tx, c16);
+}
 
-  float* o = out + gt * T * F;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tx + 16 * j;
-      if (f < F) o[static_cast<long long>(m) * F + f] = acc[i][j];
-    }
-  }
+template <class C, bool A16, bool B16>
+int launch(const float* tiles, const int* tile_col, const float* b,
+           const long long* order, const long long* offsets, float* out,
+           int G, int n_rt, int nct, int T, int F, cudaStream_t stream) {
+  static bool smem_allowed[64] = {};
+  const int err = ffma_tile::allow_smem(bsr_rows_kernel<C, A16, B16>,
+                                        C::SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const dim3 grid(n_rt * ((T + C::BM - 1) / C::BM), (F + C::BN - 1) / C::BN,
+                  G);
+  const bool c16 = F % 4 == 0 && ffma_tile::aligned16(out);
+  bsr_rows_kernel<C, A16, B16><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      tiles, tile_col, b, order, offsets, out, n_rt, nct, T, F, c16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch(const float* tiles, const int* tile_col, const float* b,
+           const long long* order, const long long* offsets, float* out,
+           int G, int n_rt, int nct, int T, int F, cudaStream_t stream) {
+  const bool a16 = T % 4 == 0 && ffma_tile::aligned16(tiles);
+  const bool b16 = F % 4 == 0 && ffma_tile::aligned16(b);
+  if (a16 && b16)
+    return launch<C, true, true>(tiles, tile_col, b, order, offsets, out, G,
+                                 n_rt, nct, T, F, stream);
+  if (a16)
+    return launch<C, true, false>(tiles, tile_col, b, order, offsets, out, G,
+                                  n_rt, nct, T, F, stream);
+  if (b16)
+    return launch<C, false, true>(tiles, tile_col, b, order, offsets, out, G,
+                                  n_rt, nct, T, F, stream);
+  return launch<C, false, false>(tiles, tile_col, b, order, offsets, out, G,
+                                 n_rt, nct, T, F, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// tiles [G,n_t,T,T], tile_col [G,n_t], b [G,nct,T,F] -> out [G,n_t,T,F];
-// all contiguous, tile_col[...] < nct.
-int bsr_spmm_f32(const void* tiles, const void* tile_col, const void* b,
-                 void* out, int G, int n_t, int nct, int T, int F,
-                 void* stream) {
-  const dim3 grid(n_t * ((T + kBM - 1) / kBM), (F + kBN - 1) / kBN, G);
-  bsr_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tiles), static_cast<const int*>(tile_col),
-      static_cast<const float*>(b), static_cast<float*>(out), n_t, nct, T, F);
-  return static_cast<int>(cudaGetLastError());
+// tiles [G,n_t,T,T], tile_col [G,n_t] int32, b [G,nct,T,F] -> out
+// [G,n_rt,T,F]; all contiguous, tile_col[...] < nct. order [n_sel] int64
+// holds entries g*n_t + i stably sorted by segment g*n_rt + tile_row, and
+// offsets [G*n_rt + 1] int64 the start of each segment in order; both
+// null: n_rt = n_t and tile t is segment t (per-tile products).
+int bsr_spmm_rows_f32(const void* tiles, const void* tile_col, const void* b,
+                      const void* order, const void* offsets, void* out,
+                      int G, int n_rt, int nct, int T, int F,
+                      void* stream) {
+  const auto* pt = static_cast<const float*>(tiles);
+  const auto* pc = static_cast<const int*>(tile_col);
+  const auto* pb = static_cast<const float*>(b);
+  const auto* po = static_cast<const long long*>(order);
+  const auto* ps = static_cast<const long long*>(offsets);
+  auto* pout = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if ((order == nullptr) != (offsets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (F <= kNarrowMaxF)
+    return launch<Narrow>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
+  return launch<Wide>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
 }
 
 const char* cuda_error_string(int err) {

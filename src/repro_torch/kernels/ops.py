@@ -3,8 +3,10 @@
 Port of ``repro.kernels.ops``. Each function takes B with a leading
 group axis [G, N, F] and returns [G, n_padded_rows, F]; the hand-written
 kernels run for the whole group at once (CUDA tensors), or their plain
-versions run (CPU tensors). The reductions onto output rows are the
-deterministic segment sums of ``repro_torch.core.formats``.
+versions run (CPU tensors). The dense engine's sum onto row tiles runs
+inside its kernel; the ELL reductions onto output rows are the
+deterministic segment sums of ``repro_torch.core.formats``. Both add in
+the order of the host-built ``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.core.formats import (PartitionMeta, ReductionPlan,
                                       TriPartition, b_tiles_of, ell_buckets,
-                                      scatter_ell_partials, segment_sum)
+                                      scatter_ell_partials)
 
 from . import bsr_spmm as _bsr
 from . import ell_spmm as _ell
@@ -47,22 +49,23 @@ def check_ell_dispatch(dispatch: str) -> None:
 def matmul(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
     """C = A @ B through ``tile_matmul``: the kernel for CUDA tensors,
     its plain version for CPU tensors. ``kw`` is the kernel's block
-    width knob (``bn``)."""
+    configuration knob (``config``)."""
     return _mm.tile_matmul(a, b, device=a.device, **kw)
 
 
 def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
                        meta: PartitionMeta, plan: ReductionPlan
                        ) -> torch.Tensor:
-    """Dense-engine partial product through the BSR kernel."""
+    """Dense-engine partial product, [G, n_padded_rows, F]: one BSR
+    kernel launch that also sums the products over ``tile_row``, in the
+    order of ``plan.dense``."""
     g, _, f = b.shape
     T, nrt = meta.tile, meta.n_row_tiles
-    n_t = part.dense.tiles.shape[-3]
-    if n_t == 0:
+    if part.dense.tiles.shape[-3] == 0:
         return b.new_zeros((g, nrt * T, f))
-    prod = _bsr.bsr_spmm(part.dense.tiles, part.dense.tile_col,
-                         b_tiles_of(b, meta), device=b.device)
-    out = segment_sum(prod.reshape(g * n_t, T * f), plan.dense)
+    out = _bsr.bsr_spmm_rows(part.dense.tiles, part.dense.tile_col,
+                             b_tiles_of(b, meta), plan.dense,
+                             device=b.device)
     return out.reshape(g, nrt * T, f)
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.formats import SegmentPlan, segment_sum
 from repro_torch.device import pin_ieee_f32
 
 
@@ -41,6 +42,24 @@ def bsr_spmm_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
         tiles, tile_col, b_tiles = tiles[None], tile_col[None], b_tiles[None]
     out = torch.matmul(tiles, _gather_b_tiles(b_tiles, tile_col))
     return out if grouped else out[0]
+
+
+def bsr_spmm_rows_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
+                      b_tiles: torch.Tensor, plan: SegmentPlan
+                      ) -> torch.Tensor:
+    """The dense engine: per-tile products summed per row tile.
+
+    tiles [G, n_t, T, T], tile_col [G, n_t], b_tiles [G, nct, T, F] and
+    ``plan`` (a ``SegmentPlan`` over the G * n_t tiles onto G * n_rt row
+    tiles) -> [G, n_rt, T, F] float32: ``bsr_spmm_ref`` followed by
+    ``segment_sum`` over the plan, in its order. Row tiles without a tile
+    are 0.
+    """
+    g, n_t, t, _ = tiles.shape
+    f = b_tiles.shape[-1]
+    prod = bsr_spmm_ref(tiles, tile_col, b_tiles)
+    out = segment_sum(prod.reshape(g * n_t, t * f), plan)
+    return out.reshape(g, -1, t, f)
 
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,

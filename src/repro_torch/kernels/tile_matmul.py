@@ -7,13 +7,14 @@ the plain version, ``repro_torch.kernels.ref.tile_matmul_ref``. Any M,
 K and N work: the kernel masks the edges, which computes what the
 reference's zero padding computes.
 
-The Hopper kernel's output block is ``BM`` x ``bn``: 256 threads per
-block, each accumulating a (BM/16) x (bn/16) register micro-tile, with K
-walked in chunks of 32 staged in shared memory. ``BM`` is 64. The knob
-``bn`` is 64 or 16 and defaults to 16 for N <= 16 (the GCN's layer-2
-widths of 3-7 would leave most of a 64-wide tile idle) and to 64
-otherwise. Both widths give the same bits: each output element is one
-FMA chain in ascending k.
+The kernel has three block configurations (``CONFIGS``), all built on
+the FFMA mainloop of ``csrc/ffma_tile.cuh``: "wide" (64 x 128 output
+block), "fill" (32 x 128, twice the blocks, for an M too small to fill
+the card with wide blocks) and "narrow" (64 x 8, one row per thread, for
+N <= 16). Long K is split across a thread-block cluster at points that
+depend on K alone, and the partial sums are added in a fixed order, so
+every configuration gives the same bits. ``config=None`` picks by shape
+(``pick_config``).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ from repro_torch.device import resolve_device
 from . import _build
 from .ref import tile_matmul_ref
 
-BM = 64
-BLOCK_NS = (64, 16)
+CONFIGS = ("wide", "fill", "narrow")
+WIDE_BM, WIDE_BN = 64, 128     # the "wide" configuration's output block
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 launches = 0
@@ -52,14 +53,23 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"tile_matmul: {msg}")
 
 
-def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, bn: int = None,
+def pick_config(m: int, n: int, n_sms: int) -> str:
+    """"narrow" for N <= 16; else "wide" when its blocks fill the card's
+    ``n_sms`` SMs twice over, and "fill" (half-height blocks) when not."""
+    if n <= 16:
+        return "narrow"
+    wide_blocks = -(-m // WIDE_BM) * -(-n // WIDE_BN)
+    return "wide" if wide_blocks >= 2 * n_sms else "fill"
+
+
+def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
                 device="cuda") -> torch.Tensor:
     """C[M,N] = A[M,K] @ B[K,N] with a float32 accumulator, in A's dtype.
 
-    ``bn`` is the width of the kernel's output block (one of
-    ``BLOCK_NS``; ``None`` picks by N). Both tensors must lie on
-    ``device``. CPU tensors take the plain version; CUDA tensors must be
-    contiguous float32 and launch the kernel or raise.
+    ``config`` is the kernel's block configuration (one of ``CONFIGS``;
+    ``None`` picks by shape). Both tensors must lie on ``device``. CPU
+    tensors take the plain version; CUDA tensors must be contiguous
+    float32 and launch the kernel or raise.
     """
     dev = resolve_device(device)
     _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
@@ -67,9 +77,8 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, bn: int = None,
            f"{tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
-    if bn is None:
-        bn = 16 if n <= 16 else 64
-    _check(bn in BLOCK_NS, f"block width {bn} is not one of {BLOCK_NS}")
+    _check(config is None or config in CONFIGS,
+           f"configuration {config!r} is not one of {CONFIGS}")
     for x in (a, b):
         _check(x.device == dev, f"tensor on {x.device}, device={dev}")
     if dev.type == "cpu":
@@ -79,13 +88,16 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, bn: int = None,
            "the CUDA kernel takes float32 A and B")
     _check(a.is_contiguous() and b.is_contiguous(),
            "CUDA kernel needs contiguous tensors")
+    if config is None:
+        config = pick_config(m, n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m and n:
         lib, fn = _kernel()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bn,
-                     stream)
+            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                     CONFIGS.index(config), stream)
         _build.check(lib, err, "tile_matmul launch")
         global launches
         launches += 1

@@ -211,7 +211,8 @@ def _full_plan(dest, n_seg):
     """A plan that sums every entry (no padding duplicate dropped)."""
     s = segment_plan(dest, n_seg)
     return SegmentPlan(torch.from_numpy(s.order),
-                       torch.from_numpy(s.lengths), s.n_entries)
+                       torch.from_numpy(s.lengths), s.n_entries,
+                       torch.from_numpy(s.offsets))
 
 
 def test_segment_sum_matches_index_add():
@@ -223,7 +224,8 @@ def test_segment_sum_matches_index_add():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert torch.equal(got[9:], torch.zeros(3, 5))
     empty = SegmentPlan(torch.zeros(0, dtype=torch.int64),
-                        torch.zeros(4, dtype=torch.int64), 50)
+                        torch.zeros(4, dtype=torch.int64), 50,
+                        torch.zeros(5, dtype=torch.int64))
     assert torch.equal(segment_sum(data, empty), torch.zeros(4, 5))
 
 

@@ -39,7 +39,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ell_spmm import ell_spmm, ragged_ell_spmm
 from repro_torch.kernels.ref import (ell_spmm_ref, ragged_ell_spmm_ref,
                                      tile_matmul_ref)
-from repro_torch.kernels.tile_matmul import BLOCK_NS, tile_matmul
+from repro_torch.kernels.tile_matmul import (CONFIGS, pick_config,
+                                             tile_matmul)
 
 from conftest import (OVERFLOW_CFG, make_heterogeneous_matrix,
                       make_overflow_matrix)
@@ -231,10 +232,16 @@ def test_tile_matmul_plain_matches_pallas(m, k, n):
 
 def test_tile_matmul_knobs_and_checks():
     a, b = _t(np.ones((5, 3), np.float32), np.ones((3, 2), np.float32))
-    for bn in BLOCK_NS:
-        assert torch.equal(ops.matmul(a, b, bn=bn), torch.full((5, 2), 3.0))
-    with pytest.raises(ValueError, match="block width"):
-        tile_matmul(a, b, bn=256, device="cpu")
+    for config in CONFIGS:
+        assert torch.equal(ops.matmul(a, b, config=config),
+                           torch.full((5, 2), 3.0))
+    with pytest.raises(ValueError, match="configuration"):
+        tile_matmul(a, b, config="bogus", device="cpu")
+    # narrow for N <= 16; half-height blocks while wide ones (64 x 128)
+    # would not fill 132 SMs twice over
+    assert pick_config(32768, 3, 132) == "narrow"
+    assert pick_config(4096, 128, 132) == "fill"
+    assert pick_config(32768, 128, 132) == "wide"
     with pytest.raises(ValueError, match="expected"):
         tile_matmul(a, a, device="cpu")
     assert tile_matmul(a.double(), b.double(), device="cpu").dtype == \

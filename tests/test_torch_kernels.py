@@ -27,7 +27,7 @@ from repro_torch.kernels.bsr_spmm import bsr_spmm
 from repro_torch.kernels.ell_spmm import ell_spmm, ragged_ell_spmm
 from repro_torch.kernels.ref import (bsr_spmm_ref, ell_spmm_ref,
                                      ragged_ell_spmm_ref, tile_matmul_ref)
-from repro_torch.kernels.tile_matmul import BLOCK_NS, tile_matmul
+from repro_torch.kernels.tile_matmul import CONFIGS, tile_matmul
 
 from conftest import make_heterogeneous_matrix
 
@@ -220,19 +220,20 @@ def test_cuda_ell_spmm_matches_plain_bitwise(cuda_device, f, g):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(70, 33, 5), (257, 300, 130),
-                                   (3328, 1433, 128)])
+                                   (3328, 1433, 128), (4096, 3703, 128)])
 def test_cuda_tile_matmul_matches_plain(cuda_device, m, k, n):
     ops.reset_launch_counts()
     rng = np.random.default_rng(m)
     a, b = (x.to(cuda_device) for x in _t(
         rng.standard_normal((m, k)).astype(np.float32),
         rng.standard_normal((k, n)).astype(np.float32)))
-    outs = [tile_matmul(a, b, bn=bn) for bn in BLOCK_NS]
-    # one FMA chain per element in ascending k: both block widths agree
+    outs = [tile_matmul(a, b, config=c) for c in CONFIGS]
+    # one FMA chain per element in ascending k: every configuration agrees
     assert all(torch.equal(o, outs[0]) for o in outs)
+    assert torch.equal(tile_matmul(a, b), outs[0])
     bound = 1e-6 + 1e-5 * tile_matmul_ref(a.abs(), b.abs())
     assert bool(((outs[0] - tile_matmul_ref(a, b)).abs() <= bound).all())
-    assert ops.launch_counts()["tile_matmul"] == len(BLOCK_NS)
+    assert ops.launch_counts()["tile_matmul"] == len(CONFIGS) + 1
 
 
 @pytest.mark.cuda
