@@ -31,18 +31,25 @@ repository's ``src/`` next to this file. It
      engine does;
   7. the matmul path: the GCN's X·W products of the main path through
      ``kernels.ops.matmul`` (the ``tile_matmul`` kernel);
-  8. holds each of the four kernels against its plain PyTorch version at
+  8. profiles one ``infer`` per graph (``torch.profiler``): kernels and
+     device ms per infer, the card's busy share, and the launches of the
+     kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
+     gathers, ``segment_reduce`` and its scans, elementwise kernels);
+  9. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: ``torch.sparse.mm`` for the ELL
-     kernels, ``torch.matmul`` for ``tile_matmul`` (every block
-     configuration timed, all bitwise-equal), and for the dense engine
-     (``bsr_spmm_rows``: the BSR products summed per row tile in the
-     kernel) ``torch.bmm`` on gathered B tiles followed by
-     ``segment_sum``, with ``torch.bmm`` alone beside it; the folded
-     kernel must equal the per-tile kernel's products summed by
-     ``segment_sum`` bit for bit;
-  9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-     "device": ...}`` line.
+     kernels (for the main path's ``ragged_ell_rows`` a CSR onto the
+     padded rows, plus the add), ``torch.matmul`` for ``tile_matmul``
+     (every block configuration timed, all bitwise-equal), and for the
+     dense engine (``bsr_spmm_rows``: the BSR products summed per row
+     tile in the kernel) ``torch.bmm`` on gathered B tiles followed by
+     ``segment_sum``, with ``torch.bmm`` alone beside it. Each folded
+     kernel must equal its per-tile / per-unit kernel followed by
+     ``segment_sum`` (and, for the ELL rows, the add onto the dense
+     rows) bit for bit;
+ 10. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+     registers and spills) and, last, the ``{"ok": true, "device": ...}``
+     line.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository's sources, it exits non-zero and prints no result.
@@ -90,8 +97,11 @@ TIMING_REPS = 30
 GRAPH_CALLS = 20
 # device kernels counted by name in the profile of one infer
 PROFILE_NAMES = {"bsr_rows_kernel": "bsr_rows_kernel",
+                 "ell_rows_kernel": "ell_rows_kernel",
                  "segment_reduce": "segment_reduce",
-                 "index_select": "vectorized_gather"}
+                 "scan": "scan",
+                 "index_select": "vectorized_gather",
+                 "elementwise": "elementwise_kernel"}
 
 
 def fail(msg: str) -> None:
@@ -293,21 +303,22 @@ def check_main_path(torch, engine, graphs, counts) -> list:
     return problems
 
 
-def profile_infer(torch, engine, name, x_dev, calls: int = 5) -> dict:
-    """Device time of one ``infer`` with features on the card, from a
-    ``torch.profiler`` trace of ``calls`` calls: kernels per call, device
-    ms per call, the device's busy share of the traced wall time, and the
-    kernels that take the most device time."""
+def profile_calls(torch, fn, calls: int = 5) -> dict:
+    """Device time of one call of ``fn``, from a ``torch.profiler`` trace
+    of ``calls`` calls: kernels per call, device ms per call, the
+    device's busy share of the traced wall time, launches per call of the
+    kernels in ``PROFILE_NAMES``, and the kernels that take the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.infer(name, x_dev)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            engine.infer(name, x_dev)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel, launches = {}, 0
@@ -563,10 +574,9 @@ def kernel_cases(torch, engine, graphs):
                                      h.part.dense.tile_col, h.part.ell.cols,
                                      h.part.ell.vals, h.part.ell.tile_col,
                                      h.part.ell.unit_k, h.part.ell.rows)]
-                dense_plan = plan_to(stack_plans([h.host_plan] * G),
-                                     bt.device).dense
+                plan = plan_to(stack_plans([h.host_plan] * G), bt.device)
                 yield dict(graph=name, F=int(b.shape[1]), G=G), (
-                    part, bt, meta, dense_plan)
+                    part, bt, meta, plan.dense, plan.ell)
 
 
 def bsr_case(torch, case):
@@ -586,7 +596,7 @@ def bsr_case(torch, case):
     from repro_torch.kernels.ref import (_gather_b_tiles, bsr_spmm_ref,
                                          bsr_spmm_rows_ref)
 
-    part, bt, _, plan = case
+    part, bt, _, plan = case[:4]
     tiles, tcol, dev = part[0], part[1], bt.device
     g, n_t, t, _ = tiles.shape
     f = bt.shape[-1]
@@ -650,44 +660,156 @@ def unit_csr(torch, cols, vals, tcol, live, nct, t):
     return coo.to_sparse_csr().to(cols.device)
 
 
-def ell_bytes(cols, tcol, live, t, f, g, u, r) -> float:
-    """Bytes the ELL function must move: its cols/vals lanes, tile_col,
-    each distinct B row its lanes ``live`` address, and the output."""
-    live = np.broadcast_to(live, cols.shape)
-    gid = np.broadcast_to(np.arange(g)[:, None, None, None], cols.shape)
-    rows = (tcol.cpu().numpy()[:, :, None, None] * t + cols.cpu().numpy())
-    used_rows = len(np.unique(gid[live] * (1 << 40) + rows[live]))
-    return (cols.numel() * 8 + tcol.numel() * 4 + used_rows * f * 4
-            + g * u * r * f * 4)
+def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None) -> float:
+    """Bytes an ELL function must move.
+
+    Per unit (``plan`` None): its cols/vals lanes, tile_col, each distinct
+    B row its lanes ``live`` address, and the [G, U, R, F] output.
+
+    Folded onto rows (``plan``, the ELL ``SegmentPlan``): cols/vals of the
+    unit rows the plan sums, every Kmax lane of each (the mask sits on the
+    values, so a masked lane's B row is read too, and ``live`` is not
+    used), tile_col and unit_k of their units, the plan's order, the
+    offsets and live-table entries of its live rows, each distinct B row
+    those lanes address, and the live output rows, read once and written
+    once (no per-unit output).
+    """
+    c = cols.cpu().numpy()
+    tc = tcol.cpu().numpy()
+    if plan is None:
+        live = np.broadcast_to(live, cols.shape)
+        gid = np.broadcast_to(np.arange(g)[:, None, None, None], cols.shape)
+        rows = tc[:, :, None, None] * t + c
+        used_rows = len(np.unique(gid[live] * (1 << 40) + rows[live]))
+        return (cols.numel() * 8 + tcol.numel() * 4 + used_rows * f * 4
+                + g * u * r * f * 4)
+    kmax = c.shape[-1]
+    order = plan.order.cpu().numpy()
+    segs = np.flatnonzero(plan.lengths.cpu().numpy())
+    unit = order // r                                 # over the group
+    b_rows = ((unit // u)[:, None] * (1 << 40)
+              + tc.reshape(-1)[unit][:, None] * t
+              + c.reshape(-1, kmax)[order])
+    used_rows = len(np.unique(b_rows))
+    used_offsets = len(np.unique(np.concatenate([segs, segs + 1])))
+    return (order.size * kmax * 8 + len(np.unique(unit)) * 8
+            + order.size * 8 + used_offsets * 8 + segs.size * 8
+            + used_rows * f * 4 + 2 * segs.size * f * 4)
+
+
+def rows_csr(torch, cols, vals, tcol, uk, rows, meta, nct, t):
+    """The ELL entries as CSRs with int32 indices against B tiles
+    [G·nct·T, F] (sentinel rows and masked lanes dropped, duplicates
+    summed; built on the host, outside any timed region): one over all
+    G·P padded rows, one over only the rows with an entry, and those
+    rows' ids."""
+    g, u, r, k = cols.shape
+    p = meta.n_padded_rows
+    c = cols.cpu().numpy().astype(np.int64)
+    v = vals.cpu().numpy()
+    rw = np.broadcast_to(rows.cpu().numpy()[..., None], c.shape)
+    keep = ((np.arange(k) < uk.cpu().numpy()[:, :, None, None])
+            & (rw != meta.ell_sentinel_row) & (v != 0))
+    gi, ui, _, _ = np.nonzero(keep)
+    tc = tcol.cpu().numpy().astype(np.int64)
+    row = gi * p + rw[keep]
+    col = (gi * nct + tc[gi, ui]) * t + c[keep]
+    live, pos = np.unique(row, return_inverse=True)
+
+    def csr(at, n_rows):
+        m = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([at, col])), torch.from_numpy(v[keep]),
+            (n_rows, g * nct * t), check_invariants=False).coalesce()
+        m = m.to_sparse_csr()
+        return torch.sparse_csr_tensor(
+            m.crow_indices().int(), m.col_indices().int(), m.values(),
+            m.shape).to(cols.device)
+
+    return (csr(row, g * p), csr(pos, live.size),
+            torch.from_numpy(live).to(cols.device))
 
 
 def ell_case(torch, case):
-    from repro_torch.kernels.ell_spmm import ragged_ell_spmm
-    from repro_torch.kernels.ref import ragged_ell_spmm_ref
+    """The sparse engine as the main path runs it: one ``ragged_ell_rows``
+    launch, the per-unit products summed onto the padded rows in plan
+    order and added onto the dense engine's rows in place.
 
-    part, bt = case[:2]
-    cols, vals, tcol, uk = part[2:6]
-    got = ragged_ell_spmm(cols, vals, tcol, uk, bt, device=bt.device)
-    want = ragged_ell_spmm_ref(cols, vals, tcol, uk, bt)
+    Gates: bit for bit equal to its plain version (``ragged_ell_rows_ref``)
+    and to the parent's chain (per-unit ``ragged_ell_spmm`` +
+    ``scatter_ell_partials`` + ``yd + ye``); the per-unit kernel bit for
+    bit equal to ``ragged_ell_spmm_ref``. Yardsticks: the parent's chain
+    as one CUDA graph, the per-unit kernel alone, and ``torch.sparse.mm``
+    over a CSR of the ELL entries: over only the rows with an entry, then
+    ``index_add_`` onto those rows (``library_ms``), and over all padded
+    rows, plus the add, with the two kernels that take it the most device
+    time (cuSPARSE's SpMM time grows with the CSR's row count, even
+    where almost every row is empty)."""
+    from repro_torch.core.formats import scatter_ell_partials
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
+    from repro_torch.kernels.ell_spmm import ragged_ell_rows, ragged_ell_spmm
+    from repro_torch.kernels.ref import (ragged_ell_rows_ref,
+                                         ragged_ell_spmm_ref)
+
+    part, bt, meta, dense_plan, plan = case
+    cols, vals, tcol, uk, rows = part[2:7]
+    dev = bt.device
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
-    live = (np.arange(kmax)[None, None, None, :]
-            < uk.cpu().numpy()[:, :, None, None])          # [G,U,1,Kmax]
-    live = np.broadcast_to(live, cols.shape)
-    nbytes = ell_bytes(cols, tcol, live, t, f, g, u, r) + uk.numel() * 4
-    flops = 2.0 * int(live.sum()) * f
-    csr = unit_csr(torch, cols, vals, tcol, live, nct, t)
+    p = meta.n_padded_rows
+    yd = bsr_spmm_rows(part[0], part[1], bt, dense_plan,
+                       device=dev).reshape(g, p, f)
+
+    def per_unit():
+        return ragged_ell_spmm(cols, vals, tcol, uk, bt, device=dev)
+
+    def chain():
+        ye = scatter_ell_partials(rows.reshape(g, u * r),
+                                  per_unit().reshape(g, u * r, f), meta,
+                                  plan=plan)
+        return yd + ye
+
+    got = ragged_ell_rows(cols, vals, tcol, uk, bt, plan, yd.clone(),
+                          device=dev)
+    want = ragged_ell_rows_ref(cols, vals, tcol, uk, bt, plan, yd.clone())
+    folded_bitwise = torch.equal(got, chain())
+    per_unit_ok = torch.equal(per_unit(), ragged_ell_spmm_ref(
+        cols, vals, tcol, uk, bt))
+    buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
+    all_csr, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
+                                           meta, nct, t)
     b2 = bt.reshape(g * nct * t, f)
+
+    def all_rows():
+        return yd + torch.sparse.mm(all_csr, b2).reshape(g, p, f)
+
+    lengths = plan.lengths.cpu().numpy()
+    entries = plan.order.shape[0]
+    live = np.broadcast_to(np.arange(kmax)[None, None, None, :]
+                           < uk.cpu().numpy()[:, :, None, None], cols.shape)
+    flops = 2.0 * entries * kmax * f + entries * f + (lengths > 0).sum() * f
     return dict(
-        ok=bool(torch.equal(got, want)), err=max_err(got, want),
-        ms=device_ms(torch, lambda: ragged_ell_spmm(cols, vals, tcol, uk, bt,
-                                                    device=bt.device)),
-        call_ms=call_ms(torch, lambda: ragged_ell_spmm(cols, vals, tcol, uk,
-                                                       bt, device=bt.device)),
-        plain_ms=device_ms(torch, lambda: ragged_ell_spmm_ref(
-            cols, vals, tcol, uk, bt)),
-        library_ms=device_ms(torch, lambda: torch.sparse.mm(csr, b2)),
-        bound=bound(nbytes, flops))
+        ok=bool(torch.equal(got, want)) and folded_bitwise and per_unit_ok,
+        err=max_err(got, want), folded_bitwise=folded_bitwise,
+        per_unit_ok=per_unit_ok, entries=entries,
+        live_rows=int((lengths > 0).sum()),
+        ms=device_ms(torch, lambda: ragged_ell_rows(
+            cols, vals, tcol, uk, bt, plan, buf, device=dev)),
+        call_ms=call_ms(torch, lambda: ragged_ell_rows(
+            cols, vals, tcol, uk, bt, plan, buf, device=dev)),
+        plain_ms=device_ms(torch, lambda: ragged_ell_rows_ref(
+            cols, vals, tcol, uk, bt, plan, plain_buf)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_ids, torch.sparse.mm(live_csr, b2))),
+        library_all_rows_ms=device_ms(torch, all_rows),
+        library_all_rows_top=profile_calls(torch, all_rows,
+                                           calls=1)["top"][:2],
+        parent_chain_ms=device_ms(torch, chain),
+        per_unit_ms=device_ms(torch, per_unit),
+        per_unit_bound_ms=bound(ell_bytes(cols, tcol, live, t, f, g, u, r)
+                                + uk.numel() * 4,
+                                2.0 * int(live.sum()) * f)[0],
+        bound=bound(ell_bytes(cols, tcol, None, t, f, g, u, r, plan=plan),
+                    flops))
 
 
 def fixed_ell_case(torch, case):
@@ -784,11 +906,13 @@ KERNELS = (
 )
 
 
-def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
+def kernel_phase(torch, engine, graphs, launches, matmul_cases,
+                 build_log) -> tuple:
     """Hold each kernel against its plain version at every shape its path
     gave it, and time it. ``launches`` maps each kernel to the count of
     its path's run, or to {path: count} for a kernel of several paths
-    (``launches`` is then the first path's count)."""
+    (``launches`` is then the first path's count); ``build_log`` is the
+    build's log, whose ptxas lines each entry carries."""
     problems, entries = [], []
     cases = {"sparse": list(kernel_cases(torch, engine, graphs)),
              "matmul": [(dict(graph=name, layer=layer,
@@ -806,7 +930,10 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
             for extra in ("launches_per_call", "folded_bitwise",
                           "per_tile_ok", "tiles_summed", "row_tiles",
                           "per_tile_ms", "library_bmm_ms",
-                          "configs_bitwise", "config_ms"):
+                          "configs_bitwise", "config_ms", "per_unit_ok",
+                          "entries", "live_rows", "parent_chain_ms",
+                          "per_unit_ms", "per_unit_bound_ms",
+                          "library_all_rows_ms", "library_all_rows_top"):
                 if extra in res:
                     row[extra] = res[extra]
             rows.append(row)
@@ -825,6 +952,15 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
                       f"folded bitwise {res['folded_bitwise']}  tiles "
                       f"{res['tiles_summed']} over {res['row_tiles']} "
                       "row tiles")
+            if "parent_chain_ms" in res:
+                print(f"    parent chain {res['parent_chain_ms']:.4f} ms  "
+                      f"sparse.mm over all rows + add "
+                      f"{res['library_all_rows_ms']:.4f} ms "
+                      f"{json.dumps(res['library_all_rows_top'])}  "
+                      f"per-unit kernel {res['per_unit_ms']:.4f} ms (bound "
+                      f"{res['per_unit_bound_ms']:.5f})  folded bitwise "
+                      f"{res['folded_bitwise']}  {res['entries']} unit rows "
+                      f"onto {res['live_rows']} live rows")
             if not res["ok"]:
                 problems.append(f"{kname} {label}: disagrees with its plain "
                                 f"version ({res['err']})")
@@ -840,6 +976,8 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases) -> tuple:
             library_ms=head["library_ms"],
             shape=", ".join(f"{k}={v}" for k, v in head.items()
                             if k in ("graph", "F", "G", "layer", "shape")),
+            ptxas=ptxas_summary(build_log[os.path.basename(source)[:-3]]
+                                ["log"]),
             cases=rows))
     return problems, entries
 
@@ -899,8 +1037,8 @@ def main() -> None:
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
-        prof = profile_infer(torch, engine, name,
-                             torch.from_numpy(g["xs"][0]).cuda())
+        x_dev = torch.from_numpy(g["xs"][0]).cuda()
+        prof = profile_calls(torch, lambda: engine.infer(name, x_dev))
         row = dict(graph=name, n=g["n"], register_s=g["register_s"],
                    infer_ms=g["infer_ms"], infer_dev_ms=g["infer_dev_ms"],
                    group4_ms=g["group_ms"],
@@ -918,7 +1056,7 @@ def main() -> None:
                 "ell_spmm": {d: c["ell_spmm"] for d, c in ab_counts.items()},
                 "tile_matmul": mm_counts["tile_matmul"]}
     kproblems, entries = kernel_phase(torch, engine, graphs, launches,
-                                      mm_cases)
+                                      mm_cases, log)
     problems += kproblems
     print(json.dumps({"e2e": e2e, "dispatch_ab": ab_rows,
                       "lifecycle": lifecycle}))

@@ -257,13 +257,18 @@ class SegmentPlan(NamedTuple):
     entries and segments are numbered member by member (member g's
     entry i is ``g * n_entries + i``). ``offsets`` is where each segment
     starts in ``order`` (the cumulative sum of ``lengths`` after a 0,
-    ``segment_offsets``), which the dense engine's kernel reads.
+    ``segment_offsets``), which the kernels that fold a sum in read.
+    ``live`` [G, L] lists, per member, the segments with at least one
+    entry (ids over the whole group, ascending), padded with -1 to the
+    member with the most (``segment_live``): the grid of the ELL row
+    kernel.
     """
 
     order: torch.Tensor    # [n_sel] int64
     lengths: torch.Tensor  # [G * n_segments] int64
     n_entries: int         # entries per member
     offsets: torch.Tensor  # [G * n_segments + 1] int64
+    live: torch.Tensor     # [G, L] int64, -1 past a member's last
 
 
 def segment_offsets(lengths: np.ndarray) -> np.ndarray:
@@ -271,6 +276,22 @@ def segment_offsets(lengths: np.ndarray) -> np.ndarray:
     ``order[offsets[s]:offsets[s + 1]]``."""
     lengths = np.asarray(lengths, np.int64)
     return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+def segment_live(member_lengths) -> np.ndarray:
+    """[G, L] int64: member g's segments with entries, as ids over the
+    group (``g * n_segments + s``), padded with -1 to the longest
+    member's count L. ``member_lengths`` holds each member's lengths."""
+    ids, at = [], 0
+    for lengths in member_lengths:
+        lengths = np.asarray(lengths).reshape(-1)
+        ids.append(np.flatnonzero(lengths) + at)
+        at += lengths.shape[0]
+    out = np.full((len(ids), max((i.size for i in ids), default=0)), -1,
+                  np.int64)
+    for g, i in enumerate(ids):
+        out[g, :i.size] = i
+    return out
 
 
 class ReductionPlan(NamedTuple):
@@ -299,7 +320,8 @@ def segment_plan(dest: np.ndarray, n_segments: int,
     lengths = np.bincount(dest[idx], minlength=n_segments)
     return SegmentPlan(order=order.astype(np.int64),
                        lengths=lengths.astype(np.int64), n_entries=dest.size,
-                       offsets=segment_offsets(lengths))
+                       offsets=segment_offsets(lengths),
+                       live=segment_live([lengths]))
 
 
 def _first_of_each(keys: np.ndarray, candidates: np.ndarray) -> np.ndarray:
@@ -382,11 +404,13 @@ def _member_plan(part: TriPartition, meta: PartitionMeta,
 
 def _stack_segments(segs) -> SegmentPlan:
     n = segs[0].n_entries
-    lengths = np.concatenate([to_numpy(s.lengths) for s in segs])
+    member_lengths = [to_numpy(s.lengths) for s in segs]
+    lengths = np.concatenate(member_lengths)
     return SegmentPlan(
         order=np.concatenate([to_numpy(s.order) + g * n
                               for g, s in enumerate(segs)]),
-        lengths=lengths, n_entries=n, offsets=segment_offsets(lengths))
+        lengths=lengths, n_entries=n, offsets=segment_offsets(lengths),
+        live=segment_live(member_lengths))
 
 
 def stack_plans(plans) -> ReductionPlan:
@@ -420,7 +444,8 @@ def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
     return SegmentPlan(_to_tensor(seg.order, np.int64, device),
                        _to_tensor(seg.lengths, np.int64, device),
                        seg.n_entries,
-                       _to_tensor(seg.offsets, np.int64, device))
+                       _to_tensor(seg.offsets, np.int64, device),
+                       _to_tensor(seg.live, np.int64, device))
 
 
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:

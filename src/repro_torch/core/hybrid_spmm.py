@@ -6,9 +6,15 @@ TriPartition, dispatching each component to its engine:
   dense tiles -> per-tile T×T products, summed over tile_row (one
                  kernel on the ``cuda`` backend)
   ELL units   -> gather + FMA over the ragged unit array
-                 (``ell_dispatch="ragged"``), or per fixed-K bucket
-                 (``"fused"``/``"loop"``, the per-K A/B dispatches)
+                 (``ell_dispatch="ragged"``; on the ``cuda`` backend one
+                 kernel that also sums the unit rows onto output rows
+                 and adds them onto the dense engine's rows), or per
+                 fixed-K bucket (``"fused"``/``"loop"``, the per-K A/B
+                 dispatches, reduced by segment sums after the kernels)
   COO residual-> take + segment sum        (flexible engine)
+
+The three partial products add as ``(dense + ell) + coo`` on both
+backends.
 
 Two backends:
   * ``torch`` — plain PyTorch (mirrors the reference's ``xla``).
@@ -126,15 +132,14 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
 def _hybrid(part, b, meta, plan, backend, ell_dispatch):
     if backend == "cuda":
         yd = kops.dense_tiles_matmul(part, b, meta, plan)
-        ye = kops.ell_matmul(part, b, meta, plan, dispatch=ell_dispatch)
+        y = kops.ell_matmul(part, b, meta, plan, yd, dispatch=ell_dispatch)
     elif backend == "torch":
-        yd = dense_tiles_matmul(part, b, meta, plan)
-        ye = ell_matmul(part, b, meta, plan, dispatch=ell_dispatch)
+        y = (dense_tiles_matmul(part, b, meta, plan)
+             + ell_matmul(part, b, meta, plan, dispatch=ell_dispatch))
     else:
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")
-    yc = coo_matmul(part, b, meta, plan)
-    y = yd + ye + yc
+    y = y + coo_matmul(part, b, meta, plan)
     return y[:, : meta.n_rows]
 
 

@@ -2,17 +2,23 @@
 
 Port of ``repro.kernels.ell_spmm``:
 
-  * ``ragged_ell_spmm`` (TPU kernel ``_ragged_ell_kernel``) launches
-    ``csrc/ragged_ell_spmm.cu``: one launch covers every K width and
-    every member of a group (the group axis ``G`` is a grid dimension).
+  * ``ragged_ell_rows`` — the sparse engine as the main path runs it
+    (``"ragged"`` dispatch): the TPU kernel ``_ragged_ell_kernel``'s
+    products, summed onto output rows in the order of the ELL
+    ``SegmentPlan`` and added onto the dense engine's rows, in place, by
+    one launch of ``csrc/ragged_ell_spmm.cu`` for a whole group (the
+    group axis ``G`` is a grid dimension);
+  * ``ragged_ell_spmm`` — the TPU kernel's own function, per-unit
+    products over every K width: the same kernel with every unit row its
+    own segment and nothing to add onto;
   * ``ell_spmm`` (TPU kernel ``_ell_kernel``) launches
     ``csrc/ell_spmm.cu`` for one fixed-K bucket of the ragged array
     (``repro_torch.core.formats.ell_buckets``): the "fused"/"loop"
-    dispatches launch it once per bucket for the whole group.
+    dispatches launch it once per bucket for the whole group, and the
+    caller reduces its per-unit products onto the unit row ids.
 
 On CPU tensors each runs its plain version in
-``repro_torch.kernels.ref``. The output is per-unit partial products;
-the caller reduces them onto the unit row ids.
+``repro_torch.kernels.ref``.
 
 The module also keeps its own copy of the reference's K-band helpers
 (``merge_bands``, ``_bands_of``, ``_band_tables``, ``DEFAULT_MAX_BANDS``):
@@ -26,17 +32,18 @@ import ctypes
 
 import torch
 
+from repro_torch.core.formats import SegmentPlan
 from repro_torch.device import resolve_device
 
 from . import _build
-from .ref import ell_spmm_ref, ragged_ell_spmm_ref
+from .ref import ell_spmm_ref, ragged_ell_rows_ref, ragged_ell_spmm_ref
 
 # Band-merge cap of the class band plans (the reference's value).
 DEFAULT_MAX_BANDS = 4
 
 # Launches of the CUDA kernels since the last reset
-# (ops.reset_launch_counts): ``launches`` counts ragged_ell_spmm,
-# ``fixed_k_launches`` counts ell_spmm.
+# (ops.reset_launch_counts): ``launches`` counts the ragged kernel
+# (ragged_ell_rows and ragged_ell_spmm), ``fixed_k_launches`` ell_spmm.
 launches = 0
 fixed_k_launches = 0
 
@@ -103,17 +110,120 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = _build.library("ragged_ell_spmm")
-        fn = lib.ragged_ell_spmm_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        fn = lib.ragged_ell_rows_f32
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, what: str = "ragged_ell_spmm") -> None:
     if not cond:
-        raise ValueError(f"ragged_ell_spmm: {msg}")
+        raise ValueError(f"{what}: {msg}")
+
+
+def _checked(cols, vals, tile_col, unit_k, b_tiles, dev, what) -> tuple:
+    """The inputs with a group axis, after the checks both ragged
+    functions share; (cols, vals, tile_col, unit_k, b_tiles, grouped)."""
+    grouped = cols.dim() == 4
+    if not grouped:
+        cols, vals, tile_col, unit_k, b_tiles = (
+            cols[None], vals[None], tile_col[None], unit_k[None],
+            b_tiles[None])
+    _check(cols.dim() == 4 and b_tiles.dim() == 4,
+           "expected cols/vals [G,U,R,Kmax] and b_tiles [G,nct,T,F]", what)
+    g, u, r, kmax = cols.shape
+    _check(tuple(vals.shape) == (g, u, r, kmax)
+           and tuple(tile_col.shape) == (g, u)
+           and tuple(unit_k.shape) == (g, u) and b_tiles.shape[0] == g,
+           f"shapes differ: cols {tuple(cols.shape)}, vals "
+           f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, unit_k "
+           f"{tuple(unit_k.shape)}, b_tiles {tuple(b_tiles.shape)}", what)
+    _check(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
+           and unit_k.dtype == torch.int32 and vals.dtype == torch.float32
+           and b_tiles.dtype == torch.float32,
+           "expected int32 cols/tile_col/unit_k and float32 vals/B", what)
+    for x in (cols, vals, tile_col, unit_k, b_tiles):
+        _check(x.device == dev, f"tensor on {x.device}, device={dev}", what)
+        _check(dev.type == "cpu" or x.is_contiguous(),
+               "CUDA kernel needs contiguous tensors", what)
+    _check(dev.type == "cpu" or g * u * r < 2 ** 31,
+           f"{g * u * r} unit rows: the kernel numbers them in 32 bits",
+           what)
+    return cols, vals, tile_col, unit_k, b_tiles, grouped
+
+
+def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
+            dev) -> None:
+    """One kernel launch; ``plan`` None = unit mode."""
+    g, u, r, kmax = cols.shape
+    _, nct, t, f = b_tiles.shape
+    if not (g and n_slots and f):
+        return
+    lib, fn = _kernel()
+    idx = ((None,) * 3 if plan is None else
+           (plan.order.data_ptr(), plan.offsets.data_ptr(),
+            plan.live.data_ptr()))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
+                 unit_k.data_ptr(), b_tiles.data_ptr(), *idx, out.data_ptr(),
+                 g, n_slots, u, r, kmax, nct, t, f, stream)
+    _build.check(lib, err, "ragged_ell_spmm launch")
+    global launches
+    launches += 1
+
+
+def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
+                    tile_col: torch.Tensor, unit_k: torch.Tensor,
+                    b_tiles: torch.Tensor, plan: SegmentPlan,
+                    out: torch.Tensor, *, device="cuda") -> torch.Tensor:
+    """The sparse engine's rows, added onto ``out`` in place.
+
+    cols/vals [G, U, R, Kmax] (int32 tile-local / f32), tile_col/unit_k
+    [G, U] int32, b_tiles [G, nct, T, F] f32, ``plan`` the ELL
+    ``SegmentPlan`` (entries ``g*U*R + u*R + r`` onto segments
+    ``g*P + row``, the sentinel dropped, with its ``live`` table) and
+    ``out`` [G, P, F] f32, which holds the dense engine's rows. Each row
+    with ELL entries becomes ``out[row] + sum of its unit rows' products``
+    (the sum in plan order, from +0); rows without one are not touched.
+    Returns ``out``.
+
+    Every tensor must lie on ``device``. CPU tensors take the plain
+    version (``ragged_ell_spmm_ref``, ``segment_sum``, then the add);
+    CUDA tensors launch the kernel or raise.
+    """
+    what = "ragged_ell_rows"
+    dev = resolve_device(device)
+    cols, vals, tile_col, unit_k, b_tiles, _ = _checked(
+        cols, vals, tile_col, unit_k, b_tiles, dev, what)
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    n_seg = plan.lengths.shape[0]
+    _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
+           and out.shape[0] * out.shape[1] == n_seg
+           and out.dtype == torch.float32 and out.device == dev,
+           f"out {tuple(out.shape)} {out.dtype} on {out.device}: want "
+           f"float32 [{g}, {n_seg // max(g, 1)}, {f}] on {dev}", what)
+    _check(plan.n_entries == u * r and plan.order.device == dev,
+           f"plan of {plan.n_entries} entries on {plan.order.device}, want "
+           f"{u * r} on {dev}", what)
+    if dev.type == "cpu":
+        return ragged_ell_rows_ref(cols, vals, tile_col, unit_k, b_tiles,
+                                   plan, out)
+    _check(plan.live.dim() == 2 and plan.live.shape[0] == g,
+           f"plan needs its live table [{g}, L] (segment_live)", what)
+    for x in (plan.order, plan.offsets, plan.live):
+        _check(x.dtype == torch.int64 and x.is_contiguous()
+               and x.device == dev, "plan order/offsets/live must be "
+               f"contiguous int64 on {dev}", what)
+    _check(plan.offsets.shape[0] == n_seg + 1, f"{plan.offsets.shape[0]} "
+           f"offsets for {n_seg} segments", what)
+    _check(out.is_contiguous(), "CUDA kernel needs a contiguous out", what)
+    _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out,
+            plan.live.shape[1], dev)
+    return out
 
 
 def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
@@ -130,44 +240,15 @@ def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
     it and ``Engine.register`` checks it on the host.
     """
     dev = resolve_device(device)
-    grouped = cols.dim() == 4
-    if not grouped:
-        cols, vals, tile_col, unit_k, b_tiles = (
-            cols[None], vals[None], tile_col[None], unit_k[None],
-            b_tiles[None])
-    _check(cols.dim() == 4 and b_tiles.dim() == 4,
-           "expected cols/vals [G,U,R,Kmax] and b_tiles [G,nct,T,F]")
-    g, u, r, kmax = cols.shape
-    g2, nct, t, f = b_tiles.shape
-    _check(tuple(vals.shape) == (g, u, r, kmax)
-           and tuple(tile_col.shape) == (g, u)
-           and tuple(unit_k.shape) == (g, u) and g2 == g,
-           f"shapes differ: cols {tuple(cols.shape)}, vals "
-           f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, unit_k "
-           f"{tuple(unit_k.shape)}, b_tiles {tuple(b_tiles.shape)}")
-    _check(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
-           and unit_k.dtype == torch.int32 and vals.dtype == torch.float32
-           and b_tiles.dtype == torch.float32,
-           "expected int32 cols/tile_col/unit_k and float32 vals/B")
-    for x in (cols, vals, tile_col, unit_k, b_tiles):
-        _check(x.device == dev, f"tensor on {x.device}, device={dev}")
+    cols, vals, tile_col, unit_k, b_tiles, grouped = _checked(
+        cols, vals, tile_col, unit_k, b_tiles, dev, "ragged_ell_spmm")
     if dev.type == "cpu":
         out = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
         return out if grouped else out[0]
-
-    for x in (cols, vals, tile_col, unit_k, b_tiles):
-        _check(x.is_contiguous(), "CUDA kernel needs contiguous tensors")
-    out = torch.empty((g, u, r, f), dtype=torch.float32, device=dev)
-    if g and u and r and f:
-        lib, fn = _kernel()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
-                     unit_k.data_ptr(), b_tiles.data_ptr(), out.data_ptr(),
-                     g, u, r, kmax, nct, t, f, stream)
-        _build.check(lib, err, "ragged_ell_spmm launch")
-        global launches
-        launches += 1
+    g, u, r, _ = cols.shape
+    out = torch.empty((g, u, r, b_tiles.shape[-1]), dtype=torch.float32,
+                      device=dev)
+    _launch(cols, vals, tile_col, unit_k, b_tiles, None, out, u * r, dev)
     return out if grouped else out[0]
 
 

@@ -4,9 +4,11 @@ Port of ``repro.kernels.ops``. Each function takes B with a leading
 group axis [G, N, F] and returns [G, n_padded_rows, F]; the hand-written
 kernels run for the whole group at once (CUDA tensors), or their plain
 versions run (CPU tensors). The dense engine's sum onto row tiles runs
-inside its kernel; the ELL reductions onto output rows are the
-deterministic segment sums of ``repro_torch.core.formats``. Both add in
-the order of the host-built ``ReductionPlan``.
+inside its kernel. On the "ragged" dispatch the ELL sum onto output rows,
+and its add onto the dense engine's rows, run inside the ELL kernel too;
+the "fused"/"loop" dispatches reduce their per-unit products with the
+deterministic segment sums of ``repro_torch.core.formats``. All of them
+add in the order of the host-built ``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
@@ -70,37 +72,40 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
 
 
 def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
-               plan: ReductionPlan, *, dispatch: str = "ragged"
-               ) -> torch.Tensor:
-    """Sparse-engine partial product, [G, n_padded_rows, F].
+               plan: ReductionPlan, yd: torch.Tensor, *,
+               dispatch: str = "ragged") -> torch.Tensor:
+    """Sparse-engine partial product added onto the dense engine's rows
+    ``yd`` [G, n_padded_rows, F] in place; returns ``yd``. The dense
+    engine never writes -0, so a row the ELL part does not reach keeps
+    its bits (``yd + 0``).
 
-    ``"ragged"`` makes ONE ``ragged_ell_spmm`` launch over the
-    concatenated unit array of the whole group. ``"fused"``/``"loop"``
-    are the per-K A/B dispatches: one ``ell_spmm`` launch per bucket of
-    ``meta.ell_segments`` for the whole group, each writing its unit
-    slice of one product buffer; "fused" reduces the buffer once,
-    "loop" bucket by bucket into a running buffer.
+    ``"ragged"`` makes ONE ``ragged_ell_rows`` launch over the
+    concatenated unit array of the whole group: the products, their sum
+    onto rows and the add onto ``yd``.
+    ``"fused"``/``"loop"`` are the per-K A/B dispatches: one ``ell_spmm``
+    launch per bucket of ``meta.ell_segments`` for the whole group, each
+    writing its unit slice of one product buffer; "fused" reduces the
+    buffer once, "loop" bucket by bucket into a running buffer, and the
+    result is then added onto ``yd``.
     """
     check_ell_dispatch(dispatch)
     g, _, f = b.shape
     u, r = part.ell.cols.shape[-3], part.ell.cols.shape[-2]
     if u == 0:
-        return b.new_zeros((g, meta.n_padded_rows, f))
+        return yd
     bt = b_tiles_of(b, meta)
     if dispatch == "ragged":
-        prod = _ell.ragged_ell_spmm(part.ell.cols, part.ell.vals,
+        return _ell.ragged_ell_rows(part.ell.cols, part.ell.vals,
                                     part.ell.tile_col, part.ell.unit_k, bt,
-                                    device=b.device)
-    else:
-        prod = torch.empty((g, u, r, f), dtype=torch.float32,
-                           device=b.device)
-        at = 0
-        for bucket in ell_buckets(part.ell, meta.ell_segments):
-            n = bucket.cols.shape[-3]
-            _ell.ell_spmm(bucket.cols, bucket.vals, bucket.tile_col, bt,
-                          out=prod[:, at:at + n], device=b.device)
-            at += n
-    return reduce_ell(part, prod, meta, plan, dispatch)
+                                    plan.ell, yd, device=b.device)
+    prod = torch.empty((g, u, r, f), dtype=torch.float32, device=b.device)
+    at = 0
+    for bucket in ell_buckets(part.ell, meta.ell_segments):
+        n = bucket.cols.shape[-3]
+        _ell.ell_spmm(bucket.cols, bucket.vals, bucket.tile_col, bt,
+                      out=prod[:, at:at + n], device=b.device)
+        at += n
+    return yd.add_(reduce_ell(part, prod, meta, plan, dispatch))
 
 
 def reduce_ell(part: TriPartition, prod: torch.Tensor, meta: PartitionMeta,

@@ -116,3 +116,22 @@ def ragged_ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
                         torch.zeros((), dtype=vals.dtype, device=vals.device))
         acc = acc + v[..., None] * rows
     return acc if grouped else acc[0]
+
+
+def ragged_ell_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
+                        tile_col: torch.Tensor, unit_k: torch.Tensor,
+                        b_tiles: torch.Tensor, plan: SegmentPlan,
+                        out: torch.Tensor) -> torch.Tensor:
+    """The sparse engine's rows added onto ``out`` in place.
+
+    cols/vals [G, U, R, Kmax], tile_col/unit_k [G, U], b_tiles
+    [G, nct, T, F], ``plan`` (a ``SegmentPlan`` over the G * U * R unit
+    rows onto G * P padded rows) and ``out`` [G, P, F]:
+    ``ragged_ell_spmm_ref``, then ``segment_sum`` over the plan in its
+    order, then ``out += `` the sum. Returns ``out``.
+    """
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    prod = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
+    rows = segment_sum(prod.reshape(g * u * r, f), plan)
+    return out.add_(rows.reshape(out.shape))

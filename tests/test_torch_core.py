@@ -21,8 +21,8 @@ import repro_torch.data.graphs as tg
 import repro_torch.engine.shape_class as ts
 from repro_torch.convert import partition_from_numpy, weights_from_numpy
 from repro_torch.core.formats import (SegmentPlan, partition_to, plan_to,
-                                      reduction_plan, segment_plan,
-                                      segment_sum)
+                                      reduction_plan, segment_live,
+                                      segment_plan, segment_sum)
 
 from conftest import (OVERFLOW_CFG, make_heterogeneous_matrix,
                       make_overflow_matrix)
@@ -212,7 +212,8 @@ def _full_plan(dest, n_seg):
     s = segment_plan(dest, n_seg)
     return SegmentPlan(torch.from_numpy(s.order),
                        torch.from_numpy(s.lengths), s.n_entries,
-                       torch.from_numpy(s.offsets))
+                       torch.from_numpy(s.offsets),
+                       torch.from_numpy(s.live))
 
 
 def test_segment_sum_matches_index_add():
@@ -225,7 +226,8 @@ def test_segment_sum_matches_index_add():
     assert torch.equal(got[9:], torch.zeros(3, 5))
     empty = SegmentPlan(torch.zeros(0, dtype=torch.int64),
                         torch.zeros(4, dtype=torch.int64), 50,
-                        torch.zeros(5, dtype=torch.int64))
+                        torch.zeros(5, dtype=torch.int64),
+                        torch.from_numpy(segment_live([np.zeros(4)])))
     assert torch.equal(segment_sum(data, empty), torch.zeros(4, 5))
 
 

@@ -166,7 +166,7 @@ def test_ell_dispatch_other_than_ragged_raises():
     from repro_torch.core.formats import PartitionMeta
     meta = PartitionMeta(64, 64, 64, (), 1, 1, 0, 0, 0, 0, 0, (0.5, 0.01))
     with pytest.raises(ValueError, match="unknown ell dispatch"):
-        ops.ell_matmul(None, torch.zeros(1, 64, 4), meta, None,
+        ops.ell_matmul(None, torch.zeros(1, 64, 4), meta, None, None,
                        dispatch="bogus")
 
 
