@@ -12,16 +12,26 @@ repository's ``src/`` next to this file. It
      weights), then serves each graph one ``infer`` and one 4-request
      ``serve_group``, with the kernels' launch counters set to 0 just
      before and read just after;
-  4. checks every dispatch: logits finite and of the right shape, within
+  4. checks the main path: logits finite and of the right shape, within
      tolerance of the port's plain "torch" backend on the same card,
      ``serve_group`` outputs matching per-request ``infer``, repeat runs
      bitwise-equal, and exactly one launch of each kernel per layer;
-  5. dispatch A/B: the same requests through ``Engine(ell_dispatch=d)``
+     profiles one ``infer`` per graph (``torch.profiler``): kernels and
+     device ms per infer, the card's busy share, and the launches of the
+     kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
+     gathers, ``segment_reduce`` and its scans, elementwise kernels);
+  5. a reordered graph on the main path: cora at full size, reordered by
+     its planted communities (``reorder(csr, "labels", ...)``), served
+     one ``infer`` with the launches of the main path and logits within
+     tolerance of the plain backend and of the unreordered graph;
+  6. dispatch A/B: the same requests through ``Engine(ell_dispatch=d)``
      for the per-K dispatches "fused" and "loop" (one ``ell_spmm`` launch
-     per class band per layer, no ``ragged_ell_spmm``); "fused" logits
-     must equal the ragged dispatch's bit for bit, "loop" within
-     tolerance (bitwise equality printed), repeats bitwise;
-  6. lifecycle, on the "ragged" and the "fused" dispatch: three
+     per class band per layer, which also sums the band onto rows and
+     adds it onto the dense rows; no ``ragged_ell_spmm``); logits must
+     equal the ragged dispatch's bit for bit, repeats bitwise; one
+     ``infer`` of each is profiled beside the ragged dispatch's, and its
+     ELL part must be the band kernels alone;
+  7. lifecycle, on the "ragged" and the "fused" dispatch: three
      pubmed-shaped graphs of one shape class, served, then their class
      retired by a ``LifecycleManager`` window; the successors are
      tighter and at least one has fewer padded rows (so X·W and the
@@ -29,24 +39,21 @@ repository's ``src/`` next to this file. It
      the retirement, ``infer`` within tolerance (bitwise equality
      printed), and a replica view serves a successor class as the
      engine does;
-  7. the matmul path: the GCN's X·W products of the main path through
+  8. the matmul path: the GCN's X·W products of the main path through
      ``kernels.ops.matmul`` (the ``tile_matmul`` kernel);
-  8. profiles one ``infer`` per graph (``torch.profiler``): kernels and
-     device ms per infer, the card's busy share, and the launches of the
-     kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
-     gathers, ``segment_reduce`` and its scans, elementwise kernels);
   9. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
-     library call with CUDA events: ``torch.sparse.mm`` for the ELL
-     kernels (for the main path's ``ragged_ell_rows`` a CSR onto the
-     padded rows, plus the add), ``torch.matmul`` for ``tile_matmul``
-     (every block configuration timed, all bitwise-equal), and for the
-     dense engine (``bsr_spmm_rows``: the BSR products summed per row
-     tile in the kernel) ``torch.bmm`` on gathered B tiles followed by
+     library call with CUDA events: for the ELL row kernels
+     (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
+     ``torch.sparse.mm`` over a CSR of the rows with an entry, then
+     ``index_add_`` onto them; ``torch.matmul`` for ``tile_matmul``
+     (every block configuration timed, all bitwise-equal); for the dense
+     engine (``bsr_spmm_rows``: the BSR products summed per row tile in
+     the kernel) ``torch.bmm`` on gathered B tiles followed by
      ``segment_sum``, with ``torch.bmm`` alone beside it. Each folded
      kernel must equal its per-tile / per-unit kernel followed by
-     ``segment_sum`` (and, for the ELL rows, the add onto the dense
-     rows) bit for bit;
+     ``segment_sum`` (for the ELL rows also the add onto the dense rows;
+     for the bands also the "loop" chain of per-bucket sums) bit for bit;
  10. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills) and, last, the ``{"ok": true, "device": ...}``
      line.
@@ -98,6 +105,7 @@ GRAPH_CALLS = 20
 # device kernels counted by name in the profile of one infer
 PROFILE_NAMES = {"bsr_rows_kernel": "bsr_rows_kernel",
                  "ell_rows_kernel": "ell_rows_kernel",
+                 "ell_band_kernel": "ell_band_kernel",
                  "segment_reduce": "segment_reduce",
                  "scan": "scan",
                  "index_select": "vectorized_gather",
@@ -303,28 +311,101 @@ def check_main_path(torch, engine, graphs, counts) -> list:
     return problems
 
 
+def reordered_phase(torch, engine, graphs) -> tuple:
+    """One more graph on the main path: cora at full size, reordered by
+    its planted communities (``reorder(csr, "labels", labels=
+    make_paper_dataset.last_labels)``, the paper workload's first step),
+    registered on the main path's engine and served one ``infer``, with
+    the launch counters set to 0 just before and read just after.
+
+    Gates: the main path's launches, one per layer of each engine that
+    the graph's shape class has (the reordering moves all of cora's
+    dense tiles into the ELL engine, so its class may have none, and
+    then ``bsr_spmm`` has no launch), and nothing else; logits finite,
+    of the graph's shape, within ``LOGIT_TOL`` of the plain "torch"
+    backend on the same reordered graph and of the main path's
+    unreordered cora logits (same weights and features; the engine
+    returns rows in the graph's own order).
+
+    Returns (problems, record, launch counts of the run).
+    """
+    from repro_torch.core.reorder import bandwidth, reorder
+    from repro_torch.data.graphs import make_paper_dataset
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import ops
+
+    g = graphs["cora"]
+    csr, _, _, _ = make_paper_dataset("cora", scale=1.0, seed=SEED)
+    labels = make_paper_dataset.last_labels
+    name = "cora@labels"
+    t0 = time.perf_counter()
+    engine.register(name, csr, reorder="labels", labels=labels,
+                    weights=g["ws"])
+    register_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    y = engine.infer(name, g["xs"][0])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    problems = []
+    sc = engine.handle(name).sclass
+    want = {"bsr_spmm": LAYERS if sc.n_dense_tiles else 0,
+            "ragged_ell_spmm": LAYERS if sc.ell_units else 0,
+            "ell_spmm": 0, "tile_matmul": 0}
+    if counts != want or counts["ragged_ell_spmm"] == 0:
+        problems.append(f"{name}: launches {counts}, want {want}")
+    if tuple(y.shape) != (g["n"], g["classes"]) or not bool(
+            torch.isfinite(y).all()):
+        problems.append(f"{name}: logits {tuple(y.shape)}, finite "
+                        f"{bool(torch.isfinite(y).all())}")
+    ref = Engine(device="cuda", backend="torch")
+    ref.register(name, csr, reorder="labels", labels=labels, weights=g["ws"])
+    y_ref = ref.infer(name, g["xs"][0])
+    for what, other in (("torch backend", y_ref),
+                        ("unreordered graph", g["y_infer"])):
+        if not close(y, other, **LOGIT_TOL):
+            problems.append(f"{name} vs {what}: max_abs_err "
+                            f"{max_err(y, other)}")
+    record = dict(graph=name, register_s=register_s, launches=counts,
+                  err_vs_torch=max_err(y, y_ref),
+                  err_vs_unreordered=max_err(y, g["y_infer"]),
+                  bandwidth=[bandwidth(csr), bandwidth(reorder(
+                      csr, "labels", labels=labels)[0])],
+                  shape_class=sc.summary(),
+                  main_path_class=engine.handle("cora").sclass.summary())
+    return problems, record, counts
+
+
 def profile_calls(torch, fn, calls: int = 5) -> dict:
     """Device time of one call of ``fn``, from a ``torch.profiler`` trace
     of ``calls`` calls: kernels per call, device ms per call, the
     device's busy share of the traced wall time, launches per call of the
     kernels in ``PROFILE_NAMES``, and the kernels that take the most
-    device time."""
+    device time. The trace is the profiler's second step: the first, a
+    warm-up step of the same calls, is discarded, because kernels of the
+    first calls after the profiler starts may go unrecorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(list(p.events()))
+                 ) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
     per_kernel, launches = {}, 0
     by_name = dict.fromkeys(PROFILE_NAMES, 0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in traced[-1]:
+        # the step's own annotation spans the step on the device too
+        if (e.device_type == DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep")):
             launches += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
@@ -343,7 +424,16 @@ def profile_calls(torch, fn, calls: int = 5) -> dict:
 def dispatch_ab(torch, graphs) -> tuple:
     """Serve the main path's requests through ``Engine(ell_dispatch=d)``
     for each per-K dispatch, with the launch counters set to 0 just
-    before each dispatch's run and read just after.
+    before each dispatch's run and read just after; then profile one
+    ``infer`` per graph beside the ragged dispatch's profile
+    (``graphs[name]["profile"]``).
+
+    Gates: one ``ell_spmm`` launch per class band per layer and no
+    ``ragged_ell_spmm``; logits bit for bit equal to the ragged
+    dispatch's; repeats bitwise; in the profile, band kernels and no
+    ``ell_rows_kernel`` on the ELL part, and no gather,
+    ``segment_reduce``, scan or elementwise kernel beyond the ragged
+    dispatch's (``profile_problems``).
 
     Returns (problems, per-(dispatch, graph) records, launch counts of
     each dispatch's run).
@@ -384,17 +474,17 @@ def dispatch_ab(torch, graphs) -> tuple:
             pairs = [(y, g["y_infer"])] + list(zip(ys, g["y_group"]))
             bitwise = all(torch.equal(a, b) for a, b in pairs)
             err = max(max_err(a, b) for a, b in pairs)
-            if d == "fused" and not bitwise:
-                problems.append(f"fused {name}: logits not bitwise-equal to "
+            if not bitwise:
+                problems.append(f"{d} {name}: logits not bitwise-equal to "
                                 f"the ragged dispatch (max_abs_err {err})")
-            if not all(close(a, b, **LOGIT_TOL) for a, b in pairs):
-                problems.append(f"{d} {name}: logits vs ragged max_abs_err "
-                                f"{err}")
             again = [engine.infer(name, g["xs"][0])] + engine.serve_group(
                 [(name, x) for x in g["xs"]])
             if not all(torch.equal(a, b) for a, b in zip(again, [y] + ys)):
                 problems.append(f"{d} {name}: repeat not bitwise-equal")
             x_dev = torch.from_numpy(g["xs"][0]).cuda()
+            prof = profile_calls(torch, lambda: engine.infer(name, x_dev))
+            problems += profile_problems(f"{d} {name}", prof, g["profile"],
+                                         bands)
             rows.append(dict(
                 dispatch=d, graph=name, bands=bands,
                 register_s=register_s[name],
@@ -404,10 +494,38 @@ def dispatch_ab(torch, graphs) -> tuple:
                 infer_dev_ms=wall_ms(torch, lambda: engine.infer(name,
                                                                  x_dev)),
                 ragged_infer_ms=g["infer_ms"],
-                ragged_infer_dev_ms=g["infer_dev_ms"]))
+                ragged_infer_dev_ms=g["infer_dev_ms"],
+                profile={k: prof[k] for k in ("kernels_per_infer",
+                                              "device_ms_per_infer",
+                                              "busy_share",
+                                              "launches_per_infer")},
+                ragged_profile={k: g["profile"][k] for k in (
+                    "kernels_per_infer", "device_ms_per_infer")}))
         if counts["ell_spmm"] == 0 or counts["ragged_ell_spmm"] != 0:
             problems.append(f"{d}: launches {counts}")
     return problems, rows, per_dispatch
+
+
+def profile_problems(what, prof, ragged, bands) -> list:
+    """A per-K dispatch's profile of one infer against the ragged
+    dispatch's: its ELL part is the band kernels alone, at most one per
+    band per layer. A profile may miss or add a stray event, so the
+    other kernels by name may exceed "ragged"'s by less than one per
+    infer: the chain the band kernels replace launched a gather and a
+    ``segment_reduce`` per layer."""
+    got, base = prof["launches_per_infer"], ragged["launches_per_infer"]
+    problems = []
+    if got["ell_rows_kernel"] or not 0 < got["ell_band_kernel"] <= (
+            LAYERS * bands):
+        problems.append(f"{what}: ELL kernels per infer {got}, want only "
+                        f"ell_band_kernel, {LAYERS * bands} per infer")
+    extra = {k: got[k] - base[k] for k in got
+             if k not in ("ell_rows_kernel", "ell_band_kernel")
+             and got[k] - base[k] >= 1}
+    if extra:
+        problems.append(f"{what}: kernels per infer beyond the ragged "
+                        f"dispatch's: {extra} (got {got}, ragged {base})")
+    return problems
 
 
 # ----------------------------------------------------------- lifecycle ----
@@ -576,7 +694,7 @@ def kernel_cases(torch, engine, graphs):
                                      h.part.ell.unit_k, h.part.ell.rows)]
                 plan = plan_to(stack_plans([h.host_plan] * G), bt.device)
                 yield dict(graph=name, F=int(b.shape[1]), G=G), (
-                    part, bt, meta, plan.dense, plan.ell)
+                    part, bt, meta, plan.dense, plan.ell, plan.ell_bands)
 
 
 def bsr_case(torch, case):
@@ -640,24 +758,6 @@ def bsr_case(torch, case):
         library_ms=device_ms(torch, library),
         library_bmm_ms=device_ms(torch, lambda: torch.bmm(a3, b3)),
         bound=bound(nbytes, flops))
-
-
-def unit_csr(torch, cols, vals, tcol, live, nct, t):
-    """The unit array [G, U, R, K] as one CSR [G·U·R, G·nct·T] over the
-    lanes ``live`` (built on the host, outside any timed region): its
-    product with B tiles [G·nct·T, F] is the per-unit ELL product."""
-    g, u, r, k = cols.shape
-    c = cols.cpu().numpy().astype(np.int64)
-    v = vals.cpu().numpy()
-    keep = np.asarray(live) & (v != 0)
-    gi, ui, ri, _ = np.nonzero(keep)
-    tc = tcol.cpu().numpy().astype(np.int64)
-    row = (gi * u + ui) * r + ri
-    col = (gi * nct + tc[gi, ui]) * t + c[keep]
-    coo = torch.sparse_coo_tensor(
-        torch.from_numpy(np.stack([row, col])), torch.from_numpy(v[keep]),
-        (g * u * r, g * nct * t), check_invariants=False).coalesce()
-    return coo.to_sparse_csr().to(cols.device)
 
 
 def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None) -> float:
@@ -729,6 +829,19 @@ def rows_csr(torch, cols, vals, tcol, uk, rows, meta, nct, t):
             torch.from_numpy(live).to(cols.device))
 
 
+def dense_rows(part, bt, dense_plan, p):
+    """The dense engine's rows [G, P, F] as the main path makes them:
+    one ``bsr_spmm_rows`` launch, or +0 rows and no launch for a class
+    without dense tiles (``ops.dense_tiles_matmul``)."""
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
+
+    g, f = bt.shape[0], bt.shape[-1]
+    if part[0].shape[1] == 0:
+        return bt.new_zeros((g, p, f))
+    return bsr_spmm_rows(part[0], part[1], bt, dense_plan,
+                         device=bt.device).reshape(g, p, f)
+
+
 def ell_case(torch, case):
     """The sparse engine as the main path runs it: one ``ragged_ell_rows``
     launch, the per-unit products summed onto the padded rows in plan
@@ -745,19 +858,17 @@ def ell_case(torch, case):
     time (cuSPARSE's SpMM time grows with the CSR's row count, even
     where almost every row is empty)."""
     from repro_torch.core.formats import scatter_ell_partials
-    from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
     from repro_torch.kernels.ell_spmm import ragged_ell_rows, ragged_ell_spmm
     from repro_torch.kernels.ref import (ragged_ell_rows_ref,
                                          ragged_ell_spmm_ref)
 
-    part, bt, meta, dense_plan, plan = case
+    part, bt, meta, dense_plan, plan = case[:5]
     cols, vals, tcol, uk, rows = part[2:7]
     dev = bt.device
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
     p = meta.n_padded_rows
-    yd = bsr_spmm_rows(part[0], part[1], bt, dense_plan,
-                       device=dev).reshape(g, p, f)
+    yd = dense_rows(part, bt, dense_plan, p)
 
     def per_unit():
         return ragged_ell_spmm(cols, vals, tcol, uk, bt, device=dev)
@@ -812,56 +923,141 @@ def ell_case(torch, case):
                     flops))
 
 
-def fixed_ell_case(torch, case):
-    """All buckets of one layer's ELL product, as the "fused"/"loop"
-    dispatches launch them: one ``ell_spmm`` per class band, each writing
-    its unit slice of one buffer."""
-    from repro_torch.core.formats import RaggedEll, ell_buckets
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ell_spmm import ell_spmm
-    from repro_torch.kernels.ref import ell_spmm_ref
+def band_bytes(buckets, bands, t, f) -> tuple:
+    """(bytes, operations) of one layer's band rows: cols/vals of the unit
+    rows the band plans sum (the band's K lanes of each), their units'
+    tile_col, the plans' order and their live slots' offsets, row and
+    carry entries, each distinct B row those lanes address, the live
+    output rows read and written once, and each carried row written and
+    read once."""
+    nbytes = flops = 0.0
+    b_rows, out_rows = set(), set()
+    for bk, band in zip(buckets, bands):
+        g, u, r, k = bk.cols.shape
+        order = band.order.cpu().numpy()
+        rows = band.rows.cpu().numpy()
+        carry = band.carry.cpu().numpy()
+        gi, si = np.nonzero(rows >= 0)
+        lengths = np.diff(band.offsets.cpu().numpy()).reshape(rows.shape)
+        member = np.repeat(gi, lengths[gi, si])       # member of each entry
+        unit = order // r
+        c = bk.cols.cpu().numpy().reshape(g, u * r, k)[member, order]
+        tc = bk.tile_col.cpu().numpy()[member, unit]
+        b_rows.update(((member * (1 << 20) + tc)[:, None] * t + c)
+                      .reshape(-1).tolist())
+        out_rows.update((gi * (1 << 32) + rows[gi, si]).tolist())
+        n_carried = int((carry[gi, si] >= 0).sum())
+        nbytes += (order.size * k * 8 + len(set(zip(member, unit))) * 4
+                   + order.size * 8 + (3 * gi.size + 1) * 8
+                   + n_carried * f * 4)
+        flops += 2.0 * order.size * k * f + order.size * f
+    nbytes += len(b_rows) * f * 4 + len(out_rows) * f * 8
+    flops += len(out_rows) * f
+    return nbytes, flops
 
-    part, bt, meta = case[:3]
+
+def fixed_ell_case(torch, case):
+    """One layer's ELL rows as the "fused"/"loop" dispatches run them: one
+    ``ell_spmm_rows`` launch per class band, each summing its unit rows'
+    products onto the padded rows (carrying a row's sum from band to
+    band) and adding them onto the dense engine's rows in place.
+
+    Gates: bit for bit equal to its plain version (``ell_spmm_rows_ref``
+    band after band) and to the parent's chains: the per-unit
+    ``ell_spmm`` kernel per band, ``scatter_ell_partials`` at once
+    ("fused", in the order of ``plan.ell``) or bucket by bucket into a
+    running buffer ("loop"), then ``yd + ye``; one launch per band.
+    Yardsticks: both chains as CUDA graphs, and ``torch.sparse.mm`` over a
+    CSR of the ELL entries of only the rows with an entry, then
+    ``index_add_`` onto those rows."""
+    from repro_torch.core.formats import (RaggedEll, bucket_plan,
+                                          ell_buckets, scatter_ell_partials)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_rows
+    from repro_torch.kernels.ref import ell_spmm_rows_ref
+
+    part, bt, meta, dense_plan, plan, bands = case
     cols, vals, tcol, uk, rows = part[2:7]
-    buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
-                          meta.ell_segments)
+    dev = bt.device
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
-    out = torch.empty((g, u, r, f), dtype=torch.float32, device=bt.device)
+    p = meta.n_padded_rows
+    buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
+                          meta.ell_segments)
+    n_carry = bands[0].n_carry
+    carry = torch.zeros((g, n_carry, f), device=dev)
+    yd = dense_rows(part, bt, dense_plan, p)
 
-    def run():
+    def folded(out, rows_fn=ell_spmm_rows, **kw):
+        for bk, band in zip(buckets, bands):
+            rows_fn(bk.cols, bk.vals, bk.tile_col, bt, band, out, carry, **kw)
+        return out
+
+    prod = torch.empty((g, u, r, f), dtype=torch.float32, device=dev)
+
+    def products():
         at = 0
         for bk in buckets:
             n = bk.cols.shape[-3]
             ell_spmm(bk.cols, bk.vals, bk.tile_col, bt,
-                     out=out[:, at:at + n], device=bt.device)
+                     out=prod[:, at:at + n], device=dev)
             at += n
-        return out
+        return prod
 
-    def plain():
-        return torch.cat([ell_spmm_ref(bk.cols, bk.vals, bk.tile_col, bt)
-                          for bk in buckets], dim=1)
+    loop_plans = [bucket_plan(bk.rows.reshape(g, -1), meta, dev)
+                  for bk in buckets]
+
+    def fused_chain():
+        return yd + scatter_ell_partials(rows.reshape(g, u * r),
+                                         products().reshape(g, u * r, f),
+                                         meta, plan=plan)
+
+    def loop_chain():
+        pr, at, parts = products(), 0, []
+        for bk in buckets:
+            n = bk.cols.shape[-3]
+            parts.append(pr[:, at:at + n].reshape(g, n * r, f))
+            at += n
+        return yd + scatter_ell_partials(
+            [bk.rows.reshape(g, -1) for bk in buckets], parts, meta,
+            plan=loop_plans)
 
     c0 = ops.launch_counts()["ell_spmm"]
-    got = run().clone()
+    got = folded(yd.clone(), device=dev)
     launches_per_call = ops.launch_counts()["ell_spmm"] - c0
-    want = plain()
-    # lanes the fixed-K function reads: kk < K of each unit's bucket
-    kk_of = np.concatenate([np.full(bk.cols.shape[-3], bk.cols.shape[-1])
-                            for bk in buckets])
-    live = np.broadcast_to(np.arange(kmax)[None, None, None, :]
-                           < kk_of[None, :, None, None], cols.shape)
-    lanes = int(live.sum())
-    nbytes = (ell_bytes(cols, tcol, live, t, f, g, u, r)
-              - cols.numel() * 8 + lanes * 8)     # only the K-wide slabs
-    flops = 2.0 * lanes * f
-    csr = unit_csr(torch, cols, vals, tcol, live, nct, t)
+    want = folded(yd.clone(), ell_spmm_rows_ref)
+    fused_bitwise = torch.equal(got, fused_chain())
+    loop_bitwise = torch.equal(got, loop_chain())
+    _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
+                                     meta, nct, t)
     b2 = bt.reshape(g * nct * t, f)
+    buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
+    nbytes, flops = band_bytes(buckets, bands, t, f)
     return dict(
-        ok=bool(torch.equal(got, want)), err=max_err(got, want),
-        launches_per_call=launches_per_call, ms=device_ms(torch, run),
-        call_ms=call_ms(torch, run), plain_ms=device_ms(torch, plain),
-        library_ms=device_ms(torch, lambda: torch.sparse.mm(csr, b2)),
+        ok=(bool(torch.equal(got, want)) and fused_bitwise and loop_bitwise
+            and launches_per_call == len(buckets)),
+        err=max_err(got, want), folded_bitwise=fused_bitwise,
+        loop_bitwise=loop_bitwise, launches_per_call=launches_per_call,
+        bands=[[int(bk.cols.shape[-1]), int(band.rows.shape[1])]
+               for bk, band in zip(buckets, bands)],
+        ms=device_ms(torch, lambda: folded(buf, device=dev)),
+        call_ms=call_ms(torch, lambda: folded(buf, device=dev)),
+        # the plain version syncs (its loops and masks are sized from the
+        # plan's data), so it is timed per call, not as a CUDA graph
+        plain_ms=call_ms(torch, lambda: folded(plain_buf,
+                                               ell_spmm_rows_ref)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_ids, torch.sparse.mm(live_csr, b2))),
+        parent_chain_ms=device_ms(torch, fused_chain),
+        parent_loop_chain_ms=device_ms(torch, loop_chain),
+        per_unit_ms=device_ms(torch, products),
+        # device kernels of one call, from a profile
+        kernels_per_call=profile_calls(torch, lambda: folded(
+            buf, device=dev), calls=1)["kernels_per_infer"],
+        parent_chain_kernels=profile_calls(
+            torch, fused_chain, calls=1)["kernels_per_infer"],
+        parent_loop_chain_kernels=profile_calls(
+            torch, loop_chain, calls=1)["kernels_per_infer"],
         bound=bound(nbytes, flops))
 
 
@@ -896,25 +1092,30 @@ def matmul_case(torch, case):
 
 KERNELS = (
     ("ragged_ell_spmm", "src/repro_torch/kernels/csrc/ragged_ell_spmm.cu",
-     "src/repro/kernels/ell_spmm.py:433", ell_case, "sparse"),
+     "src/repro/kernels/ell_spmm.py:433", ell_case, "ell"),
     ("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu",
      "src/repro/kernels/bsr_spmm.py:28", bsr_case, "sparse"),
     ("ell_spmm", "src/repro_torch/kernels/csrc/ell_spmm.cu",
-     "src/repro/kernels/ell_spmm.py:322", fixed_ell_case, "sparse"),
+     "src/repro/kernels/ell_spmm.py:322", fixed_ell_case, "ell"),
     ("tile_matmul", "src/repro_torch/kernels/csrc/tile_matmul.cu",
      "src/repro/kernels/tile_matmul.py:66", matmul_case, "matmul"),
 )
 
 
 def kernel_phase(torch, engine, graphs, launches, matmul_cases,
-                 build_log) -> tuple:
+                 build_log, reordered: str) -> tuple:
     """Hold each kernel against its plain version at every shape its path
     gave it, and time it. ``launches`` maps each kernel to the count of
     its path's run, or to {path: count} for a kernel of several paths
     (``launches`` is then the first path's count); ``build_log`` is the
-    build's log, whose ptxas lines each entry carries."""
+    build's log, whose ptxas lines each entry carries. The ELL kernels
+    also run at the shapes of the ``reordered`` graph (cora reordered by
+    labels, whose class puts every tile into the ELL engine)."""
     problems, entries = [], []
-    cases = {"sparse": list(kernel_cases(torch, engine, graphs)),
+    ell = list(kernel_cases(torch, engine, dict(
+        graphs, **{reordered: graphs["cora"]})))
+    cases = {"sparse": [c for c in ell if c[0]["graph"] != reordered],
+             "ell": ell,
              "matmul": [(dict(graph=name, layer=layer,
                               shape=[int(a.shape[0]), int(a.shape[1]),
                                      int(w.shape[1])]), (a, w))
@@ -928,6 +1129,9 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                        bound_ms=res["bound"][0], bound_by=res["bound"][1],
                        max_abs_err=res["err"])
             for extra in ("launches_per_call", "folded_bitwise",
+                          "loop_bitwise", "bands", "parent_loop_chain_ms",
+                          "kernels_per_call", "parent_chain_kernels",
+                          "parent_loop_chain_kernels",
                           "per_tile_ok", "tiles_summed", "row_tiles",
                           "per_tile_ms", "library_bmm_ms",
                           "configs_bitwise", "config_ms", "per_unit_ok",
@@ -952,7 +1156,17 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                       f"folded bitwise {res['folded_bitwise']}  tiles "
                       f"{res['tiles_summed']} over {res['row_tiles']} "
                       "row tiles")
-            if "parent_chain_ms" in res:
+            if "parent_loop_chain_ms" in res:
+                print(f"    parent chains: fused {res['parent_chain_ms']:.4f} "
+                      f"ms, loop {res['parent_loop_chain_ms']:.4f} ms "
+                      f"(per-unit kernels alone {res['per_unit_ms']:.4f}); "
+                      f"kernels per call {res['kernels_per_call']} (chains "
+                      f"{res['parent_chain_kernels']}, "
+                      f"{res['parent_loop_chain_kernels']})  "
+                      f"bitwise fused {res['folded_bitwise']} loop "
+                      f"{res['loop_bitwise']}  [K, live rows] per band "
+                      f"{res['bands']}")
+            elif "parent_chain_ms" in res:
                 print(f"    parent chain {res['parent_chain_ms']:.4f} ms  "
                       f"sparse.mm over all rows + add "
                       f"{res['library_all_rows_ms']:.4f} ms "
@@ -962,8 +1176,12 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                       f"{res['folded_bitwise']}  {res['entries']} unit rows "
                       f"onto {res['live_rows']} live rows")
             if not res["ok"]:
+                why = {k: res[k] for k in ("folded_bitwise", "loop_bitwise",
+                                           "per_unit_ok", "per_tile_ok",
+                                           "configs_bitwise",
+                                           "launches_per_call") if k in res}
                 problems.append(f"{kname} {label}: disagrees with its plain "
-                                f"version ({res['err']})")
+                                f"version ({res['err']}; {why})")
         head = rows[0]   # cora: layer 1 of the first dispatch, G=1
         n = launches[kname]
         by_path = dict(launches_by_path=n) if isinstance(n, dict) else {}
@@ -1014,6 +1232,15 @@ def main() -> None:
     engine, graphs, counts = main_path(torch)
     print(f"main path launches: {counts}")
     problems = check_main_path(torch, engine, graphs, counts)
+    for name, g in graphs.items():
+        x_dev = torch.from_numpy(g["xs"][0]).cuda()
+        g["profile"] = profile_calls(torch, lambda: engine.infer(name,
+                                                                 x_dev))
+
+    r_problems, reordered, r_counts = reordered_phase(torch, engine, graphs)
+    problems += r_problems
+    print(f"reordered graph launches: {r_counts}")
+    print("  " + json.dumps(reordered))
 
     ab_problems, ab_rows, ab_counts = dispatch_ab(torch, graphs)
     problems += ab_problems
@@ -1037,8 +1264,7 @@ def main() -> None:
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
-        x_dev = torch.from_numpy(g["xs"][0]).cuda()
-        prof = profile_calls(torch, lambda: engine.infer(name, x_dev))
+        prof = g["profile"]
         row = dict(graph=name, n=g["n"], register_s=g["register_s"],
                    infer_ms=g["infer_ms"], infer_dev_ms=g["infer_dev_ms"],
                    group4_ms=g["group_ms"],
@@ -1056,10 +1282,10 @@ def main() -> None:
                 "ell_spmm": {d: c["ell_spmm"] for d, c in ab_counts.items()},
                 "tile_matmul": mm_counts["tile_matmul"]}
     kproblems, entries = kernel_phase(torch, engine, graphs, launches,
-                                      mm_cases, log)
+                                      mm_cases, log, reordered["graph"])
     problems += kproblems
-    print(json.dumps({"e2e": e2e, "dispatch_ab": ab_rows,
-                      "lifecycle": lifecycle}))
+    print(json.dumps({"e2e": e2e, "reordered": reordered,
+                      "dispatch_ab": ab_rows, "lifecycle": lifecycle}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     if problems:

@@ -18,7 +18,8 @@ The three components mirror the paper's three engines:
 
 The per-K view (``EllTileBucket``) is derived from the ragged array by
 ``ell_buckets`` for the "fused"/"loop" dispatches, one fixed-K kernel
-launch per bucket; the device format of record stays the ragged array.
+launch per bucket (class band); the device format of record stays the
+ragged array.
 
 Deterministic reductions. Several dense tiles, ELL units and COO entries
 add into the same output row. On CUDA, ``index_add_``/``scatter_add_``
@@ -27,7 +28,9 @@ them for float sums. Instead every reduction onto output rows goes
 through a ``SegmentPlan`` built once on the host with numpy: the entries
 to sum, stably sorted by destination, and the count per destination.
 ``segment_sum`` then adds each destination's entries one after another
-in that fixed order, so results are bitwise-repeatable.
+in that fixed order, so results are bitwise-repeatable. The per-K
+dispatches' ELL rows are summed inside their kernel, band by band, in
+the same order (``BandPlan``, ``band_plans``).
 
 Invariant: dense + ell + coo exactly reconstructs A (padding values are 0).
 """
@@ -38,6 +41,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 class CSRMatrix(NamedTuple):
@@ -97,6 +102,21 @@ class RaggedEll(NamedTuple):
     @property
     def kmax(self) -> int:
         return self.cols.shape[-1]
+
+
+def empty_ragged_ell(r_block: int = 8, kmax: int = 0,
+                     device="cuda") -> RaggedEll:
+    """A RaggedEll with zero units (graphs with no sparse-engine work),
+    on ``device``, in the reference's dtypes."""
+    dev = resolve_device(device)
+    return RaggedEll(
+        cols=torch.zeros((0, r_block, kmax), dtype=torch.int32, device=dev),
+        vals=torch.zeros((0, r_block, kmax), dtype=torch.float32,
+                         device=dev),
+        rows=torch.zeros((0, r_block), dtype=torch.int32, device=dev),
+        tile_col=torch.zeros((0,), dtype=torch.int32, device=dev),
+        unit_k=torch.zeros((0,), dtype=torch.int32, device=dev),
+    )
 
 
 def _bucket_slices(u: int, kmax: int, segments) -> list:
@@ -294,20 +314,43 @@ def segment_live(member_lengths) -> np.ndarray:
     return out
 
 
+class BandPlan(NamedTuple):
+    """One class band's share of the ELL reduction, for the kernel that
+    sums the band's unit rows onto padded rows and adds them onto the
+    dense engine's rows in the same launch (``ell_spmm_rows``, the
+    "fused"/"loop" dispatches).
+
+    Entries are the band's unit rows numbered per member as in its
+    bucket view [U_b, R] (``u * R + r``); padded rows are numbered per
+    member too. ``rows`` [G, L] lists, per member, the padded rows that
+    the band reaches, ascending, padded with -1 to the member with the
+    most: the kernel's grid. Slot j of the flattened table sums
+    ``order[offsets[j]:offsets[j + 1]]`` in that order (unit order).
+    ``carry`` [G, L] is -1 for a row that no other band reaches, else
+    ``(c << 2) | (carry_in << 1) | carry_out``: the row's slot ``c`` in a
+    carry buffer [G, n_carry, F], whether an earlier band left the row's
+    running sum there, and whether a later band adds onto it.
+    """
+
+    order: torch.Tensor    # [n_sel] int64
+    offsets: torch.Tensor  # [G * L + 1] int64
+    rows: torch.Tensor     # [G, L] int64, -1 past a member's last
+    carry: torch.Tensor    # [G, L] int64
+    n_carry: int           # carry slots per member
+
+
 class ReductionPlan(NamedTuple):
     """The per-partition reductions onto output rows.
 
-    ``ell_buckets`` holds one plan per ``ell_buckets`` bucket of
-    ``meta.ell_segments`` for the "loop" dispatch: bucket b's plan sums,
-    per padded row, the running buffer's row first and then the
-    bucket's unit rows (``bucket_plans``). It is built only for that
-    dispatch (``reduction_plan(..., loop=True)``) and is ``()`` else.
+    ``ell_bands`` holds one ``BandPlan`` per ``ell_buckets`` bucket of
+    ``meta.ell_segments`` (``band_plans``): the per-K dispatches' row
+    sums. Hand-built plans may leave it ``()``.
     """
 
     dense: SegmentPlan   # dense tile products -> row tiles (over tile_row)
     ell: SegmentPlan     # ELL unit rows -> padded rows (sentinel dropped)
     coo: SegmentPlan     # COO products -> padded rows
-    ell_buckets: tuple = ()   # SegmentPlan per bucket ("loop" dispatch)
+    ell_bands: tuple = ()   # BandPlan per bucket ("fused"/"loop")
 
 
 def segment_plan(dest: np.ndarray, n_segments: int,
@@ -342,21 +385,59 @@ def _ell_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
                         rows != meta.ell_sentinel_row)
 
 
-def bucket_plans(rows: np.ndarray, meta: PartitionMeta) -> tuple:
-    """Host plans of the "loop" dispatch, one per bucket of
-    ``meta.ell_segments``, for one member's ELL ``rows`` [U, R].
+def band_plans(rows: np.ndarray, meta: PartitionMeta) -> tuple:
+    """Host ``BandPlan``s of one member's ELL ``rows`` [U, R], one per
+    bucket of ``meta.ell_segments``.
 
-    Bucket b's entries are the running buffer's ``n_padded_rows`` rows
-    followed by the bucket's unit rows, and each padded row sums its
-    running value first, then the bucket's entries in unit order.
-    Applied bucket after bucket from a zero buffer, this adds every
-    entry in the order of one sequential scatter-add per bucket (the
-    reference's "loop"), which is also the order of the one "fused"
-    reduction.
+    A padded row reached by several bands takes its entries band after
+    band, each band's in unit order: with the running sum carried from
+    band to band and added onto the dense row by the last band that
+    reaches it, every row sums its entries from +0 in the order of the
+    one "fused" ``segment_sum`` (``_ell_plan``), which is also the order
+    of the reference's "loop" (one sequential scatter per bucket).
     """
     rows = np.asarray(rows, np.int64)
-    return tuple(_bucket_plan(rows[sl], meta) for _, sl in
-                 _bucket_slices(rows.shape[0], 0, meta.ell_segments))
+    slices = _bucket_slices(rows.shape[0], 0, meta.ell_segments)
+    if not slices:
+        return ()
+    p = meta.n_padded_rows
+    reach = np.zeros((len(slices), p + 1), bool)      # + the sentinel row
+    for b, (_, sl) in enumerate(slices):
+        reach[b, rows[sl].reshape(-1)] = True
+    reach = reach[:, :p]
+    shared = reach.sum(0) > 1
+    slot = np.cumsum(shared) - 1
+    first = reach.argmax(0)
+    last = len(slices) - 1 - reach[::-1].argmax(0)
+    out = []
+    for b, (_, sl) in enumerate(slices):
+        br = rows[sl].reshape(-1)
+        keep = np.flatnonzero(br != meta.ell_sentinel_row)
+        order = keep[np.argsort(br[keep], kind="stable")]
+        live, lengths = np.unique(br[order], return_counts=True)
+        carry_in = (first[live] < b).astype(np.int64)
+        carry_out = (last[live] > b).astype(np.int64)
+        carry = np.where(shared[live],
+                         (slot[live] << 2) | (carry_in << 1) | carry_out, -1)
+        out.append(BandPlan(order=order.astype(np.int64),
+                            offsets=segment_offsets(lengths),
+                            rows=live[None].astype(np.int64),
+                            carry=carry[None].astype(np.int64),
+                            n_carry=int(shared.sum())))
+    return tuple(out)
+
+
+def bucket_plan(rows, meta: PartitionMeta, device=None) -> SegmentPlan:
+    """The "loop" reduction of one bucket's rows [(G,) N]: per padded
+    row, the running buffer's value first (entries ``0 .. P - 1`` of a
+    member), then the bucket's entries in unit order (``P + i``). Applied
+    bucket after bucket from a zero buffer, this adds every entry in the
+    order of one sequential scatter-add per bucket (the reference's
+    "loop"). Placed on ``device`` when given."""
+    r = to_numpy(rows).astype(np.int64)
+    plan = _stack_segments([_bucket_plan(m, meta)
+                            for m in r.reshape(-1, r.shape[-1])])
+    return plan if device is None else _segments_to(plan, device)
 
 
 def _bucket_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
@@ -367,8 +448,7 @@ def _bucket_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
         np.concatenate([np.ones(p, bool), br != meta.ell_sentinel_row]))
 
 
-def _member_plan(part: TriPartition, meta: PartitionMeta,
-                 loop: bool = False) -> ReductionPlan:
+def _member_plan(part: TriPartition, meta: PartitionMeta) -> ReductionPlan:
     """Host reduction plan of one (unstacked) partition.
 
     Class padding appends all-zero dense tiles on (row tile 0, col tile
@@ -398,8 +478,7 @@ def _member_plan(part: TriPartition, meta: PartitionMeta,
         to_numpy(part.coo.vals), np.float32).view(np.uint32) == 0
     coo = segment_plan(crow, meta.n_padded_rows, _first_of_each(
         np.stack([crow, ccol], 1), pos_zero))
-    return ReductionPlan(dense, ell, coo,
-                         bucket_plans(ell_rows, meta) if loop else ())
+    return ReductionPlan(dense, ell, coo, band_plans(ell_rows, meta))
 
 
 def _stack_segments(segs) -> SegmentPlan:
@@ -413,30 +492,51 @@ def _stack_segments(segs) -> SegmentPlan:
         live=segment_live(member_lengths))
 
 
+def _stack_bands(bands) -> BandPlan:
+    """Concatenate band plans (of one band) over the group axis; ``rows``
+    and ``carry`` are padded with -1 to the longest member."""
+    rows = [to_numpy(b.rows) for b in bands]
+    width = max(r.shape[1] for r in rows)
+    g = sum(r.shape[0] for r in rows)
+    table = {name: np.full((g, width), -1, np.int64)
+             for name in ("rows", "carry")}
+    lengths = np.zeros((g, width), np.int64)
+    at = 0
+    for b, r in zip(bands, rows):
+        n, w = r.shape
+        table["rows"][at:at + n, :w] = r
+        table["carry"][at:at + n, :w] = to_numpy(b.carry)
+        lengths[at:at + n, :w] = np.diff(to_numpy(b.offsets)).reshape(n, w)
+        at += n
+    return BandPlan(order=np.concatenate([to_numpy(b.order) for b in bands]),
+                    offsets=segment_offsets(lengths.reshape(-1)),
+                    rows=table["rows"], carry=table["carry"],
+                    n_carry=max(b.n_carry for b in bands))
+
+
 def stack_plans(plans) -> ReductionPlan:
     """Concatenate members' plans into one plan over a group axis."""
     return ReductionPlan(
         *(_stack_segments([p[i] for p in plans]) for i in range(3)),
-        ell_buckets=tuple(_stack_segments(list(segs)) for segs in
-                          zip(*[p.ell_buckets for p in plans])))
+        ell_bands=tuple(_stack_bands(list(bands)) for bands in
+                        zip(*[p.ell_bands for p in plans])))
 
 
 def reduction_plan(part: TriPartition, meta: PartitionMeta,
-                   device=None, *, loop: bool = False) -> ReductionPlan:
+                   device=None) -> ReductionPlan:
     """The partition's reduction plan, built on the host with numpy.
 
     ``part`` may carry a leading group axis; the plan then covers the
     whole group. With ``device`` the plan's index tensors are placed
-    there (else they stay numpy). ``loop`` also builds the "loop"
-    dispatch's per-bucket plans (``ReductionPlan.ell_buckets``).
+    there (else they stay numpy).
     """
     if part.dense.tiles.ndim == 4:
         g = part.dense.tiles.shape[0]
         members = [TriPartition(*(type(c)(*(a[i] for a in c)) for c in part))
                    for i in range(g)]
-        plan = stack_plans([_member_plan(m, meta, loop) for m in members])
+        plan = stack_plans([_member_plan(m, meta) for m in members])
     else:
-        plan = _member_plan(part, meta, loop)
+        plan = _member_plan(part, meta)
     return plan if device is None else plan_to(plan, device)
 
 
@@ -448,10 +548,15 @@ def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
                        _to_tensor(seg.live, np.int64, device))
 
 
+def _bands_to(band: BandPlan, device) -> BandPlan:
+    return BandPlan(*(_to_tensor(a, np.int64, device) for a in band[:4]),
+                    n_carry=band.n_carry)
+
+
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:
     return ReductionPlan(
         *(_segments_to(s, device) for s in plan[:3]),
-        ell_buckets=tuple(_segments_to(s, device) for s in plan.ell_buckets))
+        ell_bands=tuple(_bands_to(b, device) for b in plan.ell_bands))
 
 
 def segment_sum(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
@@ -482,7 +587,7 @@ def scatter_ell_partials(rows, partials, meta: PartitionMeta, *,
     ``rows`` and ``partials`` may instead be aligned lists, one entry
     per bucket (the "loop" dispatch): one reduction per bucket into the
     same running buffer, in bucket order, through ``plan`` = the
-    buckets' plans (``ReductionPlan.ell_buckets``; built when not given).
+    buckets' plans (``bucket_plan`` of each; built when not given).
     """
     if isinstance(partials, (list, tuple)):
         return _scatter_buckets(rows, partials, meta, plan)
@@ -505,12 +610,10 @@ def _scatter_buckets(rows, partials, meta: PartitionMeta, plans):
         rows, partials = [r[None] for r in rows], [p[None] for p in partials]
     g, _, f = partials[0].shape
     if plans is None:
-        plans = [_segments_to(_stack_segments(
-            [_bucket_plan(r[i], meta) for i in range(g)]),
-            partials[0].device) for r in map(to_numpy, rows)]
+        plans = [bucket_plan(r, meta, partials[0].device) for r in rows]
     if len(plans) != len(partials):
         raise ValueError(f"{len(plans)} bucket plans for {len(partials)} "
-                         "buckets (build the plan with loop=True)")
+                         "buckets")
     p = meta.n_padded_rows
     out = partials[0].new_zeros((g, p, f))
     for pp, plan in zip(partials, plans):

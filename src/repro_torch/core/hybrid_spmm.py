@@ -6,11 +6,11 @@ TriPartition, dispatching each component to its engine:
   dense tiles -> per-tile T×T products, summed over tile_row (one
                  kernel on the ``cuda`` backend)
   ELL units   -> gather + FMA over the ragged unit array
-                 (``ell_dispatch="ragged"``; on the ``cuda`` backend one
-                 kernel that also sums the unit rows onto output rows
-                 and adds them onto the dense engine's rows), or per
-                 fixed-K bucket (``"fused"``/``"loop"``, the per-K A/B
-                 dispatches, reduced by segment sums after the kernels)
+                 (``ell_dispatch="ragged"``), or per fixed-K bucket
+                 (``"fused"``/``"loop"``, the per-K A/B dispatches); on
+                 the ``cuda`` backend the kernels also sum the unit rows
+                 onto output rows and add them onto the dense engine's
+                 rows (one launch, or one per bucket)
   COO residual-> take + segment sum        (flexible engine)
 
 The three partial products add as ``(dense + ell) + coo`` on both
@@ -40,7 +40,7 @@ from repro_torch.kernels.ref import (bsr_spmm_rows_ref, ell_spmm_ref,
 
 from .formats import (PartitionMeta, ReductionPlan, TriPartition, b_tiles_of,
                       ell_buckets, pad_b_to_tiles, partition_to, plan_to,
-                      reduction_plan, segment_sum)
+                      reduction_plan, scatter_ell_partials, segment_sum)
 
 BACKENDS = ("cuda", "torch")
 
@@ -61,13 +61,16 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
 def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
                plan: ReductionPlan, *, dispatch: str = "ragged"
                ) -> torch.Tensor:
-    """Sparse-engine partial product, [G, n_padded_rows, F].
+    """Sparse-engine partial product, [G, n_padded_rows, F], with the
+    reference's structure.
 
     ``"ragged"`` runs one masked Kmax pass over the concatenated unit
     array; ``"fused"``/``"loop"`` run one fixed-K pass per bucket of
-    ``meta.ell_segments`` and reduce the products at once ("fused") or
-    bucket by bucket ("loop"), as ``repro_torch.kernels.ops.ell_matmul``
-    does with the kernels.
+    ``meta.ell_segments``. The products are reduced onto rows at once
+    (``"ragged"``, ``"fused"``, in the order of ``plan.ell``) or bucket by
+    bucket into a running buffer (``"loop"``, as the reference's
+    sequential scatters; its per-bucket plans are built from the buckets'
+    rows).
     """
     kops.check_ell_dispatch(dispatch)
     g, _, f = b.shape
@@ -77,11 +80,22 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     if dispatch == "ragged":
         prod = ragged_ell_spmm_ref(part.ell.cols, part.ell.vals,
                                    part.ell.tile_col, part.ell.unit_k, bt)
-    else:
-        prod = torch.cat([ell_spmm_ref(bk.cols, bk.vals, bk.tile_col, bt)
-                          for bk in ell_buckets(part.ell, meta.ell_segments)],
-                         dim=1)
-    return kops.reduce_ell(part, prod, meta, plan, dispatch)
+        return _scatter_all(part, prod, meta, plan)
+    buckets = ell_buckets(part.ell, meta.ell_segments)
+    prods = [ell_spmm_ref(bk.cols, bk.vals, bk.tile_col, bt)
+             for bk in buckets]
+    if dispatch == "fused":
+        return _scatter_all(part, torch.cat(prods, dim=1), meta, plan)
+    return scatter_ell_partials(
+        [bk.rows.reshape(g, -1) for bk in buckets],
+        [p.reshape(g, -1, f) for p in prods], meta)
+
+
+def _scatter_all(part, prod, meta, plan):
+    g, u, r, f = prod.shape
+    return scatter_ell_partials(part.ell.rows.reshape(g, u * r),
+                                prod.reshape(g, u * r, f), meta,
+                                plan=plan.ell)
 
 
 def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
@@ -99,7 +113,7 @@ def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     return out.reshape(g, meta.n_padded_rows, f)
 
 
-def _grouped(part: TriPartition, b, plan, meta, dev, ell_dispatch):
+def _grouped(part: TriPartition, b, plan, meta, dev):
     """Place everything on ``dev`` and give it a leading group axis.
 
     Returns (part, b, plan, squeeze): ``squeeze`` says the caller passed
@@ -108,7 +122,7 @@ def _grouped(part: TriPartition, b, plan, meta, dev, ell_dispatch):
     part = partition_to(part, dev)
     b = torch.as_tensor(b, dtype=torch.float32).to(dev)
     if plan is None:
-        plan = reduction_plan(part, meta, loop=ell_dispatch == "loop")
+        plan = reduction_plan(part, meta)
     plan = plan_to(plan, dev)
     squeeze = b.dim() == 2
     if squeeze:
@@ -123,8 +137,7 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
     """Y = A @ B via the three engines. Returns [(G,) n_rows, F] on
     ``device``."""
     dev = resolve_device(device)
-    part, b, plan, squeeze = _grouped(part, b, plan, meta, dev,
-                                      ell_dispatch)
+    part, b, plan, squeeze = _grouped(part, b, plan, meta, dev)
     y = _hybrid(part, b, meta, plan, backend, ell_dispatch)
     return y[0] if squeeze else y
 
@@ -141,6 +154,11 @@ def _hybrid(part, b, meta, plan, backend, ell_dispatch):
                          f"{BACKENDS}")
     y = y + coo_matmul(part, b, meta, plan)
     return y[:, : meta.n_rows]
+
+
+def hybrid_spmm_ref(a_dense, b):
+    """Oracle: plain dense matmul."""
+    return a_dense @ b
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +195,7 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
     leaves it to XLA.
     """
     dev = resolve_device(device)
-    part, x, plan, squeeze = _grouped(part, x, plan, meta, dev,
-                                      ell_dispatch)
+    part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
     w = torch.as_tensor(w, dtype=torch.float32).to(dev)
     y = _layer(part, x, w if w.dim() == 3 else w[None], meta, plan, backend,
                block_cols, activation, ell_dispatch)
@@ -197,8 +214,7 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     layer.
     """
     dev = resolve_device(device)
-    part, h, plan, squeeze = _grouped(part, x, plan, meta, dev,
-                                      ell_dispatch)
+    part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
     for i, w in enumerate(weights):
         w = torch.as_tensor(w, dtype=torch.float32).to(dev)
         act = torch.relu if i < len(weights) - 1 else None

@@ -43,8 +43,12 @@ PAPER_DATASETS = {
 
 def sbm_graph(n: int, n_edges: int, *, n_communities: int = 0,
               intra_frac: float = 0.9, seed: int = 0,
-              power_law: bool = True):
-    """Undirected SBM with power-law-ish degrees; ~n_edges directed nnz."""
+              power_law: bool = True, return_labels: bool = False):
+    """Undirected SBM with power-law-ish degrees; ~n_edges directed nnz.
+
+    With ``return_labels`` returns ``(a, comm)``: the planted community
+    of every vertex, which the ``"labels"`` reorder groups by.
+    """
     rng = np.random.default_rng(seed)
     if n_communities == 0:
         # real-world community sizes are O(100) vertices; ~112 gives the
@@ -83,6 +87,8 @@ def sbm_graph(n: int, n_edges: int, *, n_communities: int = 0,
     a.data[:] = 1.0
     a.setdiag(0)
     a.eliminate_zeros()
+    if return_labels:
+        return a, comm
     return a
 
 
@@ -101,14 +107,17 @@ def make_paper_dataset(name: str, *, scale: float = 1.0, seed: int = 0):
     ``scale`` < 1 shrinks vertices (keeping density). The features are
     seeded with a CRC32 of the name, which (unlike the reference's
     ``hash(name)``) does not change with ``PYTHONHASHSEED``; the CSR does
-    not depend on it.
+    not depend on it. The graph's planted communities are left in
+    ``make_paper_dataset.last_labels`` (the input of
+    ``reorder(csr, "labels", labels=...)``), as in the reference.
     """
     st = PAPER_DATASETS[name]
     n = max(int(st.n_vertices * scale), 64)
     n_edges = max(int(st.density * n * n), 4 * n)
     rng = np.random.default_rng(seed + zlib.crc32(name.encode()) % (2 ** 31))
-    a = sbm_graph(n, n_edges, seed=seed)
+    a, labels = sbm_graph(n, n_edges, seed=seed, return_labels=True)
     atil = normalized_adjacency(a)
     x = (rng.random((n, st.n_features)) < 0.05).astype(np.float32)
     y = rng.integers(0, st.n_classes, n).astype(np.int32)
+    make_paper_dataset.last_labels = labels   # planted communities
     return csr_from_scipy(atil), x, y, dataclasses.replace(st)

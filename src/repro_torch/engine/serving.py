@@ -233,14 +233,13 @@ class Engine:
 
     def _place(self, padded: TriPartition, pmeta: PartitionMeta) -> tuple:
         """Check a class-padded partition's indices, build its reduction
-        plan on the host (with per-bucket plans on the "loop" dispatch
-        only), and put both on the device.
+        plan on the host (with the per-K dispatches' band plans), and put
+        both on the device.
 
         Returns (partition on the device, plan on the device, host plan).
         """
         _check_indices(padded, pmeta)
-        host_plan = reduction_plan(
-            padded, pmeta, loop=self.executors.ell_dispatch == "loop")
+        host_plan = reduction_plan(padded, pmeta)
         return (partition_to(padded, self.device),
                 plan_to(host_plan, self.device), host_plan)
 

@@ -1,0 +1,232 @@
+// The row machinery of the ELL kernels, for Hopper (sm_90a): one loop over
+// a padded row's unit rows that computes each unit row's product and adds
+// it onto the row's sum. Both ELL sources include it:
+//
+//   ragged_ell_spmm.cu  the ragged unit array [G, U, R, Kmax], masked by
+//                       the per-unit live K (`unit_k`): the main path;
+//   ell_spmm.cu         one fixed-K band [G, U_b, R, K_b] of it, read in
+//                       place through the band view's strides, K_b the
+//                       loop bound: the "fused"/"loop" dispatches.
+//
+// For a unit row e the product is one chain from +0, in ascending kk,
+//
+//   p_e[:] = p_e[:] + (kk < unit_k ? vals[e,kk] : 0) * B[tile_col, cols[e,kk], :]
+//
+// with multiply and add rounded on their own (__fmul_rn / __fadd_rn, never
+// contracted into an FMA); the mask sits on the values, so a masked lane
+// still multiplies 0 by its B row (a non-finite B row propagates, as in the
+// reference). In the fixed-K form unit_k is K_b: every lane is live, and
+// lanes past K_b are never read. The row's sum is acc = acc + p_e over its
+// unit rows in plan order, from whatever value the caller starts acc at
+// (+0, or a sum carried from an earlier band).
+//
+// What bounds it on the H100: bytes. An entry does K multiply-adds per
+// feature on K gathered B rows, about a quarter of an operation per byte,
+// far below the ~20 FLOP/byte where float32 FMA (67 TFLOP/s) would
+// overtake device memory (3.35 TB/s); the IEEE float32 parity path has TF32
+// off, so tensor cores do not apply. B for one layer (2 MB at cora, 16 MB
+// at pubmed per member) lives in the 50 MB L2, so the rows an entry
+// gathers are mostly L2 hits. At the main path's shapes the work is below
+// the launch floor, so the design reads only what the sums need.
+//
+// Design. A group of W lanes owns one padded row; lanes run over features,
+// VEC contiguous floats each (one 16-byte load when the row stride allows,
+// else 4 bytes). For each unit row the group reads its tile_col (and
+// unit_k), then, in chunks of KC lanes of the K axis, lane i loads cols/vals
+// of lane k0+i (coalesced) and passes them round with shuffles; every lane
+// then issues the chunk's KC independent B-row loads before its
+// multiply-add chain, so KC loads are in flight per lane. KC = 4: with 8,
+// the 16-byte variant needed 80 registers and spilled, so only 3 blocks fit
+// an SM and a cora group of 4 (3840 live rows) took two waves. Only the B
+// rows the entry addresses are read (no [T, F] slab is staged), and each
+// output row is written once, by one thread per feature: no atomics, no
+// shared memory. W is picked per launch from F: 8 lanes for F <= 8, 16 for
+// F <= 16 (several rows per warp, so a narrow row does not leave most of a
+// warp idle), else 32.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace ell_rows {
+
+constexpr int kThreads = 256;
+constexpr int KC = 4;  // K lanes whose B rows are in flight at once
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  __device__ static T load(const float* p) { return *p; }
+  __device__ static void store(float* p, T v) { *p = v; }
+  __device__ static float get(const T& v, int) { return v; }
+  __device__ static void set(T& v, int, float x) { v = x; }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  __device__ static T load(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ static void store(float* p, T v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  __device__ static float get(const T& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  __device__ static void set(T& v, int i, float x) {
+    if (i == 0) v.x = x;
+    else if (i == 1) v.y = x;
+    else if (i == 2) v.z = x;
+    else v.w = x;
+  }
+};
+
+// The unit array as a kernel reads it.
+struct Units {
+  const int* cols;      // [G, U, R, K...] tile-local columns
+  const float* vals;    // same layout as cols
+  const int* tile_col;  // [G, U]
+  const int* unit_k;    // [G, U] live K per unit (ragged); null (fixed K)
+  long long s_g;        // fixed K: member stride of cols/vals (elements)
+  long long tc_sg;      // fixed K: member stride of tile_col
+  int s_r;              // fixed K: row stride of cols/vals; a unit's R rows
+                        // are packed (unit stride R * s_r), K contiguous
+  int U, R, K;          // K: Kmax (ragged) or the band's K (fixed)
+};
+
+// Stores, adds and loads of VEC floats at p.
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
+  typename Vec<VEC>::T r;
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) Vec<VEC>::set(r, q, x[q]);
+  Vec<VEC>::store(p, r);
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_vec(float* p, const float (&x)[VEC]) {
+  typename Vec<VEC>::T r = Vec<VEC>::load(p);
+#pragma unroll
+  for (int q = 0; q < VEC; ++q)
+    Vec<VEC>::set(r, q, __fadd_rn(Vec<VEC>::get(r, q), x[q]));
+  Vec<VEC>::store(p, r);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
+  const typename Vec<VEC>::T r = Vec<VEC>::load(p);
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) x[q] = Vec<VEC>::get(r, q);
+}
+
+// One padded row of member g: for each block of W*VEC features, acc
+// starts at init[f..] (init null: +0), takes the products of the unit rows
+// order[begin..end) (order null: the entries begin..end themselves) in
+// that order, and is added onto dst[f..] (ADD) or stored there.
+// RAGGED: entries e number the unit rows over the group (g*U*R + u*R + r)
+// of a contiguous ragged array, masked by unit_k. Fixed K: entries number
+// member g's unit rows (u*R + r) of a band view with member stride s_g and
+// row stride s_r. ADD is a template argument, not a flag, so that no
+// register holds it through the loop: a caller with both epilogues
+// instantiates both.
+template <int W, int VEC, bool RAGGED, bool ADD>
+__device__ __forceinline__ void row(const Units& a, const float* b,
+                                    const long long* __restrict__ order,
+                                    int begin, int end, long long g, int nct,
+                                    int T, int F, const float* init,
+                                    float* dst) {
+  static_assert(KC <= W, "a chunk's cols/vals are spread over the group");
+  using V = Vec<VEC>;
+  const int lane = threadIdx.x % W;
+  const unsigned mask =
+      W == 32 ? 0xffffffffu
+              : ((1u << W) - 1u) << ((threadIdx.x % 32) / W * W);
+  const float* bg = b + g * nct * static_cast<long long>(T) * F;
+  // the member's unit array: entry e's lanes start at e * stride
+  const int* cb = RAGGED ? a.cols : a.cols + g * a.s_g;
+  const float* vb = RAGGED ? a.vals : a.vals + g * a.s_g;
+  const int* tb = RAGGED ? a.tile_col : a.tile_col + g * a.tc_sg;
+  const int stride = RAGGED ? a.K : a.s_r;
+
+  for (int fb = 0; fb < F; fb += W * VEC) {
+    const int f = fb + lane * VEC;
+    const bool on = f < F;
+    float acc[VEC];
+    if (init && on) {
+      load_vec<VEC>(init + f, acc);
+    } else {
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    }
+    for (int j = begin; j < end; ++j) {
+      // entries, units and plan positions are numbered in 32 bits (the
+      // wrappers check it): a 64-bit division costs far more than a load
+      const int e = order ? static_cast<int>(order[j]) : j;
+      const int unit = e / a.R;
+      const int ku = RAGGED ? a.unit_k[unit] : a.K;
+      const float* bt = bg + static_cast<long long>(tb[unit]) * T * F + f;
+      const int* ce = cb + static_cast<long long>(e) * stride;
+      const float* ve = vb + static_cast<long long>(e) * stride;
+      float p[VEC];
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) p[q] = 0.f;
+      for (int k0 = 0; k0 < a.K; k0 += KC) {
+        int c = 0;
+        float v = 0.f;
+        if (lane < KC && k0 + lane < a.K) {
+          c = ce[k0 + lane];
+          v = k0 + lane < ku ? ve[k0 + lane] : 0.f;  // the mask, on values
+        }
+        typename V::T x[KC];
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          const int ci = __shfl_sync(mask, c, i, W);
+          if (on && k0 + i < a.K) x[i] = V::load(bt + ci * F);
+        }
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          const float vi = __shfl_sync(mask, v, i, W);
+          if (on && k0 + i < a.K) {
+#pragma unroll
+            for (int q = 0; q < VEC; ++q)
+              p[q] = __fadd_rn(p[q], __fmul_rn(vi, V::get(x[i], q)));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
+    }
+    if (on) {
+      if constexpr (ADD)
+        add_vec<VEC>(dst + f, acc);
+      else
+        store_vec<VEC>(dst + f, acc);
+    }
+  }
+}
+
+// Lanes per row (W) and floats per lane (VEC) for a row of F features
+// whose pointers are `aligned` to 16 bytes: returns launch(W, VEC), the two
+// passed as std::integral_constant.
+template <class Launch>
+cudaError_t pick(int F, bool aligned, Launch launch) {
+  using W8 = std::integral_constant<int, 8>;
+  using W16 = std::integral_constant<int, 16>;
+  using W32 = std::integral_constant<int, 32>;
+  using V1 = std::integral_constant<int, 1>;
+  using V4 = std::integral_constant<int, 4>;
+  if (F <= 8) return launch(W8(), V1());
+  if (F <= 16) return launch(W16(), V1());
+  if (F % 4 == 0 && aligned) return launch(W32(), V4());
+  return launch(W32(), V1());
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace ell_rows

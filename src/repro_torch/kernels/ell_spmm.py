@@ -11,20 +11,27 @@ Port of ``repro.kernels.ell_spmm``:
   * ``ragged_ell_spmm`` — the TPU kernel's own function, per-unit
     products over every K width: the same kernel with every unit row its
     own segment and nothing to add onto;
-  * ``ell_spmm`` (TPU kernel ``_ell_kernel``) launches
-    ``csrc/ell_spmm.cu`` for one fixed-K bucket of the ragged array
-    (``repro_torch.core.formats.ell_buckets``): the "fused"/"loop"
-    dispatches launch it once per bucket for the whole group, and the
-    caller reduces its per-unit products onto the unit row ids.
+  * ``ell_spmm_rows`` — one fixed-K class band (a bucket of
+    ``repro_torch.core.formats.ell_buckets``) as the "fused"/"loop"
+    dispatches run it: the TPU kernel ``_ell_kernel``'s products, summed
+    onto output rows in the order of the band's ``BandPlan`` (a row that
+    several bands reach carries its running sum from band to band) and
+    added onto the dense engine's rows, in place, by one launch of
+    ``csrc/ell_spmm.cu`` per band for a whole group;
+  * ``ell_spmm`` — the TPU kernel's own function, per-unit products of
+    one bucket: the same kernel with every unit row its own row and
+    nothing to add onto.
 
-On CPU tensors each runs its plain version in
+Both CUDA sources share their row loop (``csrc/ell_rows.cuh``). On CPU
+tensors each function runs its plain version in
 ``repro_torch.kernels.ref``.
 
 The module also keeps its own copy of the reference's K-band helpers
 (``merge_bands``, ``_bands_of``, ``_band_tables``, ``DEFAULT_MAX_BANDS``):
-the port's shape classes plan their band slots with them. The CUDA
-kernel itself loops every unit to Kmax, so band plans change class
-shapes, never results.
+the port's shape classes plan their band slots with them. The ragged
+kernel loops every unit to Kmax and the band kernel to its band's K, so
+band plans change class shapes and the per-K dispatches' launches,
+never results.
 """
 from __future__ import annotations
 
@@ -32,18 +39,20 @@ import ctypes
 
 import torch
 
-from repro_torch.core.formats import SegmentPlan
+from repro_torch.core.formats import BandPlan, SegmentPlan
 from repro_torch.device import resolve_device
 
 from . import _build
-from .ref import ell_spmm_ref, ragged_ell_rows_ref, ragged_ell_spmm_ref
+from .ref import (ell_spmm_ref, ell_spmm_rows_ref, ragged_ell_rows_ref,
+                  ragged_ell_spmm_ref)
 
 # Band-merge cap of the class band plans (the reference's value).
 DEFAULT_MAX_BANDS = 4
 
 # Launches of the CUDA kernels since the last reset
 # (ops.reset_launch_counts): ``launches`` counts the ragged kernel
-# (ragged_ell_rows and ragged_ell_spmm), ``fixed_k_launches`` ell_spmm.
+# (ragged_ell_rows and ragged_ell_spmm), ``fixed_k_launches`` the fixed-K
+# one (ell_spmm_rows and ell_spmm).
 launches = 0
 fixed_k_launches = 0
 
@@ -256,9 +265,10 @@ def _fixed_kernel():
     global _fixed_fn
     if _fixed_fn is None:
         lib = _build.library("ell_spmm")
-        fn = lib.ell_spmm_f32
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+        fn = lib.ell_spmm_rows_f32
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                       + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fixed_fn = (lib, fn)
     return _fixed_fn
@@ -275,9 +285,132 @@ def _packed(x: torch.Tensor, first: int) -> bool:
     return True
 
 
-def _check_fixed(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"ell_spmm: {msg}")
+def _fixed_checked(cols, vals, tile_col, b_tiles, dev, what) -> tuple:
+    """The inputs with a group axis, after the checks both fixed-K
+    functions share; (cols, vals, tile_col, b_tiles, grouped)."""
+    grouped = cols.dim() == 4
+    if not grouped:
+        cols, vals, tile_col, b_tiles = (cols[None], vals[None],
+                                         tile_col[None], b_tiles[None])
+    _check(cols.dim() == 4 and b_tiles.dim() == 4,
+           "expected cols/vals [G,U,R,K] and b_tiles [G,nct,T,F]", what)
+    g, u, r, k = cols.shape
+    _check(tuple(vals.shape) == (g, u, r, k)
+           and tuple(tile_col.shape) == (g, u) and b_tiles.shape[0] == g,
+           f"shapes differ: cols {tuple(cols.shape)}, vals "
+           f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, "
+           f"b_tiles {tuple(b_tiles.shape)}", what)
+    _check(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
+           and vals.dtype == torch.float32
+           and b_tiles.dtype == torch.float32,
+           "expected int32 cols/tile_col and float32 vals/B", what)
+    for x in (cols, vals, tile_col, b_tiles):
+        _check(x.device == dev, f"tensor on {x.device}, device={dev}", what)
+    _check(dev.type == "cpu" or (
+        cols.stride() == vals.stride() and _packed(cols, 3)
+        and (u <= 1 or cols.stride(1) == r * _row_stride(cols))
+        and _packed(tile_col, 1) and b_tiles.is_contiguous()),
+        "CUDA kernel needs cols and vals in one layout with a contiguous K "
+        "axis and packed unit and row axes (a K slice of a contiguous "
+        "array, as ell_buckets gives), a contiguous tile_col unit axis and "
+        "contiguous B", what)
+    _check(dev.type == "cpu" or (g * u * r < 2 ** 31
+                                 and u * r * _row_stride(cols) < 2 ** 31),
+           f"{g} x {u * r} unit rows: the kernel numbers them in 32 bits",
+           what)
+    return cols, vals, tile_col, b_tiles, grouped
+
+
+def _row_stride(cols: torch.Tensor) -> int:
+    """Elements from one unit row's lanes to the next (cols [G, U, R, K])."""
+    return cols.stride(2) if cols.shape[2] > 1 else cols.stride(1)
+
+
+def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
+                  n_rows, out_sg, dev) -> None:
+    """One launch of the fixed-K kernel; ``band`` None = unit mode."""
+    g, u, r, k = cols.shape
+    _, nct, t, f = b_tiles.shape
+    lib, fn = _fixed_kernel()
+    plan = ((None,) * 4 if band is None else
+            (band.order.data_ptr(), band.offsets.data_ptr(),
+             band.rows.data_ptr(), band.carry.data_ptr()))
+    n_carry = 0 if band is None else band.n_carry
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
+                 b_tiles.data_ptr(), *plan,
+                 None if carry is None else carry.data_ptr(), out.data_ptr(),
+                 g, n_slots, u, r, k, nct, t, f, n_rows, n_carry,
+                 cols.stride(0), _row_stride(cols), tile_col.stride(0),
+                 out_sg, stream)
+    _build.check(lib, err, "ell_spmm launch")
+    global fixed_k_launches
+    fixed_k_launches += 1
+
+
+def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
+                  tile_col: torch.Tensor, b_tiles: torch.Tensor,
+                  band: BandPlan, out: torch.Tensor,
+                  carry: torch.Tensor = None, *, device="cuda"
+                  ) -> torch.Tensor:
+    """One class band's ELL rows, added onto ``out`` in place.
+
+    cols/vals [G, U_b, R, K] (int32 tile-local / f32; views of the
+    ragged slab, ``ell_buckets``, read in place), tile_col
+    [G, U_b] int32, b_tiles [G, nct, T, F] f32, ``band`` the band's
+    ``BandPlan`` (``ReductionPlan.ell_bands``), ``out`` [G, P, F] f32,
+    which holds the dense engine's rows, and ``carry`` [G, band.n_carry,
+    F] f32 (needed when ``band.n_carry`` > 0), one buffer shared by all
+    bands of the call. Each live row of the band sums its unit rows'
+    products in plan order, starting from the sum an earlier band left in
+    ``carry`` or from +0; the sum then goes to ``carry`` when a later
+    band reaches the row, else onto ``out[row]``. Rows the band does not
+    reach are not touched. Run over the bands in order, this is
+    ``out + scatter_ell_partials`` of the bands' products, bit for bit.
+    Returns ``out``.
+
+    Every tensor must lie on ``device``. CPU tensors take the plain
+    version (``ell_spmm_rows_ref``); CUDA tensors launch the kernel (one
+    launch, also for a band that reaches no row) or raise.
+    """
+    what = "ell_spmm_rows"
+    dev = resolve_device(device)
+    cols, vals, tile_col, b_tiles, _ = _fixed_checked(
+        cols, vals, tile_col, b_tiles, dev, what)
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
+           and out.dtype == torch.float32 and out.device == dev,
+           f"out {tuple(out.shape)} {out.dtype} on {out.device}: want "
+           f"float32 [{g}, P, {f}] on {dev}", what)
+    n_slots = band.rows.shape[-1]
+    for x in band[:4]:
+        _check(x.dtype == torch.int64 and x.device == dev
+               and (dev.type == "cpu" or x.is_contiguous()),
+               f"band plan tensors must be contiguous int64 on {dev}", what)
+    _check(tuple(band.rows.shape) == (g, n_slots)
+           and tuple(band.carry.shape) == (g, n_slots)
+           and band.offsets.shape[0] == g * n_slots + 1,
+           f"band plan rows {tuple(band.rows.shape)}, carry "
+           f"{tuple(band.carry.shape)}, offsets {band.offsets.shape[0]} do "
+           f"not fit a group of {g}", what)
+    if band.n_carry:
+        _check(carry is not None and carry.dtype == torch.float32
+               and tuple(carry.shape) == (g, band.n_carry, f)
+               and carry.device == dev, f"the band carries rows: want a "
+               f"float32 carry [{g}, {band.n_carry}, {f}] on {dev}", what)
+    else:
+        carry = None
+    if dev.type == "cpu":
+        return ell_spmm_rows_ref(cols, vals, tile_col, b_tiles, band, out,
+                                 carry)
+    _check(out.is_contiguous() and (carry is None or carry.is_contiguous()),
+           "CUDA kernel needs a contiguous out and carry", what)
+    if g and f:
+        _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out,
+                      n_slots, out.shape[1], 0, dev)
+    return out
 
 
 def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, tile_col: torch.Tensor,
@@ -287,64 +420,39 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, tile_col: torch.Tensor,
 
     cols [(G,) U, R, K] int32 (tile-local), vals [(G,) U, R, K] f32,
     tile_col [(G,) U] int32, b_tiles [(G,) nct, T, F] f32 -> [(G,) U, R,
-    F] f32; one launch for the whole group. ``cols``/``vals`` may be
-    views of the ragged [.., Kmax] slab (``ell_buckets``): the kernel
-    reads them with their strides, as long as the K axis is contiguous
-    and both share one layout. ``out`` (optional) is where the products
-    go, e.g. a unit slice of the dispatch's [G, U_all, R, F] buffer; its
-    unit, row and feature axes must be contiguous. Every tensor must lie
-    on ``device``; CPU tensors take the plain version, CUDA tensors
-    launch the kernel or raise. Indices must be in range (``cols < T``,
-    ``tile_col < nct``).
+    F] f32; one launch for the whole group, of ``ell_spmm_rows``'s kernel
+    with every unit row its own row and nothing to add onto.
+    ``cols``/``vals`` may be views of the ragged [.., Kmax] slab
+    (``ell_buckets``): the kernel reads them in place, as long as both
+    share one layout with a contiguous K axis and packed unit and row
+    axes. ``out`` (optional) is where the products go, e.g. a unit slice
+    of a [G, U_all, R, F] buffer; its unit, row and feature axes must be
+    contiguous. Every tensor must lie on ``device``; CPU tensors take the
+    plain version, CUDA tensors launch the kernel or raise. Indices must
+    be in range (``cols < T``, ``tile_col < nct``).
     """
+    what = "ell_spmm"
     dev = resolve_device(device)
-    grouped = cols.dim() == 4
-    if not grouped:
-        cols, vals, tile_col, b_tiles = (cols[None], vals[None],
-                                         tile_col[None], b_tiles[None])
-        out = None if out is None else out[None]
-    _check_fixed(cols.dim() == 4 and b_tiles.dim() == 4,
-                 "expected cols/vals [G,U,R,K] and b_tiles [G,nct,T,F]")
-    g, u, r, k = cols.shape
-    g2, nct, t, f = b_tiles.shape
-    _check_fixed(tuple(vals.shape) == (g, u, r, k)
-                 and tuple(tile_col.shape) == (g, u) and g2 == g,
-                 f"shapes differ: cols {tuple(cols.shape)}, vals "
-                 f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, "
-                 f"b_tiles {tuple(b_tiles.shape)}")
-    _check_fixed(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
-                 and vals.dtype == torch.float32
-                 and b_tiles.dtype == torch.float32,
-                 "expected int32 cols/tile_col and float32 vals/B")
-    _check_fixed(out is None or (tuple(out.shape) == (g, u, r, f)
-                                 and out.dtype == torch.float32),
-                 f"out must be float32 {(g, u, r, f)}")
-    for x in (cols, vals, tile_col, b_tiles) + (() if out is None
-                                                else (out,)):
-        _check_fixed(x.device == dev, f"tensor on {x.device}, device={dev}")
+    if cols.dim() == 3 and out is not None:
+        out = out[None]
+    cols, vals, tile_col, b_tiles, grouped = _fixed_checked(
+        cols, vals, tile_col, b_tiles, dev, what)
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    _check(out is None or (tuple(out.shape) == (g, u, r, f)
+                           and out.dtype == torch.float32
+                           and out.device == dev),
+           f"out must be float32 {(g, u, r, f)} on {dev}", what)
     if dev.type == "cpu":
         res = ell_spmm_ref(cols, vals, tile_col, b_tiles)
         if out is not None:
             res = out.copy_(res)
         return res if grouped else res[0]
-
-    _check_fixed(cols.stride() == vals.stride() and _packed(cols, 3)
-                 and _packed(tile_col, 1) and b_tiles.is_contiguous(),
-                 "CUDA kernel needs a contiguous K axis shared by cols and "
-                 "vals, a contiguous tile_col unit axis and contiguous B")
     if out is None:
         out = torch.empty((g, u, r, f), dtype=torch.float32, device=dev)
-    _check_fixed(_packed(out, 1),
-                 "out needs contiguous unit, row and feature axes")
+    _check(_packed(out, 1), "out needs contiguous unit, row and feature axes",
+           what)
     if g and u and r and f:
-        lib, fn = _fixed_kernel()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
-                     b_tiles.data_ptr(), out.data_ptr(), g, u, r, k, nct, t,
-                     f, cols.stride(0), cols.stride(1), cols.stride(2),
-                     tile_col.stride(0), out.stride(0), stream)
-        _build.check(lib, err, "ell_spmm launch")
-        global fixed_k_launches
-        fixed_k_launches += 1
+        _fixed_launch(cols, vals, tile_col, b_tiles, None, None, out, u * r,
+                      0, out.stride(0), dev)
     return out if grouped else out[0]

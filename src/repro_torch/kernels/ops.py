@@ -4,11 +4,11 @@ Port of ``repro.kernels.ops``. Each function takes B with a leading
 group axis [G, N, F] and returns [G, n_padded_rows, F]; the hand-written
 kernels run for the whole group at once (CUDA tensors), or their plain
 versions run (CPU tensors). The dense engine's sum onto row tiles runs
-inside its kernel. On the "ragged" dispatch the ELL sum onto output rows,
-and its add onto the dense engine's rows, run inside the ELL kernel too;
-the "fused"/"loop" dispatches reduce their per-unit products with the
-deterministic segment sums of ``repro_torch.core.formats``. All of them
-add in the order of the host-built ``ReductionPlan``.
+inside its kernel. The ELL sum onto output rows, and its add onto the
+dense engine's rows, run inside the ELL kernels too: in one launch on
+the "ragged" dispatch, in one launch per class band on the
+"fused"/"loop" dispatches. All of them add in the order of the
+host-built ``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
@@ -19,8 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import (PartitionMeta, ReductionPlan,
-                                      TriPartition, b_tiles_of, ell_buckets,
-                                      scatter_ell_partials)
+                                      TriPartition, b_tiles_of, ell_buckets)
 
 from . import bsr_spmm as _bsr
 from . import ell_spmm as _ell
@@ -82,47 +81,31 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     ``"ragged"`` makes ONE ``ragged_ell_rows`` launch over the
     concatenated unit array of the whole group: the products, their sum
     onto rows and the add onto ``yd``.
-    ``"fused"``/``"loop"`` are the per-K A/B dispatches: one ``ell_spmm``
-    launch per bucket of ``meta.ell_segments`` for the whole group, each
-    writing its unit slice of one product buffer; "fused" reduces the
-    buffer once, "loop" bucket by bucket into a running buffer, and the
-    result is then added onto ``yd``.
+    ``"fused"``/``"loop"`` are the per-K A/B dispatches: one
+    ``ell_spmm_rows`` launch per bucket (class band) of
+    ``meta.ell_segments`` for the whole group, each doing its band's
+    products, their sum onto rows and the add onto ``yd``, in the bands'
+    ``plan.ell_bands``. The reference's two scatter structures (one
+    reduction of all buckets' products, or one per bucket into a running
+    buffer) add in one order, so both names run these same launches.
     """
     check_ell_dispatch(dispatch)
-    g, _, f = b.shape
-    u, r = part.ell.cols.shape[-3], part.ell.cols.shape[-2]
-    if u == 0:
+    f = b.shape[-1]
+    if part.ell.cols.shape[-3] == 0:
         return yd
     bt = b_tiles_of(b, meta)
     if dispatch == "ragged":
         return _ell.ragged_ell_rows(part.ell.cols, part.ell.vals,
                                     part.ell.tile_col, part.ell.unit_k, bt,
                                     plan.ell, yd, device=b.device)
-    prod = torch.empty((g, u, r, f), dtype=torch.float32, device=b.device)
-    at = 0
-    for bucket in ell_buckets(part.ell, meta.ell_segments):
-        n = bucket.cols.shape[-3]
-        _ell.ell_spmm(bucket.cols, bucket.vals, bucket.tile_col, bt,
-                      out=prod[:, at:at + n], device=b.device)
-        at += n
-    return yd.add_(reduce_ell(part, prod, meta, plan, dispatch))
-
-
-def reduce_ell(part: TriPartition, prod: torch.Tensor, meta: PartitionMeta,
-               plan: ReductionPlan, dispatch: str) -> torch.Tensor:
-    """Sum the per-unit products ``prod`` [G, U, R, F] onto padded rows:
-    at once ("ragged", "fused") or bucket by bucket ("loop")."""
-    g, u, r, f = prod.shape
-    if dispatch != "loop":
-        return scatter_ell_partials(part.ell.rows.reshape(g, u * r),
-                                    prod.reshape(g, u * r, f), meta,
-                                    plan=plan.ell)
     buckets = ell_buckets(part.ell, meta.ell_segments)
-    rows, partials, at = [], [], 0
-    for bucket in buckets:
-        n = bucket.rows.shape[-2]
-        rows.append(bucket.rows.reshape(g, n * r))
-        partials.append(prod[:, at:at + n].reshape(g, n * r, f))
-        at += n
-    return scatter_ell_partials(rows, partials, meta,
-                                plan=plan.ell_buckets)
+    if len(plan.ell_bands) != len(buckets):
+        raise ValueError(f"{len(plan.ell_bands)} band plans for "
+                         f"{len(buckets)} buckets (build the plan with "
+                         "reduction_plan)")
+    n_carry = plan.ell_bands[0].n_carry
+    carry = (yd.new_empty((yd.shape[0], n_carry, f)) if n_carry else None)
+    for bucket, band in zip(buckets, plan.ell_bands):
+        _ell.ell_spmm_rows(bucket.cols, bucket.vals, bucket.tile_col, bt,
+                           band, yd, carry, device=b.device)
+    return yd

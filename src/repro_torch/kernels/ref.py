@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import SegmentPlan, segment_sum
+from repro_torch.core.formats import BandPlan, SegmentPlan, segment_sum
 from repro_torch.device import pin_ieee_f32
 
 
@@ -135,3 +135,45 @@ def ragged_ell_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
     prod = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
     rows = segment_sum(prod.reshape(g * u * r, f), plan)
     return out.add_(rows.reshape(out.shape))
+
+
+def ell_spmm_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
+                      tile_col: torch.Tensor, b_tiles: torch.Tensor,
+                      band: BandPlan, out: torch.Tensor,
+                      carry: torch.Tensor = None) -> torch.Tensor:
+    """One class band's ELL rows, added onto ``out`` in place.
+
+    cols/vals [G, U_b, R, K], tile_col [G, U_b], b_tiles [G, nct, T, F],
+    ``band`` the band's ``BandPlan`` (tensors), ``out`` [G, P, F] and
+    ``carry`` [G, band.n_carry, F] (rows that several bands reach). Step
+    by step: the per-unit products (``ell_spmm_ref``); per live row of
+    the band, a sum started from the row's carried value (an earlier band
+    reached it) or from +0, adding its unit rows' products one at a time
+    in plan order; then the sum is stored in ``carry`` (a later band
+    reaches the row) or added onto ``out``. Returns ``out``.
+    """
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    prod = ell_spmm_ref(cols, vals, tile_col, b_tiles).reshape(g, u * r, f)
+    n_slots = band.rows.shape[1]
+    gi, si = torch.nonzero(band.rows >= 0, as_tuple=True)
+    slot = gi * n_slots + si
+    begin = band.offsets[slot]
+    n = band.offsets[slot + 1] - begin
+    code = band.carry[gi, si]
+    c = code >> 2
+    carry_in = (code >= 0) & (code & 2 != 0)
+    carry_out = (code >= 0) & (code & 1 != 0)
+    acc = torch.zeros((slot.shape[0], f), dtype=torch.float32,
+                      device=prod.device)
+    if bool(carry_in.any()):
+        acc[carry_in] = carry[gi[carry_in], c[carry_in]]
+    for i in range(int(n.max()) if n.numel() else 0):
+        m = i < n
+        acc[m] = acc[m] + prod[gi[m], band.order[begin[m] + i]]
+    if bool(carry_out.any()):
+        carry[gi[carry_out], c[carry_out]] = acc[carry_out]
+    add = ~carry_out
+    rows = band.rows[gi[add], si[add]]
+    out[gi[add], rows] = out[gi[add], rows] + acc[add]
+    return out

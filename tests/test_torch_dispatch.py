@@ -32,9 +32,8 @@ import repro.core as rc
 import repro_torch.core as tc
 from repro.kernels.ell_spmm import ell_spmm as jax_ell_spmm
 from repro.kernels.tile_matmul import tile_matmul as jax_tile_matmul
-from repro_torch.core.formats import (RaggedEll, ell_buckets, plan_to,
-                                      reduction_plan,
-                                      scatter_ell_partials)
+from repro_torch.core.formats import (RaggedEll, bucket_plan, ell_buckets,
+                                      reduction_plan, scatter_ell_partials)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ell_spmm import ell_spmm, ragged_ell_spmm
 from repro_torch.kernels.ref import (ell_spmm_ref, ragged_ell_spmm_ref,
@@ -312,9 +311,9 @@ def test_dispatches_on_a_stacked_group_bitwise():
                                                zip(*[p for p, _ in padded]))))
     b = np.random.default_rng(5).standard_normal(
         (2, meta.n_cols, 6)).astype(np.float32)
-    assert reduction_plan(stack, meta).ell_buckets == ()
-    plan = reduction_plan(stack, meta, loop=True)
-    assert len(plan.ell_buckets) == len(meta.ell_segments)
+    plan = reduction_plan(stack, meta)
+    assert len(plan.ell_bands) == len(meta.ell_segments)
+    assert all(tuple(bp.rows.shape)[0] == 2 for bp in plan.ell_bands)
     ragged = tc.hybrid_spmm(stack, b, meta=meta, device="cpu")
     for d in ("fused", "loop"):
         y = tc.hybrid_spmm(stack, b, meta=meta, ell_dispatch=d, plan=plan,
@@ -344,7 +343,6 @@ def test_loop_scatter_list_form_matches_one_reduction():
         partials.append(prod[at:at + n].reshape(-1, 5))
         at += n
     assert torch.equal(scatter_ell_partials(rows, partials, meta), once)
-    plans = plan_to(reduction_plan(placed, meta, loop=True),
-                    "cpu").ell_buckets
+    plans = [bucket_plan(r, meta, "cpu") for r in rows]
     assert torch.equal(scatter_ell_partials(rows, partials, meta,
                                             plan=plans), once)
