@@ -20,18 +20,29 @@ repository's ``src/`` next to this file. It
      device ms per infer, the card's busy share, and the launches of the
      kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
      gathers, ``segment_reduce`` and its scans, elementwise kernels);
-  5. a reordered graph on the main path: cora at full size, reordered by
+  5. the serving front end over the main path's engine
+     (``repro_torch.serving.RequestQueue``, host features as a user
+     submits them, 4 requests per graph): serial on a worker thread,
+     pipelined, two replica lanes on the one card, and under chaos (one
+     poisoned request name quarantined by bisection; a hung dispatch
+     reclaimed by the dispatch watchdog); results bitwise-equal to
+     ``serve_group``, two launches of each kernel per batch, and each
+     warm latency sample at least its dispatch's device time; prints
+     one ``{"serving": ...}`` line;
+  6. a reordered graph on the main path: cora at full size, reordered by
      its planted communities (``reorder(csr, "labels", ...)``), served
      one ``infer`` with the launches of the main path and logits within
-     tolerance of the plain backend and of the unreordered graph;
-  6. dispatch A/B: the same requests through ``Engine(ell_dispatch=d)``
+     tolerance of the plain backend and of the unreordered graph; its
+     class has no dense tile, and ``bsr_spmm_rows`` on that empty dense
+     part must give zeros without a launch;
+  7. dispatch A/B: the same requests through ``Engine(ell_dispatch=d)``
      for the per-K dispatches "fused" and "loop" (one ``ell_spmm`` launch
      per class band per layer, which also sums the band onto rows and
      adds it onto the dense rows; no ``ragged_ell_spmm``); logits must
      equal the ragged dispatch's bit for bit, repeats bitwise; one
      ``infer`` of each is profiled beside the ragged dispatch's, and its
      ELL part must be the band kernels alone;
-  7. lifecycle, on the "ragged" and the "fused" dispatch: three
+  8. lifecycle, on the "ragged" and the "fused" dispatch: three
      pubmed-shaped graphs of one shape class, served, then their class
      retired by a ``LifecycleManager`` window; the successors are
      tighter and at least one has fewer padded rows (so X·W and the
@@ -39,9 +50,9 @@ repository's ``src/`` next to this file. It
      the retirement, ``infer`` within tolerance (bitwise equality
      printed), and a replica view serves a successor class as the
      engine does;
-  8. the matmul path: the GCN's X·W products of the main path through
+  9. the matmul path: the GCN's X·W products of the main path through
      ``kernels.ops.matmul`` (the ``tile_matmul`` kernel);
-  9. holds each of the four kernels against its plain PyTorch version at
+ 10. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -54,7 +65,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 10. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 11. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills) and, last, the ``{"ok": true, "device": ...}``
      line.
 
@@ -100,6 +111,10 @@ AB_DISPATCHES = ("fused", "loop")
 LIFECYCLE_SCALES = (1.0, 0.78, 0.71)
 LIFECYCLE_DISPATCHES = ("ragged", "fused")
 LAYERS = 2
+# Serving phase: a deadline this long never closes a batch early, so each
+# graph's GROUP requests close as one batch of GROUP (by size).
+SERVE_DEADLINE_MS = 60_000.0
+SERVE_TIMEOUT_S = 120.0
 TIMING_REPS = 30
 GRAPH_CALLS = 20
 # device kernels counted by name in the profile of one infer
@@ -311,6 +326,292 @@ def check_main_path(torch, engine, graphs, counts) -> list:
     return problems
 
 
+# ------------------------------------------------------------- serving ----
+def _resolve(futs) -> tuple:
+    """(results, errors) of ``futs``, each waited for at most
+    ``SERVE_TIMEOUT_S``; a future that raised or timed out leaves None
+    and its exception."""
+    outs, errs = [], []
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=SERVE_TIMEOUT_S))
+            errs.append(None)
+        except Exception as e:     # noqa: BLE001 — reported as a problem
+            outs.append(None)
+            errs.append(e)
+    return outs, errs
+
+
+def _serve(torch, queue, reqs, on_done=None) -> tuple:
+    """Start ``queue``, submit ``reqs`` (host features), wait for every
+    future, stop the queue. Returns (results, errors, wall seconds,
+    stats snapshot)."""
+    t0 = time.perf_counter()
+    queue.start()
+    try:
+        futs = []
+        for i, (name, x) in enumerate(reqs):
+            f = queue.submit(name, x)
+            if on_done is not None:
+                f.add_done_callback(lambda _, i=i: on_done(i))
+            futs.append(f)
+        outs, errs = _resolve(futs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        queue.stop()
+    return outs, errs, wall, queue.stats.snapshot()
+
+
+def _mode_record(snap, wall, **extra) -> dict:
+    keep = ("arrivals", "completed", "batches", "batch_hist",
+            "close_reasons", "p50_ms", "p99_ms", "mean_latency_ms",
+            "deadline_misses", "dispatch_errors", "inflight_peak",
+            "overlap_ratio", "staging_p50_ms", "device_p50_ms",
+            "resilience")
+    rec = {k: snap[k] for k in keep}
+    if "replicas" in snap:
+        rec["replicas"] = {k: snap["replicas"][k]
+                           for k in ("count", "faults", "key_epochs")}
+        rec["routed"] = {r: v["routed"] for r, v in
+                         snap["replicas"]["per_replica"].items()}
+    return dict(rec, wall_s=wall, **extra)
+
+
+def serving_phase(torch, engine, graphs, smi: str) -> tuple:
+    """The serving front end over the main path's "ragged" engine.
+
+    Four modes, each a ``RequestQueue`` over ``engine`` with its worker
+    thread started, fed the main path's requests as host numpy features
+    (``GROUP`` per graph, so each graph's requests share one key and
+    close as one batch), the launch counters set to 0 just before each
+    mode and read just after:
+
+      serial     ``RequestQueue(engine, target_batch=GROUP)``. Gates:
+                 every future resolves; results bitwise-equal to the main
+                 path's ``serve_group`` of the same members (``y_group``)
+                 and within ``LOGIT_TOL`` of per-request ``infer``; two
+                 launches (one per layer) of ``ragged_ell_spmm`` per
+                 batch and of ``bsr_spmm`` per batch on a class with
+                 dense tiles; ``stats()["serving"]["completed"]`` equals
+                 the submissions; each warm latency sample at least the
+                 device ms of its dispatch (CUDA events around
+                 ``serve_group_async``), so the queue timed the dispatch
+                 and not its enqueue;
+      pipelined  ``pipelined=True, max_inflight=4, stage_workers=1``:
+                 results bitwise-equal to serial, the same launches;
+      replicas   ``replicas=2`` (two ``replica_view`` lanes, private
+                 executor caches, one card), the requests twice: results
+                 bitwise-equal to serial, each graph's futures resolved
+                 in submit order, the same launches per batch;
+      chaos      a ``ChaosInjector`` poisons one request name (an alias
+                 of cora in cora's batch): that future raises
+                 ``PoisonedRequest``, its batch-mates stay within
+                 ``LOGIT_TOL`` of serial (bitwise equality printed);
+                 then a pipelined queue whose first dispatch hangs: the
+                 dispatch watchdog reclaims it, the retry resolves every
+                 future (within ``LOGIT_TOL`` of serial, bitwise
+                 printed).
+
+    Also times a warm one-request ``serve_group`` with the features on
+    the card per graph: the least of these is what
+    ``Engine.LAUNCH_FLOOR_S`` states.
+
+    Returns (problems, record).
+    """
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (NULL_INJECTOR, ChaosInjector,
+                                     FaultPlan, FaultSpec, PoisonedRequest,
+                                     RequestQueue)
+
+    problems, record = [], dict(gpu=smi)
+    names = list(graphs)
+    reqs = [(name, x) for name in names for x in graphs[name]["xs"]]
+    dense = {name: bool(engine.handle(name).sclass.n_dense_tiles)
+             for name in names}
+
+    def launch_problems(mode, counts, batches_by_graph):
+        want = {"bsr_spmm": sum(LAYERS * n for g, n in
+                                batches_by_graph.items() if dense[g]),
+                "ragged_ell_spmm": LAYERS * sum(batches_by_graph.values()),
+                "ell_spmm": 0, "tile_matmul": 0}
+        if counts != want:
+            return [f"serving {mode}: launches {counts}, want {want}"]
+        return []
+
+    def unresolved(mode, errs):
+        bad = [repr(e) for e in errs if e is not None]
+        return [f"serving {mode}: {len(bad)} futures failed: {bad[:3]}"] \
+            if bad else []
+
+    # -- serial, with each dispatch's device time and latency sample ----
+    events, samples = [], []
+    async_fn = engine.serve_group_async
+
+    def timed(requests, prepared=None, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = async_fn(requests, prepared, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    engine.serve_group_async = timed
+    try:
+        queue = RequestQueue(engine, target_batch=GROUP,
+                             default_deadline_ms=SERVE_DEADLINE_MS)
+        observe = queue.latency.observe
+
+        def record_sample(key, batch, dt_s=None, cold=False, **kw):
+            samples.append((dt_s, cold))
+            observe(key, batch, dt_s, cold, **kw)
+
+        queue.latency.observe = record_sample
+        ops.reset_launch_counts()
+        serial, errs, wall, snap = _serve(torch, queue, reqs)
+        counts = ops.launch_counts()
+    finally:
+        del engine.serve_group_async
+    problems += unresolved("serial", errs)
+    problems += launch_problems("serial", counts, {n: 1 for n in names})
+    completed = engine.stats()["serving"]["completed"]
+    if completed != len(reqs) or snap["batches"] != len(names):
+        problems.append(f"serving serial: completed {completed}, batches "
+                        f"{snap['batches']}; want {len(reqs)}, "
+                        f"{len(names)}")
+    bitwise, err_infer = True, 0.0
+    for k, (name, x) in enumerate(reqs):
+        y, want = serial[k], graphs[name]["y_group"][k % GROUP]
+        if y is None:
+            continue
+        bitwise &= torch.equal(y, want)
+        solo = engine.infer(name, x)
+        err_infer = max(err_infer, max_err(y, solo))
+        if not close(y, solo, **LOGIT_TOL):
+            problems.append(f"serving serial {name}: vs infer max_abs_err "
+                            f"{max_err(y, solo)}")
+    if not bitwise:
+        problems.append("serving serial: results not bitwise-equal to "
+                        "serve_group of the same members")
+    torch.cuda.synchronize()
+    dev_ms = [start.elapsed_time(end) for start, end in events]
+    lat_ms = [dt * 1e3 for dt, _ in samples]
+    warm = [not cold for _, cold in samples]
+    if len(dev_ms) != len(samples) or not all(warm) or any(
+            lat < dev for lat, dev in zip(lat_ms, dev_ms)):
+        problems.append(f"serving serial: latency samples {lat_ms} ms "
+                        f"(warm {warm}) against dispatch device times "
+                        f"{dev_ms} ms")
+    record["serial"] = _mode_record(
+        snap, wall, launches=counts, bitwise_vs_serve_group=bitwise,
+        max_abs_err_vs_infer=err_infer, latency_samples_ms=lat_ms,
+        dispatch_device_ms=dev_ms)
+
+    # -- pipelined -------------------------------------------------------
+    queue = RequestQueue(engine, target_batch=GROUP,
+                         default_deadline_ms=SERVE_DEADLINE_MS,
+                         pipelined=True, max_inflight=4, stage_workers=1)
+    ops.reset_launch_counts()
+    outs, errs, wall, snap = _serve(torch, queue, reqs)
+    counts = ops.launch_counts()
+    problems += unresolved("pipelined", errs)
+    problems += launch_problems("pipelined", counts, {n: 1 for n in names})
+    same = all(a is not None and b is not None and torch.equal(a, b)
+               for a, b in zip(outs, serial))
+    if not same:
+        problems.append("serving pipelined: results not bitwise-equal to "
+                        "serial")
+    record["pipelined"] = _mode_record(snap, wall, launches=counts,
+                                       bitwise_vs_serial=same)
+
+    # -- two replica lanes on the one card, the requests twice -----------
+    done_order = []
+    queue = RequestQueue(engine, target_batch=GROUP,
+                         default_deadline_ms=SERVE_DEADLINE_MS, replicas=2)
+    ops.reset_launch_counts()
+    outs, errs, wall, snap = _serve(torch, queue, reqs + reqs,
+                                    on_done=done_order.append)
+    counts = ops.launch_counts()
+    problems += unresolved("replicas", errs)
+    problems += launch_problems("replicas", counts, {n: 2 for n in names})
+    same = all(a is not None and b is not None and torch.equal(a, b)
+               for a, b in zip(outs, serial + serial))
+    in_order = all(
+        [i for i in done_order if reqs[i % len(reqs)][0] == name]
+        == sorted(i for i in done_order if reqs[i % len(reqs)][0] == name)
+        for name in names) and len(done_order) == 2 * len(reqs)
+    if not (same and in_order):
+        problems.append(f"serving replicas: bitwise vs serial {same}, "
+                        f"per-key order kept {in_order}")
+    record["replicas"] = _mode_record(snap, wall, launches=counts,
+                                      bitwise_vs_serial=same,
+                                      per_key_order=in_order)
+
+    # -- chaos: a poisoned request name, then a hung dispatch ------------
+    cora = graphs["cora"]
+    alias = "cora~"
+    engine.register(alias, cora["csr"], weights=cora["ws"])
+    poison_reqs = [("cora", cora["xs"][0]), ("cora", cora["xs"][1]),
+                   (alias, cora["xs"][2]), ("cora", cora["xs"][3])]
+    inj = ChaosInjector(FaultPlan([FaultSpec(site="poison", at=0,
+                                             member=2)]))
+    queue = RequestQueue(engine, target_batch=GROUP,
+                         default_deadline_ms=SERVE_DEADLINE_MS,
+                         injector=inj, resilience=True)
+    try:
+        outs, errs, wall, snap = _serve(torch, queue, poison_reqs)
+    finally:
+        engine.attach_injector(NULL_INJECTOR)
+    base = names.index("cora") * GROUP
+    mates = [k for k in range(GROUP) if k != 2]
+    poisoned = isinstance(errs[2], PoisonedRequest)
+    mates_ok = all(outs[k] is not None and close(
+        outs[k], serial[base + k], **LOGIT_TOL) for k in mates)
+    mates_bitwise = all(outs[k] is not None and torch.equal(
+        outs[k], serial[base + k]) for k in mates)
+    if not (poisoned and mates_ok and all(errs[k] is None for k in mates)):
+        problems.append(f"serving chaos poison: poisoned future raised "
+                        f"{errs[2]!r}; batch-mates within LOGIT_TOL "
+                        f"{mates_ok}, errors {[repr(e) for e in errs]}")
+    record["chaos_poison"] = _mode_record(
+        snap, wall, poisoned_raised=poisoned, mates_within_tol=mates_ok,
+        mates_bitwise_vs_serial=mates_bitwise, fired=inj.fired())
+
+    base = names.index("pubmed") * GROUP
+    hang_reqs = reqs[base:base + GROUP]
+    inj = ChaosInjector(FaultPlan([FaultSpec(site="hang", at=0)]))
+    queue = RequestQueue(engine, target_batch=GROUP,
+                         default_deadline_ms=SERVE_DEADLINE_MS,
+                         pipelined=True, injector=inj, resilience=True)
+    try:
+        outs, errs, wall, snap = _serve(torch, queue, hang_reqs)
+    finally:
+        engine.attach_injector(NULL_INJECTOR)
+    ok = all(e is None for e in errs) and all(
+        close(y, serial[base + k], **LOGIT_TOL) for k, y in enumerate(outs))
+    hang_bitwise = ok and all(torch.equal(y, serial[base + k])
+                              for k, y in enumerate(outs))
+    fires = snap["resilience"]["watchdog_fires"]
+    if not ok or fires < 1 or queue.inflight():
+        problems.append(f"serving chaos hang: watchdog fires {fires}, "
+                        f"errors {[repr(e) for e in errs]}, within "
+                        f"LOGIT_TOL {ok}, in flight {queue.inflight()}")
+    record["chaos_hang"] = _mode_record(
+        snap, wall, within_tol=ok, bitwise_vs_serial=hang_bitwise,
+        fired=inj.fired())
+
+    # -- the latency prior's floor: warm one-request dispatches ----------
+    one = {}
+    for name in names:
+        x_dev = torch.from_numpy(graphs[name]["xs"][0]).cuda()
+        one[name] = wall_ms(torch, lambda: engine.serve_group([(name,
+                                                                 x_dev)]))
+    record["one_request_serve_group_dev_x_ms"] = one
+    record["launch_floor_ms"] = engine.LAUNCH_FLOOR_S * 1e3
+    return problems, record
+
+
 def reordered_phase(torch, engine, graphs) -> tuple:
     """One more graph on the main path: cora at full size, reordered by
     its planted communities (``reorder(csr, "labels", labels=
@@ -327,12 +628,17 @@ def reordered_phase(torch, engine, graphs) -> tuple:
     unreordered cora logits (same weights and features; the engine
     returns rows in the graph's own order).
 
+    Then ``bsr_spmm_rows`` once on the dense part of the graph's class,
+    which has no tile: zeros of the row tiles' shape, and no launch.
+
     Returns (problems, record, launch counts of the run).
     """
+    from repro_torch.core.formats import b_tiles_of, plan_to, stack_plans
     from repro_torch.core.reorder import bandwidth, reorder
     from repro_torch.data.graphs import make_paper_dataset
     from repro_torch.engine import Engine
     from repro_torch.kernels import ops
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
 
     g = graphs["cora"]
     csr, _, _, _ = make_paper_dataset("cora", scale=1.0, seed=SEED)
@@ -365,7 +671,28 @@ def reordered_phase(torch, engine, graphs) -> tuple:
         if not close(y, other, **LOGIT_TOL):
             problems.append(f"{name} vs {what}: max_abs_err "
                             f"{max_err(y, other)}")
+    h = engine.handle(name)
+    b = torch.matmul(engine.prepare_x(name, g["xs"][0]), h.weights[0])
+    c0 = ops.launch_counts()["bsr_spmm"]
+    empty = bsr_spmm_rows(
+        h.part.dense.tiles[None], h.part.dense.tile_col[None],
+        b_tiles_of(b[None], sc.to_meta()).contiguous(),
+        plan_to(stack_plans([h.host_plan]), b.device).dense,
+        device=b.device)
+    torch.cuda.synchronize()
+    empty_ok = (not sc.n_dense_tiles
+                and tuple(empty.shape) == (1, sc.n_row_tiles, sc.tile,
+                                           b.shape[1])
+                and not bool(empty.any())
+                and ops.launch_counts()["bsr_spmm"] == c0)
+    if not empty_ok:
+        problems.append(f"{name}: bsr_spmm_rows on the class's dense part "
+                        f"({sc.n_dense_tiles} tiles) gave "
+                        f"{tuple(empty.shape)}, nonzero "
+                        f"{int(empty.count_nonzero())}, launches "
+                        f"{ops.launch_counts()['bsr_spmm'] - c0}")
     record = dict(graph=name, register_s=register_s, launches=counts,
+                  empty_dense_zeros=empty_ok,
                   err_vs_torch=max_err(y, y_ref),
                   err_vs_unreordered=max_err(y, g["y_infer"]),
                   bandwidth=[bandwidth(csr), bandwidth(reorder(
@@ -1237,6 +1564,17 @@ def main() -> None:
         g["profile"] = profile_calls(torch, lambda: engine.infer(name,
                                                                  x_dev))
 
+    s_problems, serving = serving_phase(torch, engine, graphs, smi)
+    problems += s_problems
+    for mode in ("serial", "pipelined", "replicas", "chaos_poison",
+                 "chaos_hang"):
+        r = serving[mode]
+        print(f"serving {mode}: {r['completed']} completed in "
+              f"{r['batches']} batches, p50 {r['p50_ms']:.3f} ms, p99 "
+              f"{r['p99_ms']:.3f} ms, wall {r['wall_s']:.3f} s, overlap "
+              f"{r['overlap_ratio']:.3f}, inflight peak "
+              f"{r['inflight_peak']}")
+
     r_problems, reordered, r_counts = reordered_phase(torch, engine, graphs)
     problems += r_problems
     print(f"reordered graph launches: {r_counts}")
@@ -1287,6 +1625,7 @@ def main() -> None:
     print(json.dumps({"e2e": e2e, "reordered": reordered,
                       "dispatch_ab": ab_rows, "lifecycle": lifecycle}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -23,6 +23,8 @@ import threading
 from repro_torch.core.hybrid_spmm import gcn_forward, hybrid_spmm
 from repro_torch.kernels.ops import check_ell_dispatch
 from repro_torch.obs.metrics import Counter, MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.chaos import NULL_INJECTOR, InjectedFault
 
 from .shape_class import ShapeClass
 
@@ -97,7 +99,20 @@ class ExecutorCache:
         self.metrics = MetricsRegistry()
         self.stats = CacheStats("cache", self.metrics)
         self._class_stats: dict = {}   # ShapeClass -> CacheStats
-        # Guards _fns/_class_stats bookkeeping against concurrent lookups.
+        # Observability hook (repro_torch.obs): cache.hit/cache.miss
+        # instant events. Off by default; `Engine.attach_tracer` swaps
+        # it in.
+        self.tracer = NULL_TRACER
+        # Chaos hook (repro_torch.serving.chaos): the "compile" injection
+        # site lives in the `_get` miss path. `Engine.attach_injector`
+        # swaps a live injector in; NULL_INJECTOR keeps the path
+        # zero-cost.
+        self.injector = NULL_INJECTOR
+        # Guards _fns/_class_stats bookkeeping: pipelined staging workers
+        # look executors up concurrently with user-thread infer()/spmm()
+        # calls. build() runs inside the lock so one cold key builds
+        # once and the miss counter (the frontend's cold-sample
+        # detector) stays coherent.
         self._lock = threading.RLock()
 
     def _per_class(self, sc: ShapeClass) -> CacheStats:
@@ -107,12 +122,23 @@ class ExecutorCache:
         return st
 
     def _get(self, key, build):
+        tr = self.tracer
         with self._lock:
             cls = self._per_class(key[1])
             fn = self._fns.get(key)
             if fn is None:
                 self.stats.inc_misses()
                 cls.inc_misses()
+                if tr.enabled:
+                    tr.instant("cache.miss", "engine",
+                               args={"kind": key[0]})
+                inj = self.injector
+                if inj.enabled and inj.poll("compile") is not None:
+                    # injected build failure: the build never ran, so
+                    # the next lookup misses again and a retry rebuilds
+                    # (transient by construction)
+                    raise InjectedFault(
+                        "compile", detail=f"executor build for {key[0]}")
                 fn = build()
                 self._fns[key] = fn
                 while len(self._fns) > self.max_entries:
@@ -123,6 +149,9 @@ class ExecutorCache:
                 self._fns.move_to_end(key)                       # mark MRU
                 self.stats.inc_hits()
                 cls.inc_hits()
+                if tr.enabled:
+                    tr.instant("cache.hit", "engine",
+                               args={"kind": key[0]})
             return fn
 
     def __len__(self) -> int:

@@ -13,7 +13,12 @@ Port of ``repro.engine.serving``. Request path:
 
 ``serve_group_async`` is the non-blocking core of ``serve_group``: it
 stages and enqueues the device work (CUDA launches return before the
-card finishes) and returns completion hooks backed by a CUDA event.
+card finishes) and returns completion hooks backed by a CUDA event. The
+standing ``repro_torch.serving.RequestQueue`` forms groups from traffic
+accumulated across calls and dispatches them through it; the queue
+attaches itself (``attach_frontend``), its tracer (``attach_tracer``)
+and its chaos injector (``attach_injector``), and seeds its latency
+model from ``latency_prior``.
 
 ``replica_view(i)`` hands out a per-replica view with its own executor
 cache over the shared graphs. The shape-class lifecycle
@@ -22,8 +27,7 @@ cache over the shared graphs. The shape-class lifecycle
 ``execute_retirement``, which re-pads a retired class's members into
 tighter classes and invalidates every executor cache.
 
-Not ported yet (later slices): the autotuner, tracer/chaos attachment
-and the latency prior.
+Not ported yet (a later slice): the autotuner.
 """
 from __future__ import annotations
 
@@ -46,6 +50,8 @@ from repro_torch.core.reorder import reorder as reorder_csr
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import check_ell_dispatch
 from repro_torch.obs.metrics import Counter, MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.chaos import NULL_INJECTOR, InjectedFault
 
 from .executor import ExecutorCache
 from .lifecycle import RetirementPlan
@@ -115,6 +121,9 @@ class _EngineReplicaView:
     def handle(self, name: str):
         return self._engine.handle(name)
 
+    def latency_prior(self, key: tuple, batch: int):
+        return self._engine.latency_prior(key, batch)
+
     def prepare_x(self, name: str, x):
         return self._engine.prepare_x(name, x)
 
@@ -169,6 +178,19 @@ class Engine:
         self._stack_misses = Counter("engine.stack_misses", self.metrics)
         self._stack_evictions = Counter("engine.stack_evictions",
                                         self.metrics)
+        # Request tracer (repro_torch.obs.trace): off by default; a
+        # serving frontend constructed with `tracer=` calls
+        # `attach_tracer`, which also fans the tracer out to the executor
+        # caches so cache.hit/miss instants land in the same ring.
+        self.tracer = NULL_TRACER
+        # Chaos injector (repro_torch.serving.chaos): off by default; a
+        # frontend constructed with `injector=` calls `attach_injector`,
+        # which fans it out to the executor caches (the compile-failure
+        # site). Sites owned here: "dispatch" (raise at enqueue),
+        # "poison" (mark one member's name; outputs for poisoned names
+        # come back non-finite), "hang" (completion meta never ready).
+        self.injector = NULL_INJECTOR
+        self._frontend = None   # attached repro_torch.serving.RequestQueue
         self._lifecycle = None  # attached LifecycleManager
         # Per-replica executor caches handed out by replica_view();
         # retirement invalidates a retired class in every one.
@@ -259,6 +281,8 @@ class Engine:
                                   ell_dispatch=ex.ell_dispatch,
                                   max_entries=ex.max_entries,
                                   device=self.device)
+            cache.tracer = self.tracer
+            cache.injector = self.injector
             self._replica_caches.append(cache)
             view = self._replica_views[i] = _EngineReplicaView(
                 self, i, cache)
@@ -392,6 +416,15 @@ class Engine:
         if not requests:
             return [], {"cold": False, "ready": lambda: True,
                         "complete": lambda: None}
+        inj = self.injector
+        if inj.enabled:
+            spec = inj.poll("dispatch")
+            if spec is not None:
+                raise InjectedFault("dispatch",
+                                    transient=spec.mode == "transient")
+            spec = inj.poll("poison")
+            if spec is not None:
+                inj.mark_poisoned(requests[spec.member % len(requests)][0])
         members = []
         key0 = None
         for i, (name, x) in enumerate(requests):
@@ -412,26 +445,62 @@ class Engine:
         def pad(h, x, xp):
             return xp if xp is not None else self._pad_x(h, x)
 
+        tr = self.tracer
         if len(members) == 1:
             i, h, x, xp = members[0]
+            sp_pad = -1
+            if tr.enabled:
+                sp_pad = tr.begin("pad", "engine", args={"n": 1})
             fn = ex.gcn(sc, f_in, w_shapes)
-            outs = [self._unpad_y(h, fn(h.part, pad(h, x, xp), h.weights,
-                                        h.plan))]
-            return outs, self._completion_meta(misses0, ex)
+            xpad = pad(h, x, xp)
+            tr.end(sp_pad)
+            outs = [self._unpad_y(h, fn(h.part, xpad, h.weights, h.plan))]
+            meta = self._completion_meta(misses0, ex)
+            if inj.enabled:
+                outs, meta = self._inject_async(inj, requests, outs, meta)
+            return outs, meta
         # Canonicalize group order by name so (g0,g1) and (g1,g0) share
         # one cached stack, then pad to the next power-of-two group
         # (repeating the last member; its extra outputs are dropped).
         members.sort(key=lambda m: m[1].name)
         bs = 1 << (len(members) - 1).bit_length()
         padded = members + [members[-1]] * (bs - len(members))
+        sp_pad = -1
+        if tr.enabled:
+            sp_pad = tr.begin("pad", "engine",
+                              args={"n": len(members), "batch": bs})
         fn = ex.gcn_batched(sc, f_in, w_shapes, bs)
         part_stack, w_stack, plan = self._stack(padded)
         x_stack = torch.stack([pad(h, x, xp) for _, h, x, xp in padded])
+        tr.end(sp_pad)
         ys = fn(part_stack, x_stack, w_stack, plan)
         results: list = [None] * len(members)
         for j, (i, h, _, _) in enumerate(members):
             results[i] = self._unpad_y(h, ys[j])
-        return results, self._completion_meta(misses0, ex)
+        meta = self._completion_meta(misses0, ex)
+        if inj.enabled:
+            results, meta = self._inject_async(inj, requests, results, meta)
+        return results, meta
+
+    def _inject_async(self, inj, requests, outs, meta) -> tuple:
+        """Apply post-enqueue chaos sites to one dispatch's results:
+        poisoned member names yield non-finite outputs (multiplied by
+        NaN on the device, every dispatch, so quarantine bisection can
+        isolate them), and a fired "hang" spec makes the completion
+        meta never ready — only the dispatch watchdog can reclaim the
+        slot."""
+        if inj.poisoned_names():
+            outs = [y * float("nan") if inj.is_poisoned(nm) else y
+                    for (nm, _), y in zip(requests, outs)]
+        spec = inj.poll("hang")
+        if spec is not None:
+            def hung_complete():
+                raise InjectedFault(
+                    "hang", detail="completion forced on a hung dispatch")
+            meta = dict(meta)
+            meta["ready"] = lambda: False
+            meta["complete"] = hung_complete
+        return outs, meta
 
     def _completion_meta(self, misses0: int, ex: ExecutorCache) -> dict:
         """Completion hooks for the work enqueued so far on the current
@@ -446,6 +515,77 @@ class Engine:
         event.record(torch.cuda.current_stream(self.device))
         return {"cold": cold, "ready": event.query,
                 "complete": event.synchronize}
+
+    # --------------------------------------------------------- latency -----
+    def latency_prior(self, key: tuple, batch: int) -> Optional[float]:
+        """Roofline-derived warm-latency prior for one group dispatch.
+
+        Seeds the serving frontend's ``LatencyModel`` for keys with no
+        observations yet: the class's padded MAC capacity (the slots the
+        kernels *execute*, including masked lanes) and its array bytes
+        give a FLOPs/bytes roofline bound at the H100 peaks in
+        ``repro_torch.analysis.roofline``, floored at ``LAUNCH_FLOOR_S``
+        so an arithmetic-light class never forecasts an implausibly
+        instant dispatch (which would make the scheduler linger past its
+        deadline). Returns None for keys whose class lacks capacity
+        metadata (e.g. the simulation's stub classes) — the model then
+        falls back to its flat default.
+        """
+        from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+        sc = key[0]
+        if not hasattr(sc, "ell_mac_capacity"):
+            return None
+        f_in = key[1]
+        w_shapes = key[2] if len(key) > 2 else ()
+        macs = (sc.ell_mac_capacity
+                + sc.n_dense_tiles * sc.tile * sc.tile + sc.coo_nnz)
+        n_rows = sc.n_row_tiles * sc.tile
+        widths = [f_in] + [w[1] for w in w_shapes]
+        # per layer: one hybrid SpMM at that width + the dense weight GEMM
+        flops = 2.0 * macs * sum(widths)
+        flops += sum(2.0 * n_rows * a * b for a, b in w_shapes)
+        byts = 4.0 * (macs + n_rows * sum(widths))
+        t = max(flops / PEAK_FLOPS, byts / HBM_BW) * max(int(batch), 1)
+        return max(t, self.LAUNCH_FLOOR_S)
+
+    # Floor for the roofline prior: per-dispatch launch and host overhead
+    # that no capacity model predicts. The least warm one-request
+    # `serve_group` wall time measured on the card with the features
+    # already there, 1.14 ms (citeseer; cora and pubmed 1.22 and 1.15
+    # ms), rounded down (NVIDIA H100 80GB HBM3, power limit 700 W;
+    # chip_smoke.py's serving phase). A too-small first estimate closes
+    # batches too late and misses deadlines.
+    LAUNCH_FLOOR_S = 1.1e-3
+
+    # ------------------------------------------------------ attachment -----
+    def attach_tracer(self, tracer) -> None:
+        """Install a ``repro_torch.obs.trace.Tracer`` and fan it out to
+        the executor caches (the engine's and every replica view's) so
+        engine-side spans and instants land in the same ring as the
+        serving frontend's. ``RequestQueue(..., tracer=...)`` calls
+        this; passing ``NULL_TRACER`` turns engine tracing back off."""
+        self.tracer = tracer
+        self.executors.tracer = tracer
+        for cache in self._replica_caches:
+            cache.tracer = tracer
+
+    def attach_injector(self, injector) -> None:
+        """Install a ``repro_torch.serving.chaos.ChaosInjector`` and fan
+        it out to every executor cache (the compile-failure site lives
+        in ``ExecutorCache._get``). Mirrors ``attach_tracer``; passing
+        ``NULL_INJECTOR`` turns injection back off."""
+        self.injector = injector
+        self.executors.injector = injector
+        for cache in self._replica_caches:
+            cache.injector = injector
+
+    def attach_frontend(self, frontend) -> None:
+        """Register a serving frontend (``RequestQueue``) so its
+        ``ServerStats`` surface through ``stats()["serving"]``. One
+        frontend slot: attaching replaces the previous one, so a
+        secondary queue over the same engine should pass
+        ``RequestQueue(..., attach=False)``."""
+        self._frontend = frontend
 
     # ------------------------------------------------------- lifecycle -----
     def class_waste_by_class(self) -> dict:
@@ -586,6 +726,8 @@ class Engine:
             "registry": self.registry.stats(),
             **stack,
         }
+        if self._frontend is not None:
+            out["serving"] = self._frontend.stats.snapshot()
         if self._lifecycle is not None:
             out["lifecycle"] = self._lifecycle.snapshot()
         return out

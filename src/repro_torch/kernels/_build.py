@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+# Guards the wrappers' launch counters: serving threads (the queue's
+# pump, staging workers, replica lanes) launch kernels concurrently.
+count_lock = threading.Lock()
 _libs: dict = {}
 # name -> {"path", "seconds", "cached", "log"}: what the last build did
 BUILD_LOG: dict = {}

@@ -89,7 +89,8 @@ def _launch(tiles, tile_col, b_tiles, order, offsets, n_rt, dev):
                      out.data_ptr(), g, n_rt, nct, t, f, stream)
         _build.check(lib, err, "bsr_spmm launch")
         global launches
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return out
 
 
@@ -103,7 +104,9 @@ def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
 
     Every tensor must lie on ``device``. CPU tensors take the plain version
     (``bsr_spmm_ref`` then ``segment_sum``); CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. A partition with no dense tile (``n_t == 0``), or a
+    plan with no entry, gives zeros without a launch, as the plain
+    version does: the kernel refuses an empty plan's null ``order``.
     """
     dev = resolve_device(device)
     tiles, tile_col, b_tiles, _ = _checked(tiles, tile_col, b_tiles, dev)
@@ -121,6 +124,9 @@ def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
                f"int64 on {dev}")
     _check(plan.offsets.shape[0] == n_seg + 1, f"{plan.offsets.shape[0]} "
            f"offsets for {n_seg} segments")
+    if tiles.shape[1] == 0 or plan.order.shape[0] == 0:
+        return torch.zeros((g, n_seg // g, tiles.shape[2], b_tiles.shape[3]),
+                           dtype=torch.float32, device=dev)
     return _launch(tiles, tile_col, b_tiles, plan.order, plan.offsets,
                    n_seg // g, dev)
 

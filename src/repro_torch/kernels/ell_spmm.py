@@ -181,7 +181,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
                  g, n_slots, u, r, kmax, nct, t, f, stream)
     _build.check(lib, err, "ragged_ell_spmm launch")
     global launches
-    launches += 1
+    with _build.count_lock:
+        launches += 1
 
 
 def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
@@ -346,7 +347,8 @@ def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
                  out_sg, stream)
     _build.check(lib, err, "ell_spmm launch")
     global fixed_k_launches
-    fixed_k_launches += 1
+    with _build.count_lock:
+        fixed_k_launches += 1
 
 
 def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,

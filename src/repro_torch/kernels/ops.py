@@ -21,6 +21,7 @@ import torch
 from repro_torch.core.formats import (PartitionMeta, ReductionPlan,
                                       TriPartition, b_tiles_of, ell_buckets)
 
+from . import _build
 from . import bsr_spmm as _bsr
 from . import ell_spmm as _ell
 from . import tile_matmul as _mm
@@ -30,15 +31,18 @@ ELL_DISPATCHES = ("ragged", "fused", "loop")
 
 def launch_counts() -> dict:
     """CUDA kernel launches since the last ``reset_launch_counts``."""
-    return {"bsr_spmm": _bsr.launches, "ragged_ell_spmm": _ell.launches,
-            "ell_spmm": _ell.fixed_k_launches, "tile_matmul": _mm.launches}
+    with _build.count_lock:
+        return {"bsr_spmm": _bsr.launches, "ragged_ell_spmm": _ell.launches,
+                "ell_spmm": _ell.fixed_k_launches,
+                "tile_matmul": _mm.launches}
 
 
 def reset_launch_counts() -> None:
-    _bsr.launches = 0
-    _ell.launches = 0
-    _ell.fixed_k_launches = 0
-    _mm.launches = 0
+    with _build.count_lock:
+        _bsr.launches = 0
+        _ell.launches = 0
+        _ell.fixed_k_launches = 0
+        _mm.launches = 0
 
 
 def check_ell_dispatch(dispatch: str) -> None:
@@ -59,11 +63,10 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
                        ) -> torch.Tensor:
     """Dense-engine partial product, [G, n_padded_rows, F]: one BSR
     kernel launch that also sums the products over ``tile_row``, in the
-    order of ``plan.dense``."""
+    order of ``plan.dense`` (+0 rows and no launch for a class without
+    dense tiles)."""
     g, _, f = b.shape
     T, nrt = meta.tile, meta.n_row_tiles
-    if part.dense.tiles.shape[-3] == 0:
-        return b.new_zeros((g, nrt * T, f))
     out = _bsr.bsr_spmm_rows(part.dense.tiles, part.dense.tile_col,
                              b_tiles_of(b, meta), plan.dense,
                              device=b.device)

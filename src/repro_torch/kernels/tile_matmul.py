@@ -100,5 +100,6 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
                      CONFIGS.index(config), stream)
         _build.check(lib, err, "tile_matmul launch")
         global launches
-        launches += 1
+        with _build.count_lock:
+            launches += 1
     return out

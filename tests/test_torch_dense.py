@@ -111,6 +111,26 @@ def test_dense_rows_without_tiles_are_zero(kind):
     assert bool((got[~empty] != 0).any())
 
 
+def _no_tiles(g=2, f=5, nrt=3, nct=4, t=64):
+    """A dense part with no tile (as a class whose partition puts every
+    tile into the ELL engine has), B tiles and the empty stacked plan."""
+    b = np.random.default_rng(0).standard_normal(
+        (g, nct, t, f)).astype(np.float32)
+    plan = stack_plans([tc.ReductionPlan(*[segment_plan(
+        np.zeros(0, np.int64), nrt)] * 3)] * g).dense
+    return (np.zeros((g, 0, t, t), np.float32), np.zeros((g, 0), np.int32),
+            b, plan)
+
+
+def test_dense_rows_of_a_partition_without_tiles_are_zero():
+    tiles, tcol, b, plan = _no_tiles()
+    plan = plan_to(tc.ReductionPlan(plan, plan, plan), "cpu").dense
+    want = torch.zeros((2, 3, 64, 5))
+    assert torch.equal(bsr_spmm_rows_ref(*_t(tiles, tcol, b), plan), want)
+    assert torch.equal(bsr_spmm_rows(*_t(tiles, tcol, b), plan,
+                                     device="cpu"), want)
+
+
 @pytest.mark.parametrize("kind", ["cora", "padded"])
 def test_segment_offsets_are_cumsum_and_cover_the_order(kind):
     part, meta = _partition(kind)
@@ -229,3 +249,17 @@ def test_cuda_dense_engine_one_launch_per_layer(cuda_device):
     assert ops.launch_counts()["bsr_spmm"] == len(ws)
     want = tc.gcn_forward(part, x, ws, meta=meta, backend="torch")
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_rows_without_tiles_are_zero_and_launch_nothing(
+        cuda_device):
+    tiles, tcol, b, plan = _no_tiles()
+    plan = plan_to(tc.ReductionPlan(plan, plan, plan), cuda_device).dense
+    ops.reset_launch_counts()
+    got = bsr_spmm_rows(*[x.to(cuda_device) for x in _t(tiles, tcol, b)],
+                        plan)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), torch.zeros((2, 3, 64, 5)))
+    assert ops.launch_counts()["bsr_spmm"] == 0

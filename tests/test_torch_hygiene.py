@@ -44,6 +44,8 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/engine/serving.py" in names
     assert "src/repro_torch/kernels/ops.py" in names
+    assert "src/repro_torch/serving/frontend.py" in names
+    assert "src/repro_torch/obs/trace.py" in names
     assert len(names) >= 20
 
 
