@@ -14,8 +14,10 @@ repository's ``src/`` next to this file. It
      before and read just after;
   4. checks the main path: logits finite and of the right shape, within
      tolerance of the port's plain "torch" backend on the same card,
-     ``serve_group`` outputs matching per-request ``infer``, repeat runs
-     bitwise-equal, and exactly one launch of each kernel per layer;
+     ``serve_group`` outputs bitwise-equal to per-request ``infer`` (X·W
+     is one 2-D product per group member, so no bit depends on the group
+     size), repeat runs bitwise-equal, and exactly one launch of each
+     kernel per layer;
      profiles one ``infer`` per graph (``torch.profiler``): kernels and
      device ms per infer, the card's busy share, and the launches of the
      kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
@@ -26,7 +28,8 @@ repository's ``src/`` next to this file. It
      pipelined, two replica lanes on the one card, and under chaos (one
      poisoned request name quarantined by bisection; a hung dispatch
      reclaimed by the dispatch watchdog); results bitwise-equal to
-     ``serve_group``, two launches of each kernel per batch, and each
+     ``serve_group`` and to ``infer`` (the chaos batch-mates too), two
+     launches of each kernel per batch, and each
      warm latency sample at least its dispatch's device time; prints
      one ``{"serving": ...}`` line;
   6. a reordered graph on the main path: cora at full size, reordered by
@@ -52,7 +55,27 @@ repository's ``src/`` next to this file. It
      engine does;
   9. the matmul path: the GCN's X·W products of the main path through
      ``kernels.ops.matmul`` (the ``tile_matmul`` kernel);
- 10. holds each of the four kernels against its plain PyTorch version at
+ 10. X·W: one 2-D product per group member against one batched
+     product at each graph's group of 4, device ms of both and whether
+     the batched members equal the 2-D products bit for bit;
+ 11. autotune: ``Engine.autotune`` on the classes of cora (citeseer's
+     too), pubmed and cora@labels, each at the hidden width and at its
+     output width, with the device timer (CUDA graphs of the tuned launch
+     on the graph's own class-padded rows); prints each sweep's
+     per-candidate device ms and the rejected candidates with their
+     audit findings, and the device ms of the GCN forward with each
+     graph's applied tuning (a config per width) against the defaults.
+     Gates: only candidates without an audit error are timed; each
+     timed candidate's ``ragged_ell_rows`` bitwise-equal to the
+     default's on the class's real inputs; each width's winner applied
+     at that width; tuned ``infer`` bitwise-equal to untuned; a second
+     ``autotune`` a cache hit that times nothing;
+ 12. lint: the three passes of ``python -m repro_torch.analysis.static``
+     on the card (kernel contracts against the build's ptxas logs; the
+     launch pass's profile: one ragged and one dense launch per layer,
+     no host sync in the forward), then the launch and kernel passes over
+     the main path's engine and its tuned classes; no unwaived error;
+ 13. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -65,9 +88,9 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 11. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
-     registers and spills) and, last, the ``{"ok": true, "device": ...}``
-     line.
+ 14. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+     registers and spills, and the ragged kernel's tuned config at each
+     class) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository's sources, it exits non-zero and prints no result.
@@ -304,10 +327,9 @@ def check_main_path(torch, engine, graphs, counts) -> list:
                                       for a, b in zip(g["y_group"], solo))
         g["group_bitwise_infer"] = all(torch.equal(a, b)
                                        for a, b in zip(g["y_group"], solo))
-        if not all(close(a, b, **LOGIT_TOL)
-                   for a, b in zip(g["y_group"], solo)):
-            problems.append(f"{name}: serve_group vs infer max_abs_err "
-                            f"{g['err_group_vs_infer']}")
+        if not g["group_bitwise_infer"]:
+            problems.append(f"{name}: serve_group not bitwise-equal to "
+                            f"infer (max_abs_err {g['err_group_vs_infer']})")
         again = engine.serve_group([(name, x) for x in g["xs"]])
         if not (torch.equal(engine.infer(name, g["xs"][0]), g["y_infer"])
                 and all(torch.equal(a, b)
@@ -390,7 +412,7 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
       serial     ``RequestQueue(engine, target_batch=GROUP)``. Gates:
                  every future resolves; results bitwise-equal to the main
                  path's ``serve_group`` of the same members (``y_group``)
-                 and within ``LOGIT_TOL`` of per-request ``infer``; two
+                 and to per-request ``infer``; two
                  launches (one per layer) of ``ragged_ell_spmm`` per
                  batch and of ``bsr_spmm`` per batch on a class with
                  dense tiles; ``stats()["serving"]["completed"]`` equals
@@ -406,12 +428,13 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
                  in submit order, the same launches per batch;
       chaos      a ``ChaosInjector`` poisons one request name (an alias
                  of cora in cora's batch): that future raises
-                 ``PoisonedRequest``, its batch-mates stay within
-                 ``LOGIT_TOL`` of serial (bitwise equality printed);
-                 then a pipelined queue whose first dispatch hangs: the
-                 dispatch watchdog reclaims it, the retry resolves every
-                 future (within ``LOGIT_TOL`` of serial, bitwise
-                 printed).
+                 ``PoisonedRequest``, its batch-mates, re-dispatched at
+                 G = 2 and G = 1 by the quarantine bisection, are
+                 bitwise-equal to serial (X·W runs one 2-D product per
+                 member, so no result depends on the group size); then a
+                 pipelined queue whose first dispatch hangs: the dispatch
+                 watchdog reclaims it, the retry resolves every future
+                 bitwise-equal to serial.
 
     Also times a warm one-request ``serve_group`` with the features on
     the card per graph: the least of these is what
@@ -488,9 +511,9 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
         bitwise &= torch.equal(y, want)
         solo = engine.infer(name, x)
         err_infer = max(err_infer, max_err(y, solo))
-        if not close(y, solo, **LOGIT_TOL):
-            problems.append(f"serving serial {name}: vs infer max_abs_err "
-                            f"{max_err(y, solo)}")
+        if not torch.equal(y, solo):
+            problems.append(f"serving serial {name}: not bitwise-equal to "
+                            f"infer (max_abs_err {max_err(y, solo)})")
     if not bitwise:
         problems.append("serving serial: results not bitwise-equal to "
                         "serve_group of the same members")
@@ -566,16 +589,18 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
     base = names.index("cora") * GROUP
     mates = [k for k in range(GROUP) if k != 2]
     poisoned = isinstance(errs[2], PoisonedRequest)
-    mates_ok = all(outs[k] is not None and close(
-        outs[k], serial[base + k], **LOGIT_TOL) for k in mates)
     mates_bitwise = all(outs[k] is not None and torch.equal(
         outs[k], serial[base + k]) for k in mates)
-    if not (poisoned and mates_ok and all(errs[k] is None for k in mates)):
+    mates_err = max((max_err(outs[k], serial[base + k]) for k in mates
+                     if outs[k] is not None), default=0.0)
+    if not (poisoned and mates_bitwise
+            and all(errs[k] is None for k in mates)):
         problems.append(f"serving chaos poison: poisoned future raised "
-                        f"{errs[2]!r}; batch-mates within LOGIT_TOL "
-                        f"{mates_ok}, errors {[repr(e) for e in errs]}")
+                        f"{errs[2]!r}; batch-mates bitwise-equal to serial "
+                        f"{mates_bitwise} (max_abs_err {mates_err}), errors "
+                        f"{[repr(e) for e in errs]}")
     record["chaos_poison"] = _mode_record(
-        snap, wall, poisoned_raised=poisoned, mates_within_tol=mates_ok,
+        snap, wall, poisoned_raised=poisoned,
         mates_bitwise_vs_serial=mates_bitwise, fired=inj.fired())
 
     base = names.index("pubmed") * GROUP
@@ -588,18 +613,16 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
         outs, errs, wall, snap = _serve(torch, queue, hang_reqs)
     finally:
         engine.attach_injector(NULL_INJECTOR)
-    ok = all(e is None for e in errs) and all(
-        close(y, serial[base + k], **LOGIT_TOL) for k, y in enumerate(outs))
-    hang_bitwise = ok and all(torch.equal(y, serial[base + k])
-                              for k, y in enumerate(outs))
+    hang_bitwise = all(e is None for e in errs) and all(
+        torch.equal(y, serial[base + k]) for k, y in enumerate(outs))
     fires = snap["resilience"]["watchdog_fires"]
-    if not ok or fires < 1 or queue.inflight():
+    if not hang_bitwise or fires < 1 or queue.inflight():
         problems.append(f"serving chaos hang: watchdog fires {fires}, "
-                        f"errors {[repr(e) for e in errs]}, within "
-                        f"LOGIT_TOL {ok}, in flight {queue.inflight()}")
+                        f"errors {[repr(e) for e in errs]}, bitwise-equal "
+                        f"to serial {hang_bitwise}, in flight "
+                        f"{queue.inflight()}")
     record["chaos_hang"] = _mode_record(
-        snap, wall, within_tol=ok, bitwise_vs_serial=hang_bitwise,
-        fired=inj.fired())
+        snap, wall, bitwise_vs_serial=hang_bitwise, fired=inj.fired())
 
     # -- the latency prior's floor: warm one-request dispatches ----------
     one = {}
@@ -995,6 +1018,209 @@ def matmul_path(torch, engine, graphs) -> tuple:
     if counts["tile_matmul"] != LAYERS * len(graphs):
         problems.append(f"matmul path: launches {counts}")
     return problems, cases, counts
+
+
+# ----------------------------------------------------------------- X·W ----
+def xw_phase(torch, engine, graphs) -> tuple:
+    """What X·W as one 2-D product per group member costs against one
+    batched product, at each graph's 4-request group: layer 1 ([4, N,
+    F_in] @ [4, F_in, 128]) and layer 2 ([4, N, 128] @ [4, 128, C]),
+    device ms per call (CUDA graphs); and whether the batched product's
+    members are bitwise-equal to the 2-D products (where they are not,
+    a member's bits would depend on its group's size).
+
+    Gate: the per-member product of each member bitwise-equal to that
+    member's own 2-D ``torch.matmul``. Returns (problems, records).
+    """
+    from repro_torch.core.hybrid_spmm import member_matmul
+
+    problems, rows = [], []
+    for name, g in graphs.items():
+        h = engine.handle(name)
+        x = torch.stack([engine.prepare_x(name, xi) for xi in g["xs"]])
+        w1 = torch.stack([h.weights[0]] * GROUP)
+        h1 = torch.relu(member_matmul(x, w1))
+        w2 = torch.stack([h.weights[1]] * GROUP)
+        for layer, a, w in ((1, x, w1), (2, h1, w2)):
+            per = member_matmul(a, w)
+            batched = torch.matmul(a, w)
+            own = all(torch.equal(per[i], torch.matmul(a[i], w[i]))
+                      for i in range(GROUP))
+            if not own:
+                problems.append(f"X·W {name} layer {layer}: a member's "
+                                "product differs from its own 2-D product")
+            rows.append(dict(
+                graph=name, layer=layer, shape=list(a.shape) + [w.shape[-1]],
+                per_member_ms=device_ms(torch, lambda: member_matmul(a, w)),
+                batched_ms=device_ms(torch, lambda: torch.matmul(a, w)),
+                batched_bitwise_per_member=torch.equal(batched, per)))
+            print(f"  X·W {name} layer {layer}: " + json.dumps(rows[-1]))
+    return problems, rows
+
+
+# ------------------------------------------------------------ autotune ----
+def class_case(torch, engine, name, x, f):
+    """The ragged kernel's inputs at one member of ``name``'s class as the
+    main path gives them at width ``f``: B = X·W1 at the hidden width,
+    relu(X·W1)·W2 (layer 2's B has its shape and scale) at the output
+    width, and the dense engine's rows to add onto. Returns (cols, vals,
+    tile_col, unit_k, B tiles, ELL plan, dense rows)."""
+    from repro_torch.core.formats import b_tiles_of, plan_to, stack_plans
+    from repro_torch.kernels import ops
+
+    h = engine.handle(name)
+    meta = h.sclass.to_meta()
+    b = torch.matmul(engine.prepare_x(name, x), h.weights[0])
+    if f != b.shape[1]:
+        b = torch.matmul(torch.relu(b), h.weights[1])
+    part = type(h.part)(*(type(c)(*(a[None] for a in c)) for c in h.part))
+    plan = plan_to(stack_plans([h.host_plan]), b.device)
+    yd = ops.dense_tiles_matmul(part, b[None], meta, plan)
+    e = part.ell
+    return (e.cols, e.vals, e.tile_col, e.unit_k,
+            b_tiles_of(b[None], meta).contiguous(), plan.ell, yd)
+
+
+def autotune_phase(torch, engine, graphs, names) -> tuple:
+    """``Engine.autotune`` on the main path's engine for the class of each
+    graph in ``names`` (cora's is citeseer's too), at the hidden width and
+    at the graph's output width, with the device timer (CUDA graphs of
+    the tuned launch on the graph's own class-padded rows).
+
+    Gates: the sweep times every candidate the contract audit passes and
+    no other; every timed candidate's ``ragged_ell_rows`` is bitwise-equal
+    to the default launch shape's on the class's real inputs at that
+    width; the winner is what the class's launches of that width run;
+    ``infer`` after tuning is bitwise-equal to the untuned ``infer``; a
+    second ``autotune`` of the same (class, width) is a cache hit that
+    times nothing. Then, per graph, the device ms of the GCN forward in
+    its applied tuning against the defaults (CUDA graphs; default,
+    tuned, tuned, default).
+
+    Returns (problems, per-(graph, width) records, per-graph forward
+    records); prints each sweep's per-candidate device ms, rejected
+    candidates with their findings.
+    """
+    from repro_torch.core.hybrid_spmm import gcn_forward
+    from repro_torch.kernels.ell_spmm import ragged_ell_rows, resolve_tune
+
+    problems, rows = [], []
+    xs = {n: graphs[n.split("@")[0]]["xs"][0] for n in names}
+    untuned = {n: engine.infer(n, xs[n]) for n in names}
+    for name in names:
+        h = engine.handle(name)
+        for f in (HIDDEN, int(h.weights[-1].shape[1])):
+            t0 = time.perf_counter()
+            cfg = engine.autotune(name, f)
+            sweep_s = time.perf_counter() - t0
+            tuner = engine.autotuner
+            sweep = list(tuner.last_sweep)
+            st0 = engine.stats()["autotune"]
+            timed = [r for r in sweep if r["ms"] is not None]
+            rejected = [r for r in sweep if r["ms"] is None]
+            if any(r["ms"] is None and not any(
+                    "ERROR" in x for x in r["findings"]) for r in sweep):
+                problems.append(f"autotune {name} f={f}: a candidate "
+                                "without an audit error was not timed")
+            case = class_case(torch, engine, name, xs[name], f)
+            dev = case[4].device
+            want = ragged_ell_rows(*case[:6], case[6].clone(), device=dev)
+            diff = [r["config"] for r in timed if not torch.equal(
+                ragged_ell_rows(*case[:6], case[6].clone(),
+                                tune=r["config"], device=dev), want)]
+            applied = engine.executors.tuned_for(h.sclass, f)
+            if applied != cfg:
+                problems.append(f"autotune {name} f={f}: winner {cfg} but "
+                                f"the class runs {applied} at f={f}")
+            y = engine.infer(name, xs[name])
+            infer_bitwise = torch.equal(y, untuned[name])
+            again = engine.autotune(name, f)
+            st1 = engine.stats()["autotune"]
+            cached = (again == cfg and st1["hits"] == st0["hits"] + 1
+                      and st1["timed"] == st0["timed"])
+            if diff or not infer_bitwise or not cached or not timed:
+                problems.append(
+                    f"autotune {name} f={f}: candidates not bitwise-equal "
+                    f"to the default {diff}; tuned infer bitwise "
+                    f"{infer_bitwise}; second call a cache hit with timed "
+                    f"unchanged {cached}; {len(timed)} timed")
+            default = resolve_tune(f)
+            default_ms = next((r["ms"] for r in timed
+                               if r["effective"] == default), None)
+            winner_ms = min(r["ms"] for r in timed) if timed else None
+            print(f"autotune {name} f={f} [{h.sclass.summary()}]: winner "
+                  f"{cfg} {winner_ms} ms, default {default} {default_ms} "
+                  f"ms; {len(timed)} timed, {len(rejected)} rejected, "
+                  f"{sweep_s:.2f} s")
+            for r in sweep:
+                eff = r["effective"]
+                what = ("REJECTED " + "; ".join(x for x in r["findings"]
+                                               if "ERROR" in x)
+                        if r["ms"] is None else f"{r['ms']:.5f} ms")
+                print(f"    w={eff['w']:2d} vec={eff['vec']} kc={eff['kc']} "
+                      f"threads={eff['threads']:3d}  {what}")
+            rows.append(dict(
+                graph=name, shape_class=h.sclass.summary(), f=f,
+                winner=cfg, winner_ms=winner_ms, default=default,
+                default_ms=default_ms,
+                default_over_winner=(default_ms / winner_ms
+                                     if default_ms and winner_ms else None),
+                timed=len(timed), rejected=len(rejected), sweep_s=sweep_s,
+                candidates_bitwise=not diff, infer_bitwise=infer_bitwise,
+                second_call_cached=cached))
+    forward = []
+    for name in names:
+        h = engine.handle(name)
+        meta = h.sclass.to_meta()
+        x = engine.prepare_x(name, torch.from_numpy(xs[name]).cuda())
+        table = engine.executors.tuned().get(h.sclass, {})
+
+        def fwd(tune):
+            return lambda: gcn_forward(h.part, x, h.weights, meta=meta,
+                                       plan=h.plan, ell_tune=tune,
+                                       device="cuda")
+        ms = {"default": [], "tuned": []}
+        for which in ("default", "tuned", "tuned", "default"):
+            ms[which].append(device_ms(torch, fwd(
+                table if which == "tuned" else None)))
+        forward.append(dict(graph=name, tuning=table,
+                            default_ms=ms["default"], tuned_ms=ms["tuned"]))
+        print(f"autotune forward {name}: default {ms['default']} ms, "
+              f"tuned {ms['tuned']} ms ({table})")
+    return problems, rows, forward
+
+
+def lint_phase(torch, engine, graphs, names) -> tuple:
+    """The three lint passes on the card, as ``python -m
+    repro_torch.analysis.static --device cuda`` runs them (the fixture
+    engine; the kernel pass reads the build's ptxas logs, the launch pass
+    profiles the forward), then the launch and kernel passes over the
+    main path's engine: each graph in ``names`` through its real
+    executor, and every contract its classes imply in their applied
+    tuning at the hidden width and every graph's output width. Gate: no
+    unwaived error.
+
+    Returns (problems, record).
+    """
+    from repro_torch.analysis.static.__main__ import main as lint_main
+    from repro_torch.analysis.static.kernel_pass import run_kernel_pass
+    from repro_torch.analysis.static.launch_pass import run_launch_pass
+
+    problems = []
+    rc = lint_main(["--device", "cuda", "-v"])
+    if rc:
+        problems.append(f"lint: python -m repro_torch.analysis.static "
+                        f"exited {rc}")
+    widths = sorted({HIDDEN} | {g["classes"] for g in graphs.values()})
+    findings = run_kernel_pass(engine, f_widths=widths)
+    for name in names:
+        findings += run_launch_pass(engine, name)
+    errors = [f for f in findings if f.severity == "error" and not f.waived]
+    for line in dict.fromkeys(f.render() for f in findings):
+        print("  " + line)
+    problems += [f"lint on the main path: {f.render()}" for f in errors]
+    return problems, dict(cli_exit=rc, main_path_findings=len(findings),
+                          main_path_errors=len(errors))
 
 
 # --------------------------------------------------------- kernel phase ----
@@ -1599,6 +1825,18 @@ def main() -> None:
     problems += mm_problems
     print(f"matmul path launches: {mm_counts}")
 
+    xw_problems, xw = xw_phase(torch, engine, graphs)
+    problems += xw_problems
+
+    tuned_names = ("cora", "pubmed", reordered["graph"])
+    at_problems, autotune, tuned_forward = autotune_phase(
+        torch, engine, graphs, tuned_names)
+    problems += at_problems
+    print(f"autotune stats: {engine.stats()['autotune']}")
+    lint_problems, lint = lint_phase(torch, engine, graphs, tuned_names)
+    problems += lint_problems
+    print(f"lint: {lint}")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -1622,8 +1860,17 @@ def main() -> None:
     kproblems, entries = kernel_phase(torch, engine, graphs, launches,
                                       mm_cases, log, reordered["graph"])
     problems += kproblems
+    for entry in entries:
+        if entry["name"] == "ragged_ell_spmm":
+            entry["tuned"] = [dict(graph=r["graph"], f=r["f"],
+                                   shape_class=r["shape_class"],
+                                   config=r["winner"], ms=r["winner_ms"],
+                                   default_ms=r["default_ms"])
+                              for r in autotune]
     print(json.dumps({"e2e": e2e, "reordered": reordered,
-                      "dispatch_ab": ab_rows, "lifecycle": lifecycle}))
+                      "dispatch_ab": ab_rows, "lifecycle": lifecycle,
+                      "xw": xw, "autotune": autotune,
+                      "autotune_forward": tuned_forward, "lint": lint}))
     print(f"smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": entries}))

@@ -131,21 +131,49 @@ def _grouped(part: TriPartition, b, plan, meta, dev):
     return part, b, plan, squeeze
 
 
+# The width key of a tuning table entry that applies at every width.
+EVERY_WIDTH = 0
+
+
+def tune_at(ell_tune, f) -> dict:
+    """The ragged-kernel launch config for a launch of width ``f``.
+
+    ``ell_tune`` is None, one config ({"w", "vec", "kc", "threads"}) for
+    every width, or a tuning table {width: config} (an executor's, one
+    config per width it was tuned at), where ``EVERY_WIDTH`` (0) covers
+    the widths without their own entry. ``f`` None reads that entry.
+    Returns the config ({} = the defaults)."""
+    if not ell_tune:
+        return {}
+    if not all(isinstance(k, int) for k in ell_tune):
+        return dict(ell_tune)
+    cfg = ell_tune.get(int(f)) if f is not None else None
+    return dict(cfg or ell_tune.get(EVERY_WIDTH) or {})
+
+
 def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
                 backend: str = "cuda", ell_dispatch: str = "ragged",
-                plan: ReductionPlan = None, device="cuda") -> torch.Tensor:
+                plan: ReductionPlan = None, ell_tune: dict = None,
+                device="cuda") -> torch.Tensor:
     """Y = A @ B via the three engines. Returns [(G,) n_rows, F] on
-    ``device``."""
+    ``device``.
+
+    ``ell_tune`` optionally carries an autotuned ragged-kernel launch
+    shape, one config or a table by width (``tune_at``; ``cuda``
+    backend: the plain ``torch`` backend has no launch knobs); tuned
+    outputs are bitwise-equal to the defaults.
+    """
     dev = resolve_device(device)
     part, b, plan, squeeze = _grouped(part, b, plan, meta, dev)
-    y = _hybrid(part, b, meta, plan, backend, ell_dispatch)
+    y = _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
     return y[0] if squeeze else y
 
 
-def _hybrid(part, b, meta, plan, backend, ell_dispatch):
+def _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune=None):
     if backend == "cuda":
         yd = kops.dense_tiles_matmul(part, b, meta, plan)
-        y = kops.ell_matmul(part, b, meta, plan, yd, dispatch=ell_dispatch)
+        y = kops.ell_matmul(part, b, meta, plan, yd, dispatch=ell_dispatch,
+                            ell_tune=tune_at(ell_tune, b.shape[-1]) or None)
     elif backend == "torch":
         y = (dense_tiles_matmul(part, b, meta, plan)
              + ell_matmul(part, b, meta, plan, dispatch=ell_dispatch))
@@ -165,53 +193,68 @@ def hybrid_spmm_ref(a_dense, b):
 # Combination-first chained SpMM with intra-layer pipelining (paper §IV-E).
 # ---------------------------------------------------------------------------
 
+def member_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """X·W of a group, x [G, N, F] @ w [G or 1, F, H] -> [G, N, H]: one
+    2-D ``torch.matmul`` per member, so member g's product is the same
+    call (same M, N, K) at every group size and its bits do not depend
+    on G. One batched product would let cuBLAS pick another kernel for
+    another batch count, and a request re-dispatched in a smaller group
+    (a chaos batch-mate, a 1-request ``infer``) would change bits."""
+    out = x.new_empty(x.shape[:-1] + (w.shape[-1],))
+    for g in range(x.shape[0]):
+        torch.matmul(x[g], w[g if w.shape[0] > 1 else 0], out=out[g])
+    return out
+
+
 def _layer(part, x, w, meta, plan, backend, block_cols, activation,
-           ell_dispatch):
+           ell_dispatch, ell_tune=None):
     """One GCN layer on grouped tensors: x [G, N, F_in], w [G, F_in, H]."""
     h = w.shape[-1]
     if block_cols and block_cols < h:
         nblk = -(-h // block_cols)
         wp = torch.nn.functional.pad(w, (0, nblk * block_cols - h))
-        outs = [_hybrid(part, torch.matmul(
+        outs = [_hybrid(part, member_matmul(
                     x, wp[..., i * block_cols:(i + 1) * block_cols]),
-                    meta, plan, backend, ell_dispatch)
+                    meta, plan, backend, ell_dispatch, ell_tune)
                 for i in range(nblk)]
         y = torch.cat(outs, dim=-1)[..., :h]
     else:
-        y = _hybrid(part, torch.matmul(x, w), meta, plan, backend,
-                    ell_dispatch)
+        y = _hybrid(part, member_matmul(x, w), meta, plan, backend,
+                    ell_dispatch, ell_tune)
     return activation(y) if activation is not None else y
 
 
 def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
               backend: str = "cuda", block_cols: int = 0, activation=None,
               ell_dispatch: str = "ragged", plan: ReductionPlan = None,
-              device="cuda") -> torch.Tensor:
+              ell_tune: dict = None, device="cuda") -> torch.Tensor:
     """One GCN layer  sigma(A @ (X @ W))  in combination-first order.
 
     ``block_cols > 0`` processes W's output columns in blocks, emitting
     ``A @ (X @ W[:, blk])`` per block (the paper's fine-grained
-    pipelining). X·W is a plain ``torch.matmul``, as the reference
-    leaves it to XLA.
+    pipelining). X·W is plain ``torch.matmul``, as the reference leaves
+    it to XLA: one 2-D product per group member (``member_matmul``).
+    ``ell_tune`` as for ``hybrid_spmm``.
     """
     dev = resolve_device(device)
     part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
     w = torch.as_tensor(w, dtype=torch.float32).to(dev)
     y = _layer(part, x, w if w.dim() == 3 else w[None], meta, plan, backend,
-               block_cols, activation, ell_dispatch)
+               block_cols, activation, ell_dispatch, ell_tune)
     return y[0] if squeeze else y
 
 
 def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
                 backend: str = "cuda", block_cols: int = 0,
                 ell_dispatch: str = "ragged", plan: ReductionPlan = None,
-                device="cuda") -> torch.Tensor:
+                ell_tune: dict = None, device="cuda") -> torch.Tensor:
     """The paper's 2-layer vanilla GCN:  softmax-free inference logits
     X2 = A·relu(A·X·W1)·W2   (activation on hidden layer only).
 
     With a leading group axis on ``x``, the partition leaves and the
     weights, the whole group runs with one launch of each kernel per
-    layer.
+    layer, and each member's logits are bitwise-equal to its own G = 1
+    forward. ``ell_tune`` as for ``hybrid_spmm``.
     """
     dev = resolve_device(device)
     part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
@@ -219,5 +262,5 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
         w = torch.as_tensor(w, dtype=torch.float32).to(dev)
         act = torch.relu if i < len(weights) - 1 else None
         h = _layer(part, h, w if w.dim() == 3 else w[None], meta, plan,
-                   backend, block_cols, act, ell_dispatch)
+                   backend, block_cols, act, ell_dispatch, ell_tune)
     return h[0] if squeeze else h

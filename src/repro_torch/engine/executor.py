@@ -14,13 +14,19 @@ The batched variant runs the same forward over a leading group axis
 any size costs the launches of one graph per layer (one of each kernel
 with the ragged ELL dispatch; one ``ell_spmm`` per class band with
 "fused"/"loop").
+
+An autotuned ragged-kernel launch shape (``set_tuned``, fed by
+``Engine.autotune``, one per class and feature width) rides in every
+executor key of its class and is passed down the dispatch path as
+``ell_tune``.
 """
 from __future__ import annotations
 
 import collections
 import threading
 
-from repro_torch.core.hybrid_spmm import gcn_forward, hybrid_spmm
+from repro_torch.core.hybrid_spmm import (EVERY_WIDTH, gcn_forward,
+                                         hybrid_spmm, tune_at)
 from repro_torch.kernels.ops import check_ell_dispatch
 from repro_torch.obs.metrics import Counter, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
@@ -114,6 +120,9 @@ class ExecutorCache:
         # once and the miss counter (the frontend's cold-sample
         # detector) stays coherent.
         self._lock = threading.RLock()
+        # Autotuned ragged-kernel configs, ShapeClass -> sorted item
+        # tuple (hashable, so it can ride in executor keys).
+        self._tuned: dict = {}
 
     def _per_class(self, sc: ShapeClass) -> CacheStats:
         st = self._class_stats.get(sc)
@@ -194,6 +203,61 @@ class ExecutorCache:
                 self._per_class(sc).inc_invalidations(len(dead))
             return len(dead)
 
+    # -------------------------------------------------------- autotune -----
+    def set_tuned(self, sc: ShapeClass, cfg: dict, f: int = None) -> int:
+        """Apply an autotuned ragged-kernel config to the executors of
+        class ``sc`` (``repro_torch.kernels.autotune`` winners land
+        here).
+
+        ``f`` is the feature width the config was tuned at: it then
+        applies to the class's ragged launches of that width only
+        (``Engine.autotune`` tunes each width on its own, so a layer runs
+        the winner of its own width). ``f`` None applies ``cfg`` at every
+        width and drops the per-width configs, the reference's one
+        config per class. The configs ride in every executor key, so the
+        class's cached executors are invalidated and the next lookup
+        builds with ``ell_tune`` threaded down the dispatch path. Tuned
+        and default outputs are bitwise-equal by kernel construction.
+        Returns the number of executors invalidated; a no-op (same
+        config already applied, or empty config on an untuned class)
+        invalidates nothing.
+        """
+        with self._lock:
+            table = dict(self._tuned.get(sc, ()))
+            t = tuple(sorted(cfg.items()))
+            if f is None:
+                table = {EVERY_WIDTH: t} if t else {}
+            elif t:
+                table[int(f)] = t
+            else:
+                table.pop(int(f), None)
+            new = tuple(sorted(table.items()))
+            if self._tuned.get(sc, ()) == new:
+                return 0
+            if new:
+                self._tuned[sc] = new
+            else:
+                self._tuned.pop(sc, None)
+            return self.invalidate_class(sc)
+
+    def tuned_for(self, sc: ShapeClass, f: int = None) -> dict:
+        """The tuned config the class's ragged launches of width ``f``
+        run ({} = defaults); ``f`` None: the one set for every width."""
+        with self._lock:
+            return tune_at(self._table(sc), f)
+
+    def tuned(self) -> dict:
+        """Every applied tuning, {ShapeClass: {width: config}}, width
+        ``EVERY_WIDTH`` (0) for a config set for every width."""
+        with self._lock:
+            return {sc: self._table(sc) for sc in self._tuned}
+
+    def _table(self, sc) -> dict:
+        return {w: dict(t) for w, t in self._tuned.get(sc, ())}
+
+    def _tune_of(self, sc):
+        return self._tuned.get(sc, ())
+
     # ------------------------------------------------------------ spmm -----
     def spmm(self, sc: ShapeClass, f: int):
         """Executor for Y = A @ B over a padded partition of class sc.
@@ -201,34 +265,38 @@ class ExecutorCache:
         Signature: fn(part, b[n_cols_padded, f], plan) ->
         y[n_rows_padded, f].
         """
-        key = ("spmm", sc, f, self.backend, self.ell_dispatch)
+        with self._lock:
+            key = ("spmm", sc, f, self.backend, self.ell_dispatch,
+                   self._tune_of(sc))
 
-        def build():
-            meta = sc.to_meta()
-            backend, dispatch, device = (self.backend, self.ell_dispatch,
-                                         self.device)
+            def build():
+                meta = sc.to_meta()
+                backend, dispatch, device = (self.backend, self.ell_dispatch,
+                                             self.device)
+                ell_tune = self.tuned_for(sc, f) or None
 
-            def fn(part, b, plan):
-                return hybrid_spmm(part, b, meta=meta, backend=backend,
-                                   ell_dispatch=dispatch, plan=plan,
-                                   device=device)
-            return fn
-        return self._get(key, build)
+                def fn(part, b, plan):
+                    return hybrid_spmm(part, b, meta=meta, backend=backend,
+                                       ell_dispatch=dispatch, plan=plan,
+                                       ell_tune=ell_tune, device=device)
+                return fn
+            return self._get(key, build)
 
     # ------------------------------------------------------------- gcn -----
     def _gcn_key(self, sc, f_in, w_shapes):
         return ("gcn", sc, f_in, w_shapes, self.backend, self.block_cols,
-                self.ell_dispatch)
+                self.ell_dispatch, self._tune_of(sc))
 
     def _gcn_build(self, sc):
         meta = sc.to_meta()
         backend, device = self.backend, self.device
         block_cols, dispatch = self.block_cols, self.ell_dispatch
+        ell_tune = self._table(sc) or None
 
         def fwd(part, x, weights, plan):
             return gcn_forward(part, x, weights, meta=meta, backend=backend,
                                block_cols=block_cols, ell_dispatch=dispatch,
-                               plan=plan, device=device)
+                               plan=plan, ell_tune=ell_tune, device=device)
         return fwd
 
     def gcn(self, sc: ShapeClass, f_in: int, w_shapes: tuple):
@@ -237,16 +305,18 @@ class ExecutorCache:
         Signature: fn(part, x[n_cols_padded, f_in], weights, plan) ->
         logits[n_rows_padded, w_shapes[-1][-1]].
         """
-        return self._get(self._gcn_key(sc, f_in, w_shapes),
-                         lambda: self._gcn_build(sc))
+        with self._lock:
+            return self._get(self._gcn_key(sc, f_in, w_shapes),
+                             lambda: self._gcn_build(sc))
 
     def gcn_batched(self, sc: ShapeClass, f_in: int, w_shapes: tuple,
                     batch: int):
         """GCN executor over a stacked class group of ``batch`` graphs:
         every partition leaf, ``x`` and the weights gain a leading group
         axis, and the plan covers the whole group."""
-        key = self._gcn_key(sc, f_in, w_shapes) + ("batch", batch)
-        return self._get(key, lambda: self._gcn_build(sc))
+        with self._lock:
+            key = self._gcn_key(sc, f_in, w_shapes) + ("batch", batch)
+            return self._get(key, lambda: self._gcn_build(sc))
 
     def summary(self) -> str:
         with self._lock:

@@ -27,7 +27,12 @@ cache over the shared graphs. The shape-class lifecycle
 ``execute_retirement``, which re-pads a retired class's members into
 tighter classes and invalidates every executor cache.
 
-Not ported yet (a later slice): the autotuner.
+``autotune`` sweeps the ragged ELL kernel's launch shape for a graph's
+shape class at one feature width (``repro_torch.kernels.autotune``:
+contract-checked candidates, device-timed on the graph's own rows,
+cached on disk under ``autotune_cache``) and applies the winner to the
+class's launches of that width in every executor cache; tuned outputs
+are bitwise-equal to the defaults.
 """
 from __future__ import annotations
 
@@ -151,7 +156,8 @@ class Engine:
                  partition_cfg: PartitionConfig = PartitionConfig(tile=64),
                  backend: str = "cuda", block_cols: int = 0,
                  ell_dispatch: str = "ragged", executor_max_entries: int = 128,
-                 max_stacks: int = 32, device="cuda"):
+                 max_stacks: int = 32, autotune_cache: Optional[str] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
@@ -181,7 +187,8 @@ class Engine:
         # Request tracer (repro_torch.obs.trace): off by default; a
         # serving frontend constructed with `tracer=` calls
         # `attach_tracer`, which also fans the tracer out to the executor
-        # caches so cache.hit/miss instants land in the same ring.
+        # caches and the autotuner so cache.hit/miss and sweep instants
+        # land in the same ring.
         self.tracer = NULL_TRACER
         # Chaos injector (repro_torch.serving.chaos): off by default; a
         # frontend constructed with `injector=` calls `attach_injector`,
@@ -196,6 +203,13 @@ class Engine:
         # retirement invalidates a retired class in every one.
         self._replica_views: dict = {}
         self._replica_caches: list = []
+        # Ragged-kernel autotuner, built at the first autotune() call;
+        # ``autotune_cache`` names the on-disk winner cache. The lock
+        # keeps concurrent autotune() calls from sweeping the same
+        # class twice.
+        self._autotune_cache = autotune_cache
+        self._tuner = None
+        self._tune_lock = threading.Lock()
 
     @property
     def stack_hits(self) -> int:
@@ -283,6 +297,9 @@ class Engine:
                                   device=self.device)
             cache.tracer = self.tracer
             cache.injector = self.injector
+            for sc, table in ex.tuned().items():
+                for f, cfg in sorted(table.items()):
+                    cache.set_tuned(sc, cfg, f or None)  # 0: every width
             self._replica_caches.append(cache)
             view = self._replica_views[i] = _EngineReplicaView(
                 self, i, cache)
@@ -315,6 +332,48 @@ class Engine:
         h = self._graphs[name]
         fn = self.executors.spmm(h.sclass, int(b.shape[1]))
         return self._unpad_y(h, fn(h.part, self._pad_x(h, b), h.plan))
+
+    # -------------------------------------------------------- autotune -----
+    @property
+    def autotuner(self):
+        """The ragged-kernel ``Autotuner`` (None before the first
+        ``autotune`` call); its ``last_sweep`` lists the last sweep's
+        candidates with their device ms and audit findings."""
+        return self._tuner
+
+    def autotune(self, name: str, f: int, *, timer=None) -> dict:
+        """Tune the ragged ELL kernel for ``name``'s shape class at
+        feature width ``f`` and apply the winner to the class's launches
+        of that width.
+
+        Runs the sweep in ``repro_torch.kernels.autotune`` (candidates
+        the contract audit rejects are never timed; a cached winner skips
+        the sweep; the device timer times each candidate on ``name``'s
+        own class-padded rows) and installs the config with
+        ``ExecutorCache.set_tuned(sclass, cfg, f)`` in the engine's cache
+        and every replica view's, invalidating the class's executors so
+        the next dispatch launches tuned. Each width keeps its own
+        winner (the reference keeps one config per class, the last
+        tuned). Tuned outputs are bitwise-equal to the defaults. Returns
+        the applied config ({} = the class has no ELL units). ``timer``
+        (config -> seconds) replaces the device timer, for deterministic
+        tests.
+        """
+        from repro_torch.kernels.autotune import Autotuner, member_operands
+        h = self._graphs[name]
+        f = int(f)
+        with self._tune_lock:
+            if self._tuner is None or timer is not None:
+                self._tuner = Autotuner(cache_path=self._autotune_cache,
+                                        timer=timer, device=self.device)
+                self._tuner.tracer = self.tracer
+            cfg = self._tuner.tune(h.sclass, f, operands=lambda: (
+                member_operands(h.part, h.host_plan, h.sclass, f,
+                                self.device)))
+            self.executors.set_tuned(h.sclass, cfg, f)
+            for cache in self._replica_caches:
+                cache.set_tuned(h.sclass, cfg, f)
+        return cfg
 
     def infer(self, name: str, x) -> torch.Tensor:
         """GCN forward logits for one request."""
@@ -562,12 +621,15 @@ class Engine:
         """Install a ``repro_torch.obs.trace.Tracer`` and fan it out to
         the executor caches (the engine's and every replica view's) so
         engine-side spans and instants land in the same ring as the
-        serving frontend's. ``RequestQueue(..., tracer=...)`` calls
-        this; passing ``NULL_TRACER`` turns engine tracing back off."""
+        serving frontend's; the autotuner too, when it exists.
+        ``RequestQueue(..., tracer=...)`` calls this; passing
+        ``NULL_TRACER`` turns engine tracing back off."""
         self.tracer = tracer
         self.executors.tracer = tracer
         for cache in self._replica_caches:
             cache.tracer = tracer
+        if self._tuner is not None:
+            self._tuner.tracer = tracer
 
     def attach_injector(self, injector) -> None:
         """Install a ``repro_torch.serving.chaos.ChaosInjector`` and fan
@@ -726,6 +788,8 @@ class Engine:
             "registry": self.registry.stats(),
             **stack,
         }
+        if self._tuner is not None:
+            out["autotune"] = self._tuner.stats()
         if self._frontend is not None:
             out["serving"] = self._frontend.stats.snapshot()
         if self._lifecycle is not None:

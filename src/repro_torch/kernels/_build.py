@@ -7,7 +7,9 @@ compiler flags: an edited source or header builds anew, an unchanged
 one loads from the build directory. The first use of any kernel builds
 every source that is not built yet, one nvcc process per source, all
 started together. Nothing is built when the module is imported, and
-nothing is built for CPU tensors.
+nothing is built for CPU tensors. nvcc's output (``-Xptxas -v``: each
+kernel instance's registers, shared memory and spills) is kept beside
+each library as ``<library>.log``; ``ptxas_entries`` parses it.
 
 Building against PyTorch's headers (``torch.utils.cpp_extension``) takes
 minutes per build; a plain C interface loaded with ``ctypes`` takes
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +38,10 @@ _lock = threading.Lock()
 # Guards the wrappers' launch counters: serving threads (the queue's
 # pump, staging workers, replica lanes) launch kernels concurrently.
 count_lock = threading.Lock()
+# Calls of each kernel wrapper since the last ``ops.reset_entry_counts``,
+# on every device (a CPU tensor's plain version counts too): what the
+# launch pass reads where no CUDA launch counter ticks.
+entry_calls: dict = {}
 _libs: dict = {}
 # name -> {"path", "seconds", "cached", "log"}: what the last build did
 BUILD_LOG: dict = {}
@@ -78,9 +85,10 @@ def build_all() -> dict:
         for src in sources():
             out = _library_path(src)
             if out.exists():
-                BUILD_LOG.setdefault(src.stem, {"path": str(out),
-                                                "seconds": 0.0,
-                                                "cached": True, "log": ""})
+                log = out.with_suffix(".log")
+                BUILD_LOG.setdefault(src.stem, {
+                    "path": str(out), "seconds": 0.0, "cached": True,
+                    "log": log.read_text() if log.exists() else ""})
             else:
                 pending.append((src, out))
         if not pending:
@@ -104,10 +112,47 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)   # atomic: no half-written library
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         return BUILD_LOG
+
+
+def tick(name: str) -> None:
+    """One call of the kernel wrapper ``name`` (``entry_calls``)."""
+    with count_lock:
+        entry_calls[name] = entry_calls.get(name, 0) + 1
+
+
+def mangled_args(values) -> str:
+    """Itanium-mangled integer template arguments, as ptxas names a
+    kernel instance: (32, 4) -> "ILi32ELi4EE"."""
+    return "I" + "".join(f"Li{int(v)}E" for v in values) + "E"
+
+
+def ptxas_entries(log: str) -> list:
+    """One dict per kernel instance of an nvcc ``-Xptxas -v`` log: its
+    mangled ``name``, ``registers``, static shared memory ``smem``
+    (bytes) and ``spill_stores``/``spill_loads`` (bytes)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = {"name": m.group(1), "registers": 0, "smem": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                cur["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -108,6 +108,7 @@ def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
     plan with no entry, gives zeros without a launch, as the plain
     version does: the kernel refuses an empty plan's null ``order``.
     """
+    _build.tick("bsr_spmm_rows")
     dev = resolve_device(device)
     tiles, tile_col, b_tiles, _ = _checked(tiles, tile_col, b_tiles, dev)
     g = tiles.shape[0]
@@ -139,6 +140,7 @@ def bsr_spmm(tiles: torch.Tensor, tile_col: torch.Tensor,
     Every tensor must lie on ``device``. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise.
     """
+    _build.tick("bsr_spmm")
     dev = resolve_device(device)
     tiles, tile_col, b_tiles, grouped = _checked(tiles, tile_col, b_tiles,
                                                  dev)

@@ -35,14 +35,29 @@
 // unit_k), then, in chunks of KC lanes of the K axis, lane i loads cols/vals
 // of lane k0+i (coalesced) and passes them round with shuffles; every lane
 // then issues the chunk's KC independent B-row loads before its
-// multiply-add chain, so KC loads are in flight per lane. KC = 4: with 8,
-// the 16-byte variant needed 80 registers and spilled, so only 3 blocks fit
-// an SM and a cora group of 4 (3840 live rows) took two waves. Only the B
-// rows the entry addresses are read (no [T, F] slab is staged), and each
-// output row is written once, by one thread per feature: no atomics, no
-// shared memory. W is picked per launch from F: 8 lanes for F <= 8, 16 for
-// F <= 16 (several rows per warp, so a narrow row does not leave most of a
-// warp idle), else 32.
+// multiply-add chain, so KC loads are in flight per lane. Only the B rows
+// the entry addresses are read (no [T, F] slab is staged), and each output
+// row is written once, by one thread per feature: no atomics, no shared
+// memory.
+//
+// The launch shape: W (8, 16 or 32 lanes per row), VEC (1 or 4), KC (2, 4
+// or 8) and the threads per block (128, 256 or 512) are template arguments.
+// None of them changes a sum's order (each feature's chain runs in
+// ascending kk from +0, and acc takes the unit rows in plan order), so
+// every instance gives the same bits. The defaults: W by F (8 lanes for
+// F <= 8, 16 for F <= 16, so a narrow row does not leave most of a warp
+// idle, else 32), VEC 4 at W = 32 where the rows allow it, KC = 4 and 256
+// threads. The ragged kernel takes all four as launch knobs (its
+// autotuner sweeps them); the fixed-K kernel runs the defaults.
+//
+// Registers. Both kernels declare __launch_bounds__(threads, 1). With the
+// block size alone, ptxas held some instances at an occupancy step (64,
+// 48 or 40 registers) and spilled 4-36 bytes to get there, the defaults
+// among them (a 64-bit pointer stored before the loops and reloaded
+// after each row's entry loop). With a minimum of one block per SM no
+// instance spills: 43-102 registers (the 16-byte KC = 8 instances the
+// most), 78 at the 16-byte default, so 3 blocks of 256 fit an SM where 4
+// did. The contract audit rejects any instance that spills.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,8 +67,8 @@
 
 namespace ell_rows {
 
-constexpr int kThreads = 256;
-constexpr int KC = 4;  // K lanes whose B rows are in flight at once
+constexpr int kDefaultThreads = 256;  // threads per block
+constexpr int kDefaultKC = 4;  // K lanes whose B rows are in flight at once
 
 template <int VEC>
 struct Vec;
@@ -127,13 +142,14 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
 // starts at init[f..] (init null: +0), takes the products of the unit rows
 // order[begin..end) (order null: the entries begin..end themselves) in
 // that order, and is added onto dst[f..] (ADD) or stored there.
+// KC K lanes have their B rows in flight at once.
 // RAGGED: entries e number the unit rows over the group (g*U*R + u*R + r)
 // of a contiguous ragged array, masked by unit_k. Fixed K: entries number
 // member g's unit rows (u*R + r) of a band view with member stride s_g and
 // row stride s_r. ADD is a template argument, not a flag, so that no
 // register holds it through the loop: a caller with both epilogues
 // instantiates both.
-template <int W, int VEC, bool RAGGED, bool ADD>
+template <int W, int VEC, int KC, bool RAGGED, bool ADD>
 __device__ __forceinline__ void row(const Units& a, const float* b,
                                     const long long* __restrict__ order,
                                     int begin, int end, long long g, int nct,
@@ -210,8 +226,8 @@ __device__ __forceinline__ void row(const Units& a, const float* b,
 }
 
 // Lanes per row (W) and floats per lane (VEC) for a row of F features
-// whose pointers are `aligned` to 16 bytes: returns launch(W, VEC), the two
-// passed as std::integral_constant.
+// whose pointers are `aligned` to 16 bytes, the defaults: returns
+// launch(W, VEC), the two passed as std::integral_constant.
 template <class Launch>
 cudaError_t pick(int F, bool aligned, Launch launch) {
   using W8 = std::integral_constant<int, 8>;
@@ -223,6 +239,17 @@ cudaError_t pick(int F, bool aligned, Launch launch) {
   if (F <= 16) return launch(W16(), V1());
   if (F % 4 == 0 && aligned) return launch(W32(), V4());
   return launch(W32(), V1());
+}
+
+// f(std::integral_constant<int, v>) for the v of Vs... that equals x;
+// cudaErrorInvalidValue when none does (x is not an instance).
+template <int... Vs, class F>
+cudaError_t select(int x, F&& f) {
+  cudaError_t err = cudaErrorInvalidValue;
+  (void)((x == Vs ? (err = f(std::integral_constant<int, Vs>()), true)
+                  : false) ||
+         ...);
+  return err;
 }
 
 inline bool aligned16(const void* p) {

@@ -56,11 +56,12 @@
 
 namespace {
 
-using ell_rows::kThreads;
+constexpr int kThreads = ell_rows::kDefaultThreads;
+constexpr int KC = ell_rows::kDefaultKC;
 
 // W lanes per row, VEC features per lane. `rows` null = unit mode.
 template <int W, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)  // no spill: ell_rows.cuh
 ell_band_kernel(ell_rows::Units a, const float* __restrict__ b,
                 const long long* __restrict__ order,
                 const long long* __restrict__ offsets,
@@ -73,7 +74,7 @@ ell_band_kernel(ell_rows::Units a, const float* __restrict__ b,
   const long long g = blockIdx.y;
   if (slot >= n_slots) return;
   if (!rows) {
-    ell_rows::row<W, VEC, false, false>(
+    ell_rows::row<W, VEC, KC, false, false>(
         a, b, nullptr, slot, slot + 1, g, nct, T, F, nullptr,
         out + g * out_sg + static_cast<long long>(slot) * F);
     return;
@@ -87,10 +88,10 @@ ell_band_kernel(ell_rows::Units a, const float* __restrict__ b,
   const int begin = static_cast<int>(offsets[j]);
   const int end = static_cast<int>(offsets[j + 1]);
   if (code >= 0 && (code & 1))
-    ell_rows::row<W, VEC, false, false>(a, b, order, begin, end, g, nct, T,
+    ell_rows::row<W, VEC, KC, false, false>(a, b, order, begin, end, g, nct, T,
                                         F, init, c);
   else
-    ell_rows::row<W, VEC, false, true>(a, b, order, begin, end, g, nct, T, F,
+    ell_rows::row<W, VEC, KC, false, true>(a, b, order, begin, end, g, nct, T, F,
                                        init, out + (g * P + p) * F);
 }
 

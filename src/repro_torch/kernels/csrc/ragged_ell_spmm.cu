@@ -40,22 +40,25 @@
 // What bounds it, and the design (a group of W lanes per live segment,
 // chunks of KC cols/vals shuffled round, KC B-row loads in flight): see
 // ell_rows.cuh. Grid: (live slots / segments per block, G), so one launch
-// covers the group.
+// covers the group. W, VEC, KC and the threads per block are launch knobs,
+// one kernel instance for each of their 54 combinations; every instance
+// gives the same bits (ell_rows.cuh).
 #include "ell_rows.cuh"
 
 namespace {
 
-using ell_rows::kThreads;
-
-// W lanes per segment, VEC features per lane. `live` null = unit mode.
-template <int W, int VEC>
-__global__ void __launch_bounds__(kThreads)
+// W lanes per segment, VEC features per lane, KC K lanes in flight,
+// THREADS per block. `live` null = unit mode. Minimum one block per SM:
+// ptxas then allocates what the row loop needs and spills nothing
+// (ell_rows.cuh).
+template <int W, int VEC, int KC, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
 ell_rows_kernel(ell_rows::Units a, const float* __restrict__ b,
                 const long long* __restrict__ order,
                 const long long* __restrict__ offsets,
                 const long long* __restrict__ live, float* __restrict__ out,
                 int n_slots, int nct, int T, int F) {
-  const int slot = blockIdx.x * (kThreads / W) + threadIdx.x / W;
+  const int slot = blockIdx.x * (THREADS / W) + threadIdx.x / W;
   const long long g = blockIdx.y;
   if (slot >= n_slots) return;
   long long s;
@@ -71,11 +74,11 @@ ell_rows_kernel(ell_rows::Units a, const float* __restrict__ b,
     end = begin + 1;
   }
   if (live)
-    ell_rows::row<W, VEC, true, true>(a, b, order, begin, end, g, nct, T, F,
-                                      nullptr, out + s * F);
+    ell_rows::row<W, VEC, KC, true, true>(a, b, order, begin, end, g, nct, T,
+                                          F, nullptr, out + s * F);
   else
-    ell_rows::row<W, VEC, true, false>(a, b, order, begin, end, g, nct, T,
-                                       F, nullptr, out + s * F);
+    ell_rows::row<W, VEC, KC, true, false>(a, b, order, begin, end, g, nct,
+                                           T, F, nullptr, out + s * F);
 }
 
 }  // namespace
@@ -89,12 +92,16 @@ extern "C" {
 //     padded) and out [G,P,F] holds the rows to add onto, in place;
 //   live == null (unit mode): order/offsets are null, n_slots = U*R and
 //     out [G,U,R,F] receives the per-unit products.
+// The launch shape: w lanes per row (8, 16, 32), vec floats per lane (1;
+// 4 needs F % 4 == 0 and b, out 16-byte aligned), kc (2, 4, 8) and threads
+// per block (128, 256, 512); 0 takes the default (ell_rows.cuh). Any
+// other value returns cudaErrorInvalidValue without a launch.
 int ragged_ell_rows_f32(const void* cols, const void* vals,
                         const void* tile_col, const void* unit_k,
                         const void* b, const void* order, const void* offsets,
                         const void* live, void* out, int G, int n_slots,
-                        int U, int R, int Kmax, int nct, int T, int F,
-                        void* stream) {
+                        int U, int R, int Kmax, int nct, int T, int F, int w,
+                        int vec, int kc, int threads, void* stream) {
   ell_rows::Units a{static_cast<const int*>(cols),
                     static_cast<const float*>(vals),
                     static_cast<const int*>(tile_col),
@@ -107,14 +114,29 @@ int ragged_ell_rows_f32(const void* cols, const void* vals,
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const bool aligned = ell_rows::aligned16(b) && ell_rows::aligned16(out);
-  return static_cast<int>(ell_rows::pick(F, aligned, [&](auto w, auto vec) {
-    constexpr int W = decltype(w)::value;
-    constexpr int VEC = decltype(vec)::value;
-    constexpr int per_block = kThreads / W;
-    const dim3 grid((n_slots + per_block - 1) / per_block, G);
-    ell_rows_kernel<W, VEC><<<grid, kThreads, 0, st>>>(
-        a, bb, od, of, lv, o, n_slots, nct, T, F);
-    return cudaGetLastError();
+  if (w == 0) w = F <= 8 ? 8 : F <= 16 ? 16 : 32;
+  if (vec == 0) vec = w == 32 && F % 4 == 0 && aligned ? 4 : 1;
+  if (kc == 0) kc = ell_rows::kDefaultKC;
+  if (threads == 0) threads = ell_rows::kDefaultThreads;
+  if (vec == 4 && (F % 4 != 0 || !aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using ell_rows::select;
+  return static_cast<int>(select<8, 16, 32>(w, [&](auto w_) {
+    return select<1, 4>(vec, [&](auto vec_) {
+      return select<2, 4, 8>(kc, [&](auto kc_) {
+        return select<128, 256, 512>(threads, [&](auto threads_) {
+          constexpr int W = decltype(w_)::value;
+          constexpr int VEC = decltype(vec_)::value;
+          constexpr int KC = decltype(kc_)::value;
+          constexpr int THREADS = decltype(threads_)::value;
+          constexpr int per_block = THREADS / W;
+          const dim3 grid((n_slots + per_block - 1) / per_block, G);
+          ell_rows_kernel<W, VEC, KC, THREADS><<<grid, THREADS, 0, st>>>(
+              a, bb, od, of, lv, o, n_slots, nct, T, F);
+          return cudaGetLastError();
+        });
+      });
+    });
   }));
 }
 

@@ -26,6 +26,15 @@ Both CUDA sources share their row loop (``csrc/ell_rows.cuh``). On CPU
 tensors each function runs its plain version in
 ``repro_torch.kernels.ref``.
 
+The ragged kernel's launch shape is a knob (``tune``: lanes per row
+``w``, floats per lane ``vec``, K lanes in flight ``kc``, ``threads``
+per block), swept by ``repro_torch.kernels.autotune``; every value gives
+the same bits. ``ragged_ell_contract`` and ``ell_contract`` return the
+launch contracts the wrappers launch from (grid, threads, shape knobs,
+alignment, shared memory, the extents numbered in 32 bits, the index
+bounds the kernels trust), which ``repro_torch.analysis.static
+.kernel_pass`` audits.
+
 The module also keeps its own copy of the reference's K-band helpers
 (``merge_bands``, ``_bands_of``, ``_band_tables``, ``DEFAULT_MAX_BANDS``):
 the port's shape classes plan their band slots with them. The ragged
@@ -48,6 +57,17 @@ from .ref import (ell_spmm_ref, ell_spmm_rows_ref, ragged_ell_rows_ref,
 
 # Band-merge cap of the class band plans (the reference's value).
 DEFAULT_MAX_BANDS = 4
+
+# The ragged kernel's launch knobs: one kernel instance per combination
+# (csrc/ragged_ell_spmm.cu); the fixed-K kernel runs the defaults.
+TUNE_KEYS = ("w", "vec", "kc", "threads")
+TUNE_W = (8, 16, 32)            # lanes per row
+TUNE_VEC = (1, 4)               # floats per lane
+TUNE_KC = (2, 4, 8)             # K lanes whose B rows are in flight
+TUNE_THREADS = (128, 256, 512)  # threads per block
+DEFAULT_KC = 4
+DEFAULT_THREADS = 256
+INDEX_LIMIT = 2 ** 31           # what the kernels number in 32 bits
 
 # Launches of the CUDA kernels since the last reset
 # (ops.reset_launch_counts): ``launches`` counts the ragged kernel
@@ -115,12 +135,98 @@ def _band_tables(bands) -> tuple:
     return band_ks, band_counts, tuple(offs)
 
 
+def default_lanes(f: int) -> int:
+    """Lanes per row by F, the kernels' default: a narrow row does not
+    leave most of a warp idle."""
+    return 8 if f <= 8 else 16 if f <= 16 else 32
+
+
+def resolve_tune(f: int, tune: dict = None, *, aligned: bool = True
+                 ) -> dict:
+    """The launch shape a ``tune`` dict gives at feature width ``f``,
+    each missing (or None) knob at its default; ``aligned``: B and the
+    output are 16-byte aligned. A knob that is illegal at this F is
+    clamped to its nearest legal value: ``vec`` 4 becomes 1 where
+    ``f % 4 != 0`` or a pointer is unaligned. Values outside the
+    instance set pass through, for the contract audit to reject."""
+    tune = dict(tune or {})
+    unknown = set(tune) - set(TUNE_KEYS)
+    if unknown:
+        raise ValueError(f"unknown ragged-kernel knob(s) {sorted(unknown)}; "
+                         f"choose from {TUNE_KEYS}")
+    vec_ok = f % 4 == 0 and aligned
+    w = int(tune.get("w") or default_lanes(f))
+    vec = int(tune.get("vec") or (4 if w == 32 and vec_ok else 1))
+    if vec == 4 and not vec_ok:
+        vec = 1
+    return {"w": w, "vec": vec, "kc": int(tune.get("kc") or DEFAULT_KC),
+            "threads": int(tune.get("threads") or DEFAULT_THREADS)}
+
+
+def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
+                   aligned, extents, bounds) -> dict:
+    per_block = max(knobs["threads"] // knobs["w"], 1)
+    return dict(
+        name=name, source="ragged_ell_spmm" if kernel == "ell_rows_kernel"
+        else "ell_spmm", kernel=kernel, **knobs, instance=instance,
+        ptxas_name=kernel + _build.mangled_args(instance),
+        grid=(max(-(-n_slots // per_block), 1), g, 1), f=f,
+        aligned16=aligned, dyn_smem=0, static_smem=0, smem_optin=False,
+        shapes=shapes, extents=extents, index_bounds=bounds)
+
+
+def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
+                        f: int, *, tune: dict = None, n_slots: int = None,
+                        aligned: bool = True) -> dict:
+    """The launch contract of one ``ragged_ell_rows`` launch, for the
+    contract audit and the autotuner (its launch shape is the wrapper's:
+    both come from ``resolve_tune``): grid (x, y = G, 1), ``threads``, ``w``,
+    ``vec``, ``kc``, the ``instance`` (w, vec, kc, threads), F,
+    ``aligned16`` (B and the output 16-byte aligned; ``vec`` 4 needs it),
+    shared memory (none), the operand ``shapes``, the ``extents`` the
+    kernel numbers in 32 bits, and ``index_bounds`` {operand: exclusive
+    bound of its values}. ``n_slots`` is the grid's rows per member: the
+    plan's live rows, at most (and by default) every unit row ``u*r``.
+    ``tune`` is clamped at this F (``resolve_tune``)."""
+    knobs = resolve_tune(f, tune, aligned=aligned)
+    n_slots = u * r if n_slots is None else n_slots
+    return _rows_contract(
+        "ragged_ell_rows", "ell_rows_kernel", knobs,
+        tuple(knobs[k] for k in TUNE_KEYS), g, n_slots,
+        {"cols": (g, u, r, kmax), "vals": (g, u, r, kmax),
+         "tile_col": (g, u), "unit_k": (g, u), "b_tiles": (g, nct, t, f)},
+        f, aligned, {"unit rows": g * u * r, "plan entries": g * u * r,
+                     "grid rows": g * n_slots},
+        {"tile_col": nct, "cols": t, "unit_k": kmax + 1})
+
+
+def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
+                 *, n_slots: int = None, aligned: bool = True) -> dict:
+    """The launch contract of one fixed-K ``ell_spmm_rows`` launch over a
+    band [G, U_b, R, K] (the ragged contract's keys; the kernel runs the
+    default launch shape, no knob). ``n_slots``: the band's live rows per
+    member, at most (and by default) ``u*r``."""
+    knobs = resolve_tune(f, aligned=aligned)
+    n_slots = u * r if n_slots is None else n_slots
+    return _rows_contract(
+        "ell_spmm_rows", "ell_band_kernel", knobs,
+        (knobs["w"], knobs["vec"]), g, n_slots,
+        {"cols": (g, u, r, k), "vals": (g, u, r, k), "tile_col": (g, u),
+         "b_tiles": (g, nct, t, f)},
+        f, aligned, {"unit rows": g * u * r, "grid rows": g * n_slots},
+        {"tile_col": nct, "cols": t})
+
+
+def _aligned(*tensors) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         lib = _build.library("ragged_ell_spmm")
         fn = lib.ragged_ell_rows_f32
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
@@ -164,12 +270,13 @@ def _checked(cols, vals, tile_col, unit_k, b_tiles, dev, what) -> tuple:
 
 
 def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
-            dev) -> None:
+            dev, tune) -> None:
     """One kernel launch; ``plan`` None = unit mode."""
     g, u, r, kmax = cols.shape
     _, nct, t, f = b_tiles.shape
     if not (g and n_slots and f):
         return
+    knobs = resolve_tune(f, tune, aligned=_aligned(b_tiles, out))
     lib, fn = _kernel()
     idx = ((None,) * 3 if plan is None else
            (plan.order.data_ptr(), plan.offsets.data_ptr(),
@@ -178,7 +285,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
                  unit_k.data_ptr(), b_tiles.data_ptr(), *idx, out.data_ptr(),
-                 g, n_slots, u, r, kmax, nct, t, f, stream)
+                 g, n_slots, u, r, kmax, nct, t, f,
+                 *(knobs[k] for k in TUNE_KEYS), stream)
     _build.check(lib, err, "ragged_ell_spmm launch")
     global launches
     with _build.count_lock:
@@ -188,7 +296,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
 def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
                     b_tiles: torch.Tensor, plan: SegmentPlan,
-                    out: torch.Tensor, *, device="cuda") -> torch.Tensor:
+                    out: torch.Tensor, *, tune: dict = None,
+                    device="cuda") -> torch.Tensor:
     """The sparse engine's rows, added onto ``out`` in place.
 
     cols/vals [G, U, R, Kmax] (int32 tile-local / f32), tile_col/unit_k
@@ -200,16 +309,21 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     (the sum in plan order, from +0); rows without one are not touched.
     Returns ``out``.
 
+    ``tune`` is the kernel's launch shape (``resolve_tune``; None = the
+    defaults); every value gives the same bits.
+
     Every tensor must lie on ``device``. CPU tensors take the plain
     version (``ragged_ell_spmm_ref``, ``segment_sum``, then the add);
     CUDA tensors launch the kernel or raise.
     """
     what = "ragged_ell_rows"
+    _build.tick(what)
     dev = resolve_device(device)
     cols, vals, tile_col, unit_k, b_tiles, _ = _checked(
         cols, vals, tile_col, unit_k, b_tiles, dev, what)
     g, u, r, _ = cols.shape
     f = b_tiles.shape[-1]
+    resolve_tune(f, tune)          # unknown knobs raise on every device
     n_seg = plan.lengths.shape[0]
     _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
            and out.shape[0] * out.shape[1] == n_seg
@@ -232,13 +346,14 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
            f"offsets for {n_seg} segments", what)
     _check(out.is_contiguous(), "CUDA kernel needs a contiguous out", what)
     _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out,
-            plan.live.shape[1], dev)
+            plan.live.shape[1], dev, tune)
     return out
 
 
 def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
-                    b_tiles: torch.Tensor, *, device="cuda") -> torch.Tensor:
+                    b_tiles: torch.Tensor, *, tune: dict = None,
+                    device="cuda") -> torch.Tensor:
     """Per-unit ELL products over the concatenated ragged unit array.
 
     cols [(G,) U, R, Kmax] int32 (tile-local), vals [(G,) U, R, Kmax] f32,
@@ -247,18 +362,22 @@ def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
     K width. Every tensor must lie on ``device``; CPU tensors take the
     plain version, CUDA tensors launch the kernel or raise. Indices must
     be in range (``cols < T``, ``tile_col < nct``): partitions guarantee
-    it and ``Engine.register`` checks it on the host.
+    it and ``Engine.register`` checks it on the host. ``tune`` as for
+    ``ragged_ell_rows``.
     """
+    _build.tick("ragged_ell_spmm")
     dev = resolve_device(device)
     cols, vals, tile_col, unit_k, b_tiles, grouped = _checked(
         cols, vals, tile_col, unit_k, b_tiles, dev, "ragged_ell_spmm")
+    resolve_tune(b_tiles.shape[-1], tune)
     if dev.type == "cpu":
         out = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
         return out if grouped else out[0]
     g, u, r, _ = cols.shape
     out = torch.empty((g, u, r, b_tiles.shape[-1]), dtype=torch.float32,
                       device=dev)
-    _launch(cols, vals, tile_col, unit_k, b_tiles, None, out, u * r, dev)
+    _launch(cols, vals, tile_col, unit_k, b_tiles, None, out, u * r, dev,
+            tune)
     return out if grouped else out[0]
 
 
@@ -377,6 +496,7 @@ def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
     launch, also for a band that reaches no row) or raise.
     """
     what = "ell_spmm_rows"
+    _build.tick(what)
     dev = resolve_device(device)
     cols, vals, tile_col, b_tiles, _ = _fixed_checked(
         cols, vals, tile_col, b_tiles, dev, what)
@@ -434,6 +554,7 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, tile_col: torch.Tensor,
     be in range (``cols < T``, ``tile_col < nct``).
     """
     what = "ell_spmm"
+    _build.tick(what)
     dev = resolve_device(device)
     if cols.dim() == 3 and out is not None:
         out = out[None]

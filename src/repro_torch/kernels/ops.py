@@ -12,7 +12,8 @@ host-built ``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
-and nowhere else.
+and nowhere else; and the wrappers' call counters (``entry_counts``),
+which tick on every device.
 """
 from __future__ import annotations
 
@@ -45,6 +46,19 @@ def reset_launch_counts() -> None:
         _mm.launches = 0
 
 
+def entry_counts() -> dict:
+    """Calls of each kernel wrapper (by name) since the last
+    ``reset_entry_counts``, on every device: a CPU tensor's plain
+    version counts as its kernel's call."""
+    with _build.count_lock:
+        return dict(_build.entry_calls)
+
+
+def reset_entry_counts() -> None:
+    with _build.count_lock:
+        _build.entry_calls.clear()
+
+
 def check_ell_dispatch(dispatch: str) -> None:
     if dispatch not in ELL_DISPATCHES:
         raise ValueError(f"unknown ell dispatch {dispatch!r}; choose from "
@@ -75,7 +89,8 @@ def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
 
 def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
                plan: ReductionPlan, yd: torch.Tensor, *,
-               dispatch: str = "ragged") -> torch.Tensor:
+               dispatch: str = "ragged", ell_tune: dict = None
+               ) -> torch.Tensor:
     """Sparse-engine partial product added onto the dense engine's rows
     ``yd`` [G, n_padded_rows, F] in place; returns ``yd``. The dense
     engine never writes -0, so a row the ELL part does not reach keeps
@@ -83,7 +98,9 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
 
     ``"ragged"`` makes ONE ``ragged_ell_rows`` launch over the
     concatenated unit array of the whole group: the products, their sum
-    onto rows and the add onto ``yd``.
+    onto rows and the add onto ``yd``, in the launch shape ``ell_tune``
+    (an autotuned config; None = the defaults; the same bits either
+    way).
     ``"fused"``/``"loop"`` are the per-K A/B dispatches: one
     ``ell_spmm_rows`` launch per bucket (class band) of
     ``meta.ell_segments`` for the whole group, each doing its band's
@@ -100,7 +117,8 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     if dispatch == "ragged":
         return _ell.ragged_ell_rows(part.ell.cols, part.ell.vals,
                                     part.ell.tile_col, part.ell.unit_k, bt,
-                                    plan.ell, yd, device=b.device)
+                                    plan.ell, yd, tune=ell_tune,
+                                    device=b.device)
     buckets = ell_buckets(part.ell, meta.ell_segments)
     if len(plan.ell_bands) != len(buckets):
         raise ValueError(f"{len(plan.ell_bands)} band plans for "

@@ -29,6 +29,11 @@ from .ref import tile_matmul_ref
 
 CONFIGS = ("wide", "fill", "narrow")
 WIDE_BM, WIDE_BN = 64, 128     # the "wide" configuration's output block
+# Each configuration's ffma_tile::Tile<BM, BN, BK, TM, TN, STAGES>, as
+# csrc/tile_matmul.cu instantiates it (for ``matmul_contract``).
+TILES = {"wide": (64, 128, 16, 8, 8, 4), "fill": (32, 128, 32, 8, 4, 3),
+         "narrow": (64, 8, 32, 1, 4, 4)}
+MAX_SPLITS, SPLIT_ALIGN = 4, 32
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
 launches = 0
@@ -62,6 +67,38 @@ def pick_config(m: int, n: int, n_sms: int) -> str:
     return "wide" if wide_blocks >= 2 * n_sms else "fill"
 
 
+def split_k(k: int) -> int:
+    """Elements of k per split (csrc/tile_matmul.cu ``split_k``)."""
+    splits = min(max((k + 384) // 768, 1), MAX_SPLITS)
+    per = -(-k // splits)
+    return -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+
+
+def matmul_contract(m: int, k: int, n: int, *, config: str = None,
+                    n_sms: int = 132) -> dict:
+    """The launch contract of one ``tile_matmul`` launch: grid (M blocks,
+    N blocks, K splits), the cluster (the splits of one output block),
+    ``threads``, dynamic shared memory (the cp.async ring, above 48 KiB
+    only with the opt-in attribute, which the launch sets), the extents
+    passed as 32-bit ints, and the kernel instance's ptxas name prefix.
+    ``config`` None picks as the wrapper does on a card of ``n_sms``
+    SMs (132: the H100 SXM)."""
+    config = config or pick_config(m, n, n_sms)
+    bm, bn, bk, tm, tn, stages = TILES[config]
+    splits = -(-k // split_k(k)) if k > 0 else 1
+    return dict(
+        name="tile_matmul", source="tile_matmul", kernel="matmul_kernel",
+        config=config, instance=TILES[config],
+        ptxas_name="matmul_kernelIN9ffma_tile4Tile"
+        + _build.mangled_args(TILES[config]) + "E",
+        threads=(bm // tm) * (bn // tn),
+        grid=(max(-(-m // bm), 1), max(-(-n // bn), 1), splits),
+        cluster=(1, 1, splits),
+        dyn_smem=stages * (bm * (bk + 4) + bk * bn) * 4, static_smem=0,
+        smem_optin=True, shapes={"a": (m, k), "b": (k, n), "c": (m, n)},
+        extents={"M": m, "N": n, "K": k}, index_bounds={})
+
+
 def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
                 device="cuda") -> torch.Tensor:
     """C[M,N] = A[M,K] @ B[K,N] with a float32 accumulator, in A's dtype.
@@ -71,6 +108,7 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
     tensors take the plain version; CUDA tensors must be contiguous
     float32 and launch the kernel or raise.
     """
+    _build.tick("tile_matmul")
     dev = resolve_device(device)
     _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
            f"expected A [M,K] and B [K,N], got {tuple(a.shape)} and "

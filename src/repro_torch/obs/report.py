@@ -5,7 +5,16 @@ Everything here operates on the JSON document written by
 to the live process — so the numbers it reproduces (per-stage
 percentiles, overlap ratio, padded-MAC waste) are an independent
 cross-check of the aggregate counters the server reports. Port of
-``repro.obs.report``; tests import it directly.
+``repro.obs.report``; tests import it directly. Run as a module it is
+the port's ``scripts/trace_report.py``:
+
+    python -m repro_torch.obs.report TRACE.json [--assert-complete]
+                                     [--json OUT]
+
+prints the report of one exported trace; ``--assert-complete`` exits 1
+unless every per-request span tree is closed and the span-measured
+overlap ratio lands within 10% of the one the pipeline reported, and
+``--json`` also writes the analysis bundle.
 
 Span taxonomy (see docs/TRACING.md):
 
@@ -23,7 +32,9 @@ Span taxonomy (see docs/TRACING.md):
 """
 from __future__ import annotations
 
+import argparse
 import json
+import sys
 from typing import Dict, List
 
 from repro_torch.obs.metrics import percentile
@@ -269,3 +280,37 @@ def format_report(rep: dict) -> str:
     else:
         lines.append("trace complete: all span trees closed")
     return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.obs.report",
+        description="Critical-path report over an exported serving trace.")
+    ap.add_argument("trace", help="Chrome-trace JSON file to analyze")
+    ap.add_argument("--assert-complete", action="store_true",
+                    help="exit 1 on incomplete span trees or an overlap "
+                         "mismatch beyond 10%%")
+    ap.add_argument("--json", default=None, metavar="OUT",
+                    help="also write the analysis bundle as JSON")
+    args = ap.parse_args(argv)
+
+    rep = report(load_trace(args.trace))
+    print(format_report(rep))
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(rep, fh, indent=1, sort_keys=True)
+    if args.assert_complete:
+        if rep["problems"]:
+            print(f"FAIL: {len(rep['problems'])} completeness problem(s)",
+                  file=sys.stderr)
+            return 1
+        if not rep["overlap"]["ok"]:
+            print("FAIL: span-measured overlap disagrees with the "
+                  "pipeline's reported ratio by more than 10%",
+                  file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -424,7 +424,7 @@ class RequestQueue:
             sp_batch = tr.begin(
                 "dispatch", "serving",
                 args={"reqs": [r.seq for r in members], "reason": reason})
-        misses0 = self.engine.executors.stats.misses  # benign race: cold-detect delta; over-reports only
+        misses0 = self.engine.executors.stats.misses  # lint: racy-ok(cold-detect delta; over-reports only)
         t0 = self.clock()
         try:
             pairs = [(r.name, r.x) for r in members]
@@ -464,7 +464,7 @@ class RequestQueue:
         dt = self.clock() - t0
         now = self.clock()
         padded = pow2_ceil(len(members))
-        cold = self.engine.executors.stats.misses > misses0  # benign race: cold-detect delta; over-reports only
+        cold = self.engine.executors.stats.misses > misses0  # lint: racy-ok(cold-detect delta; over-reports only)
         res = self._resilience
         if res is not None and not outputs_finite(outs):
             # poisoned batch: quarantine bisection takes ownership of

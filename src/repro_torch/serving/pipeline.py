@@ -256,7 +256,7 @@ class DispatchPipeline:
                 # (a host-side wait — exactly the backpressure that
                 # keeps device memory and queue-delay exposure bounded)
                 # BEFORE the next enqueue, never after
-                while self.depth_inflight() >= self.max_inflight:  # benign race: single-int window bound; any published value is in [1, cap]
+                while self.depth_inflight() >= self.max_inflight:  # lint: racy-ok(single-int window bound; any published value is in [1, cap])
                     self._drain_one(block=True)
                 self._enqueue_group(key, members, plan.reason,
                                     prepared.get(key), span_parent=sp_stage)

@@ -46,6 +46,11 @@ def test_port_files_found():
     assert "src/repro_torch/kernels/ops.py" in names
     assert "src/repro_torch/serving/frontend.py" in names
     assert "src/repro_torch/obs/trace.py" in names
+    assert {"src/repro_torch/kernels/autotune.py",
+            "src/repro_torch/analysis/static/kernel_pass.py",
+            "src/repro_torch/analysis/static/launch_pass.py",
+            "src/repro_torch/analysis/static/concurrency_pass.py",
+            "src/repro_torch/analysis/static/__main__.py"} <= names
     assert len(names) >= 20
 
 
