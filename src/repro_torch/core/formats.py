@@ -37,6 +37,8 @@ Invariant: dense + ell + coo exactly reconstructs A (padding values are 0).
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -171,7 +173,14 @@ class TriPartition(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class PartitionMeta:
-    """Static facts about a TriPartition (same fields as the reference)."""
+    """Static facts about a TriPartition (same fields as the reference).
+
+    ``config``, not a field (the reference's meta has none, and equal
+    partitions compare equal whatever made them): the
+    ``PartitionConfig`` that ``analyze_and_partition`` ran with, which
+    ``partition.config_of`` hands to Aᵀ's partition; None on a meta
+    built otherwise.
+    """
 
     n_rows: int
     n_cols: int
@@ -187,6 +196,7 @@ class PartitionMeta:
     density_thresholds: tuple  # (d_dense, d_scatter)
     # ((K, n_units), ...) runs of the ragged unit axis, DESCENDING K.
     ell_segments: tuple = ()
+    config = None
 
     @property
     def nnz(self) -> int:
@@ -557,6 +567,44 @@ def plan_to(plan: ReductionPlan, device) -> ReductionPlan:
     return ReductionPlan(
         *(_segments_to(s, device) for s in plan[:3]),
         ell_bands=tuple(_bands_to(b, device) for b in plan.ell_bands))
+
+
+class IdentityCache:
+    """Values built from arrays the caller passes (numpy arrays or
+    tensors), kept while those arrays live: the host-built plans of one
+    graph are built once however many steps use them.
+
+    An entry is keyed on the identity of its arrays and a hashable
+    ``tag``, and goes when one of its arrays is freed. Arrays that take
+    no weak reference are not cached.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries = {}
+
+    def get(self, arrays: tuple, tag, build):
+        key = (tuple(id(a) for a in arrays), tag)
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and all(r() is a
+                                       for r, a in zip(hit[0], arrays)):
+                return hit[1]
+            value = build()
+
+            def evict(_, key=key, entries=self._entries):
+                entries.pop(key, None)
+
+            try:
+                refs = [weakref.ref(a, evict) for a in arrays]
+            except TypeError:
+                return value
+            self._entries[key] = (refs, value)
+            return value
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
 
 
 def segment_sum(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:

@@ -28,8 +28,22 @@ partition leaves (the ``serve_group`` path), and a ``ReductionPlan``
 (``repro_torch.core.formats.reduction_plan``) that fixes the order of
 every sum onto output rows; without one, the plan is built on the fly
 from the partition on the host.
+
+Gradients. ``hybrid_spmm``, ``gcn_layer`` and ``gcn_forward`` can be
+differentiated on both backends: the product goes through
+``HybridSpmmFn``, whose backward is ``dB = Aᵀ·dY`` computed by the same
+executor over Aᵀ's own tri-partition (built once per partition by
+``partition.transpose_partition``, cached in ``ADJOINTS``; A's own
+partition and plan where A is symmetric), on the same backend and ELL
+dispatch. On the ``cuda`` backend the backward therefore runs the hand
+kernels, and every sum in it follows a ``ReductionPlan``: no atomics,
+so a training step repeats bit for bit. A grouped partition (G > 1)
+has no backward and raises ``NotImplementedError`` when a gradient is
+required.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -38,9 +52,11 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import (bsr_spmm_rows_ref, ell_spmm_ref,
                                      ragged_ell_spmm_ref)
 
-from .formats import (PartitionMeta, ReductionPlan, TriPartition, b_tiles_of,
-                      ell_buckets, pad_b_to_tiles, partition_to, plan_to,
-                      reduction_plan, scatter_ell_partials, segment_sum)
+from .formats import (IdentityCache, PartitionMeta, ReductionPlan,
+                      TriPartition, b_tiles_of, ell_buckets, pad_b_to_tiles,
+                      partition_to, plan_to, reduction_plan,
+                      scatter_ell_partials, segment_sum)
+from .partition import transpose_partition
 
 BACKENDS = ("cuda", "torch")
 
@@ -151,6 +167,122 @@ def tune_at(ell_tune, f) -> dict:
     return dict(cfg or ell_tune.get(EVERY_WIDTH) or {})
 
 
+def _stacked(part: TriPartition) -> bool:
+    return part.dense.tiles.ndim == 4
+
+
+class _Adjoint:
+    """Aᵀ's tri-partition for the backward, placed on the device of the
+    first backward with a group axis of 1, and its reduction plan (one
+    placed copy, placed anew if a later backward runs elsewhere).
+    ``symmetric``: A equals Aᵀ, and the forward's own partition and plan
+    serve."""
+
+    def __init__(self, part_t, meta_t, symmetric: bool):
+        self.meta = meta_t
+        self.symmetric = symmetric
+        self._host = None if symmetric else part_t
+        self._dev, self._placed = None, None
+
+    def on(self, dev):
+        dev = torch.device(dev)
+        if self._dev != dev:
+            part = partition_to(self._host, dev)
+            self._dev, self._placed = dev, (
+                TriPartition(*(type(c)(*(a[None] for a in c)) for c in part)),
+                reduction_plan(self._host, self.meta, device=dev))
+        return self._placed
+
+
+class AdjointCache:
+    """Aᵀ's partition per partition, built at the first backward that
+    needs it and kept while the partition's leaves live (an
+    ``IdentityCache`` keyed on the leaves as the caller passed them,
+    numpy arrays or tensors). ``stats()`` counts the symmetry checks, the
+    partitions of Aᵀ built (a symmetric A builds none) and the seconds
+    both took on the host.
+    """
+
+    def __init__(self):
+        self._cache = IdentityCache()
+        self.checks = 0
+        self.builds = 0
+        self.build_s = 0.0
+
+    def get(self, part: TriPartition, meta: PartitionMeta) -> _Adjoint:
+        leaves = tuple(a for comp in part for a in comp)
+        return self._cache.get(leaves, meta, lambda: self._build(part, meta))
+
+    def _build(self, part, meta) -> _Adjoint:
+        t0 = time.perf_counter()
+        part_t, meta_t = transpose_partition(part, meta)
+        symmetric = part_t is part
+        self.checks += 1
+        self.builds += not symmetric
+        self.build_s += time.perf_counter() - t0
+        return _Adjoint(part_t, meta_t, symmetric)
+
+    def stats(self) -> dict:
+        return {"checks": self.checks, "builds": self.builds,
+                "build_s": self.build_s, "cached": len(self._cache)}
+
+
+ADJOINTS = AdjointCache()
+
+
+class HybridSpmmFn(torch.autograd.Function):
+    """``Y = A·B`` through the tri-engine executor, differentiable in B.
+
+    Forward: the executor (``_hybrid``) with grad off. Backward:
+    ``dB = Aᵀ·dY`` through ``_hybrid`` over Aᵀ's partition (``ADJOINTS``,
+    keyed on ``source``, the caller's unstacked partition), on the same
+    backend, ELL dispatch and launch tuning: on ``cuda`` the dense and
+    ELL row kernels, their sums by plan. dY has the forward's width, so
+    a per-width tuning table (``tune_at``) gives the backward's launches
+    the forward's config. A, its leaves, the meta and the plan get no
+    gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, b, source, part, meta, plan, backend, ell_dispatch,
+                ell_tune):
+        ctx.source, ctx.meta, ctx.part, ctx.plan = source, meta, part, plan
+        ctx.cfg = (backend, ell_dispatch, ell_tune)
+        ctx.b_rows = b.shape[-2]
+        return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        adj = ADJOINTS.get(ctx.source, ctx.meta)
+        if adj.symmetric:
+            part_t, plan_t = ctx.part, ctx.plan
+        else:
+            part_t, plan_t = adj.on(dy.device)
+        db = _hybrid(part_t, dy.contiguous(), adj.meta, plan_t, *ctx.cfg)
+        n = ctx.b_rows
+        if db.shape[-2] >= n:
+            db = db[:, :n]
+        else:   # B rows past A's columns meet no entry of A
+            db = torch.nn.functional.pad(db, (0, 0, 0, n - db.shape[-2]))
+        return (db,) + (None,) * 7
+
+
+def _product(source, part, b, meta, plan, backend, ell_dispatch,
+             ell_tune=None):
+    """``_hybrid`` through ``HybridSpmmFn`` when B needs a gradient;
+    ``source`` is the caller's partition (None: a grouped call, which
+    has no backward)."""
+    if not (torch.is_grad_enabled() and b.requires_grad):
+        return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
+    if source is None:
+        raise NotImplementedError(
+            "hybrid_spmm: no backward for a grouped partition (G > 1); "
+            "differentiate one unstacked partition at a time")
+    return HybridSpmmFn.apply(b, source, part, meta, plan, backend,
+                              ell_dispatch, ell_tune)
+
+
 def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
                 backend: str = "cuda", ell_dispatch: str = "ragged",
                 plan: ReductionPlan = None, ell_tune: dict = None,
@@ -164,8 +296,10 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
     outputs are bitwise-equal to the defaults.
     """
     dev = resolve_device(device)
+    source = None if _stacked(part) else part
     part, b, plan, squeeze = _grouped(part, b, plan, meta, dev)
-    y = _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
+    y = _product(source, part, b, meta, plan, backend, ell_dispatch,
+                 ell_tune)
     return y[0] if squeeze else y
 
 
@@ -199,28 +333,38 @@ def member_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     call (same M, N, K) at every group size and its bits do not depend
     on G. One batched product would let cuBLAS pick another kernel for
     another batch count, and a request re-dispatched in a smaller group
-    (a chaos batch-mate, a 1-request ``infer``) would change bits."""
+    (a chaos batch-mate, a 1-request ``infer``) would change bits.
+
+    Where autograd records (grad on, an input requiring grad) the
+    members' products are stacked instead of written through ``out=``,
+    which autograd refuses: the same 2-D calls, so the same bits."""
+    def w_of(g):
+        return w[g if w.shape[0] > 1 else 0]
+
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return torch.stack([torch.matmul(x[g], w_of(g))
+                            for g in range(x.shape[0])])
     out = x.new_empty(x.shape[:-1] + (w.shape[-1],))
     for g in range(x.shape[0]):
-        torch.matmul(x[g], w[g if w.shape[0] > 1 else 0], out=out[g])
+        torch.matmul(x[g], w_of(g), out=out[g])
     return out
 
 
-def _layer(part, x, w, meta, plan, backend, block_cols, activation,
+def _layer(source, part, x, w, meta, plan, backend, block_cols, activation,
            ell_dispatch, ell_tune=None):
     """One GCN layer on grouped tensors: x [G, N, F_in], w [G, F_in, H]."""
     h = w.shape[-1]
     if block_cols and block_cols < h:
         nblk = -(-h // block_cols)
         wp = torch.nn.functional.pad(w, (0, nblk * block_cols - h))
-        outs = [_hybrid(part, member_matmul(
+        outs = [_product(source, part, member_matmul(
                     x, wp[..., i * block_cols:(i + 1) * block_cols]),
                     meta, plan, backend, ell_dispatch, ell_tune)
                 for i in range(nblk)]
         y = torch.cat(outs, dim=-1)[..., :h]
     else:
-        y = _hybrid(part, member_matmul(x, w), meta, plan, backend,
-                    ell_dispatch, ell_tune)
+        y = _product(source, part, member_matmul(x, w), meta, plan, backend,
+                     ell_dispatch, ell_tune)
     return activation(y) if activation is not None else y
 
 
@@ -237,10 +381,11 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
     ``ell_tune`` as for ``hybrid_spmm``.
     """
     dev = resolve_device(device)
+    source = None if _stacked(part) else part
     part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
     w = torch.as_tensor(w, dtype=torch.float32).to(dev)
-    y = _layer(part, x, w if w.dim() == 3 else w[None], meta, plan, backend,
-               block_cols, activation, ell_dispatch, ell_tune)
+    y = _layer(source, part, x, w if w.dim() == 3 else w[None], meta, plan,
+               backend, block_cols, activation, ell_dispatch, ell_tune)
     return y[0] if squeeze else y
 
 
@@ -255,12 +400,17 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     weights, the whole group runs with one launch of each kernel per
     layer, and each member's logits are bitwise-equal to its own G = 1
     forward. ``ell_tune`` as for ``hybrid_spmm``.
+
+    Differentiable in ``x`` and ``weights`` for one unstacked partition
+    (``HybridSpmmFn``): the reference's ``jax.value_and_grad`` of this
+    forward. X·W's gradients are ``torch.matmul``'s own.
     """
     dev = resolve_device(device)
+    source = None if _stacked(part) else part
     part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
     for i, w in enumerate(weights):
         w = torch.as_tensor(w, dtype=torch.float32).to(dev)
         act = torch.relu if i < len(weights) - 1 else None
-        h = _layer(part, h, w if w.dim() == 3 else w[None], meta, plan,
-                   backend, block_cols, act, ell_dispatch, ell_tune)
+        h = _layer(source, part, h, w if w.dim() == 3 else w[None], meta,
+                   plan, backend, block_cols, act, ell_dispatch, ell_tune)
     return h[0] if squeeze else h

@@ -39,7 +39,8 @@ import dataclasses
 import numpy as np
 
 from .formats import (CSRMatrix, CooResidual, DenseTiles, PartitionMeta,
-                      RaggedEll, TriPartition, csr_to_scipy)
+                      RaggedEll, TriPartition, csr_from_scipy, csr_to_scipy,
+                      to_numpy)
 from .grouping import group_rows, groups_cover_exactly
 
 # Row-block height of one ELL unit, kept equal to the reference's (8, the
@@ -302,5 +303,103 @@ def analyze_and_partition(a: CSRMatrix, cfg: PartitionConfig = PartitionConfig()
         density_thresholds=(cfg.d_dense, cfg.d_scatter),
         ell_segments=tuple(segments),
     )
+    object.__setattr__(meta, "config", cfg)
     part = TriPartition(dense=dt, ell=ragged, coo=coo)
     return part, meta, reports
+
+
+# ------------------------------------------------------------- transpose ----
+def config_of(part: TriPartition, meta: PartitionMeta) -> PartitionConfig:
+    """The ``PartitionConfig`` A was partitioned with: the one
+    ``analyze_and_partition`` recorded on ``meta`` (``meta.config``);
+    for a meta built otherwise (class-padded, converted, replaced), its
+    tile, density thresholds and ELL unit height, with Algorithm 2's
+    ``delta``/``p`` and Algorithm 1's ``tau`` at their defaults."""
+    if meta.config is not None:
+        return meta.config
+    d_dense, d_scatter = meta.density_thresholds
+    return PartitionConfig(tile=meta.tile, d_dense=d_dense,
+                           d_scatter=d_scatter,
+                           r_block=int(part.ell.rows.shape[-1]))
+
+
+def partition_entries(part: TriPartition, meta: PartitionMeta) -> tuple:
+    """A's nonzero entries ``(rows, cols, vals)`` (host numpy), read back
+    from its (unstacked) partition. Zero values are left out: they are
+    the ELL and class padding, and an explicit zero of A adds nothing.
+    """
+    T, sentinel = meta.tile, meta.ell_sentinel_row
+    tiles = to_numpy(part.dense.tiles)
+    t, i, j = np.nonzero(tiles)
+    rows = [to_numpy(part.dense.tile_row).astype(np.int64)[t] * T + i]
+    cols = [to_numpy(part.dense.tile_col).astype(np.int64)[t] * T + j]
+    vals = [tiles[t, i, j]]
+    evals = to_numpy(part.ell.vals)
+    erows = to_numpy(part.ell.rows).astype(np.int64)
+    u, r, k = np.nonzero(evals)
+    live = erows[u, r] != sentinel
+    u, r, k = u[live], r[live], k[live]
+    rows.append(erows[u, r])
+    cols.append(to_numpy(part.ell.tile_col).astype(np.int64)[u] * T
+                + to_numpy(part.ell.cols).astype(np.int64)[u, r, k])
+    vals.append(evals[u, r, k])
+    cvals = to_numpy(part.coo.vals)
+    nz = np.flatnonzero(cvals)
+    rows.append(to_numpy(part.coo.rows).astype(np.int64)[nz])
+    cols.append(to_numpy(part.coo.cols).astype(np.int64)[nz])
+    vals.append(cvals[nz])
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals).astype(np.float32))
+
+
+def _csr_of(rows, cols, vals, shape):
+    import scipy.sparse as sp
+
+    m = sp.coo_matrix((vals, (rows, cols)), shape=shape).tocsr()
+    m.sum_duplicates()
+    m.sort_indices()
+    return m
+
+
+def _entry_csrs(part: TriPartition, meta: PartitionMeta,
+                with_a: bool) -> tuple:
+    """(A, Aᵀ) as scipy CSR from one read of the partition's entries;
+    A is None unless ``with_a``."""
+    r, c, v = partition_entries(part, meta)
+    at = _csr_of(c, r, v, (meta.n_cols, meta.n_rows))
+    return (_csr_of(r, c, v, (meta.n_rows, meta.n_cols))
+            if with_a else None), at
+
+
+def _same_csr(a, b) -> bool:
+    """The same pattern and the same float32 bits."""
+    return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.data.view(np.uint32),
+                               b.data.view(np.uint32)))
+
+
+def is_symmetric(part: TriPartition, meta: PartitionMeta) -> bool:
+    """Whether A equals its transpose exactly: the same pattern and the
+    same float32 bits at (i, j) and (j, i)."""
+    if meta.n_rows != meta.n_cols:
+        return False
+    return _same_csr(*_entry_csrs(part, meta, with_a=True))
+
+
+def transpose_partition(part: TriPartition, meta: PartitionMeta,
+                        cfg: PartitionConfig = None) -> tuple:
+    """Aᵀ's tri-partition ``(part_t, meta_t)``: A's own entries,
+    transposed, run through Algorithms 1+2 (``analyze_and_partition``)
+    with A's ``PartitionConfig`` (``config_of`` when not given). Where A
+    is exactly symmetric (as ``is_symmetric`` decides) returns
+    ``(part, meta)`` themselves, without partitioning. ``part`` is one
+    unstacked partition; the backward of ``hybrid_spmm`` runs over the
+    result."""
+    square = meta.n_rows == meta.n_cols
+    a, at = _entry_csrs(part, meta, with_a=square)
+    if square and _same_csr(a, at):
+        return part, meta
+    part_t, meta_t, _ = analyze_and_partition(
+        csr_from_scipy(at), cfg or config_of(part, meta))
+    return part_t, meta_t

@@ -1,7 +1,8 @@
 """Synthetic graph generation matching the paper's dataset statistics.
 
-Port of the graph part of ``repro.data.graphs``: the same generator, so
-the same seed gives the same CSR as the reference.
+Port of the graph part of ``repro.data.graphs`` (the paper graphs and
+``random_edge_list``; ``random_molecules`` waits for DimeNet): the same
+generator, so the same seed gives the same CSR as the reference.
 
 The real datasets are not shipped, so Cora/Citeseer/... are synthesized
 as stochastic block-model graphs with the same (n_vertices, density,
@@ -121,3 +122,11 @@ def make_paper_dataset(name: str, *, scale: float = 1.0, seed: int = 0):
     y = rng.integers(0, st.n_classes, n).astype(np.int32)
     make_paper_dataset.last_labels = labels   # planted communities
     return csr_from_scipy(atil), x, y, dataclasses.replace(st)
+
+
+def random_edge_list(n_nodes: int, n_edges: int, seed: int = 0,
+                     n_communities: int = 0):
+    """(senders, receivers) for the GNN model zoo (numpy int32)."""
+    a = sbm_graph(n_nodes, n_edges, seed=seed,
+                  n_communities=n_communities).tocoo()
+    return a.col.astype(np.int32), a.row.astype(np.int32)

@@ -51,6 +51,21 @@ def test_port_files_found():
             "src/repro_torch/analysis/static/launch_pass.py",
             "src/repro_torch/analysis/static/concurrency_pass.py",
             "src/repro_torch/analysis/static/__main__.py"} <= names
+    assert {"src/repro_torch/models/common.py",
+            "src/repro_torch/models/gnn.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/steps.py",
+            "src/repro_torch/tree.py",
+            "src/repro_torch/core/cost_model.py",
+            "src/repro_torch/data/sampler.py",
+            "src/repro_torch/checkpoint/checkpoint.py",
+            "src/repro_torch/distributed/fault_tolerance.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/gcn_paper.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/serve_gcn.py",
+            "src/repro_torch/examples/hybrid_spmm_demo.py"} <= names
     assert len(names) >= 20
 
 

@@ -276,6 +276,42 @@ class TestLaunchPass:
         assert counts["ragged_ell_rows"] == counts["bsr_spmm_rows"] == 2
         assert not counts.get("ell_spmm_rows")
 
+    def test_profiles_are_taken_until_two_agree(self, monkeypatch):
+        """The forwards are profiled until two traces in a row hold the
+        same kernel launches, not none (the profiler may lose some or all
+        of a step's events), up to PROFILE_TRIES traces; when none agree
+        the last trace comes back and the check runs on it."""
+        from repro_torch.analysis.static import launch_pass as lp
+        full = {"ell_rows_kernel<32, 4, 4, 256>": 4}
+        part = {"ell_rows_kernel<32, 4, 4, 256>": 3}
+
+        def traces(*seq):
+            it = iter(seq)
+            tries = []
+
+            def once(run, calls):
+                tries.append(calls)
+                return next(it), {}
+            monkeypatch.setattr(lp, "_profile_once", once)
+            return tries
+
+        tries = traces({}, full, full)
+        assert lp.profile_forward(None, 2) == (full, {}) and len(tries) == 3
+        tries = traces(part, full, full)
+        assert lp.profile_forward(None, 2) == (full, {}) and len(tries) == 3
+        tries = traces(*[{}] * lp.PROFILE_TRIES)
+        kernels, runtime = lp.profile_forward(None, 2)
+        assert kernels == {} and len(tries) == lp.PROFILE_TRIES
+        assert "single-launch" in _rules(
+            lp.check_profile(kernels, runtime, 2, 2, False))
+        # a forward that really launches twice agrees with itself
+        twice = {"ell_rows_kernel<32, 4, 4, 256>": 8}
+        tries = traces(twice, twice)
+        kernels, runtime = lp.profile_forward(None, 2)
+        assert kernels == twice and len(tries) == 2
+        assert "single-launch" in _rules(
+            lp.check_profile(kernels, runtime, 2, 2, False))
+
     def test_double_launch_dispatch_caught(self, engine, monkeypatch):
         real = ops.ell_matmul
 
