@@ -94,7 +94,29 @@ repository's ``src/`` next to this file. It
      forward, backward and optimizer (profiler), the Aᵀ seconds, the
      step's largest device items and where its device-to-device copies
      come from; prints one ``{"train": ...}`` line;
- 14. holds each of the four kernels against its plain PyTorch version at
+ 14. language models and FM (``repro_torch.models.{transformer,
+     attention,fm}``, ``repro_torch.train.steps``; no hand kernel on this
+     path): qwen3-0.6b at its full config (seeded weights on the card,
+     ``TokenStream(seed=0)`` tokens) trains 8 AdamW steps at 2 x 4096
+     tokens (bf16 compute, remat; the last three under the profiler);
+     gates: losses finite and falling, no all-zero gradient, a 3-step
+     rerun from the same state bitwise. At f32: decode after an
+     (S-1)-token prefill equals the forward's last position within the
+     reference's 5e-5 scaled by max(1, max |logits|), and the card's
+     forward equals the port's plain CPU forward of the same weights.
+     bf16 prefill of 8192 tokens at batch 1, 32 decode steps, then
+     decode at batch 8 against a 32768-slot cache. mixtral-8x7b at full
+     width with 2 layers: at f32 (no drops) a 4159-token prefill past
+     the 4096 window (ring roll) and 4 decodes, each within 1e-4 of the
+     windowed forward; bf16 prefill and decode timed. fm at its full
+     config: 3 AdamW steps at batch 65536 (losses finite), serve at 512
+     against the pairwise oracle, retrieval of one user's 20 fields
+     over 1,000,000 candidates against direct scores. Reports wall and
+     device ms, tokens (or rows) per second, model FLOPs as a share of
+     the H100 SXM's 989 TFLOP/s BF16 peak, peak memory and the five
+     largest device items; prints one ``{"lm": ...}`` and one
+     ``{"fm": ...}`` line;
+ 15. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -107,7 +129,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 15. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 16. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
      class, and each kernel's launches and device ms in the training
      backward) and, last, the ``{"ok": true, "device": ...}`` line.
@@ -745,24 +767,28 @@ def reordered_phase(torch, engine, graphs) -> tuple:
     return problems, record, counts
 
 
-def profile_calls(torch, fn, calls: int = 5) -> dict:
+def profile_calls(torch, fn, calls: int = 5, cpu: bool = True,
+                  detail: bool = False) -> dict:
     """Device time of one call of ``fn``, from a ``torch.profiler`` trace
     of ``calls`` calls: kernels per call, device ms per call, the
     device's busy share of the traced wall time, launches per call of the
     kernels in ``PROFILE_NAMES``, and the kernels that take the most
     device time. A trace with no device event at all is a lost
     measurement and is taken again, up to ``launch_pass.PROFILE_TRIES``
-    traces; the last is returned whatever it holds."""
+    traces; the last is returned whatever it holds. ``cpu=False`` traces
+    the device alone (for calls of tens of thousands of kernels);
+    ``detail`` adds every kernel's device ms per call (``per_kernel``)."""
     from repro_torch.analysis.static.launch_pass import PROFILE_TRIES
 
     for _ in range(PROFILE_TRIES):
-        prof = _profile_calls_once(torch, fn, calls)
+        prof = _profile_calls_once(torch, fn, calls, cpu, detail)
         if prof["kernels_per_infer"]:
             break
     return prof
 
 
-def _profile_calls_once(torch, fn, calls: int) -> dict:
+def _profile_calls_once(torch, fn, calls: int, cpu: bool = True,
+                        detail: bool = False) -> dict:
     """One profile for ``profile_calls``. The trace is the profiler's
     second step: the first, a warm-up step of the same calls, is
     discarded, because kernels of the first calls after the profiler
@@ -773,7 +799,8 @@ def _profile_calls_once(torch, fn, calls: int) -> dict:
     fn()
     torch.cuda.synchronize()
     traced = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda p: traced.append(list(p.events()))
                  ) as prof:
@@ -797,11 +824,14 @@ def _profile_calls_once(torch, fn, calls: int) -> dict:
                 by_name[key] += pattern in e.name.lower()
     busy_us = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return dict(kernels_per_infer=launches / calls,
-                device_ms_per_infer=busy_us / calls / 1e3,
-                busy_share=busy_us / wall_us if wall_us else 0.0,
-                launches_per_infer={k: v / calls for k, v in by_name.items()},
-                top=[[k[:60], v / calls / 1e3] for k, v in top])
+    out = dict(kernels_per_infer=launches / calls,
+               device_ms_per_infer=busy_us / calls / 1e3,
+               busy_share=busy_us / wall_us if wall_us else 0.0,
+               launches_per_infer={k: v / calls for k, v in by_name.items()},
+               top=[[k[:60], v / calls / 1e3] for k, v in top])
+    if detail:
+        out["per_kernel"] = {k: v / calls / 1e3 for k, v in per_kernel.items()}
+    return out
 
 
 def copy_sources(torch, fn, calls: int = 3) -> dict:
@@ -1727,6 +1757,605 @@ def train_phase(torch, smi: str, dev="cuda") -> tuple:
     return problems, record, counts, kernels, bwd_launches
 
 
+# --------------------------------------------------- language models, FM ----
+# qwen3-0.6b at its full CONFIG (28 layers, d 1024, 16/8 heads, d_ff 3072,
+# vocab 151936): train_4k's length with the global batch cut from 256 to
+# 2 for one card; prefill_32k cut to 8192 tokens at batch 1; decode_32k
+# at batch 8 (cut from 128) against a 32768-slot cache.
+QWEN = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, LM_RERUN_STEPS = 2, 4096, 8, 3
+PREFILL_SEQ, DECODE_TOKENS = 8192, 32
+DECODE_BATCH, DECODE_SLOTS, DECODE_TIMED = 8, 32768, 8
+# f32 parity on the card: prefill PARITY_SEQ - 1 tokens then decode one
+# against the forward's last position, within the reference's own bound
+# (tests/test_models_lm.py: 5e-5) scaled by max(1, max |logits|); and the
+# card's forward against the port's plain CPU forward of the same weights
+# at 1 x CPU_SEQ tokens, |card - cpu| <= 1e-4 * (max |cpu| + |cpu|)
+PARITY_BATCH, PARITY_SEQ, CPU_SEQ = 2, 1024, 128
+DECODE_BOUND, CPU_TOL = 5e-5, 1e-4
+# mixtral-8x7b at full width, depth cut from 32 to 2 layers: prefill past
+# the 4096 window (so prefill's ring roll runs), decode 4 tokens; at f32
+# each decode equals the windowed forward within the bound of
+# test_swa_ring_buffer_long_decode
+MIXTRAL, MIXTRAL_LAYERS = "mixtral-8x7b", 2
+MIXTRAL_PROMPT, MIXTRAL_DECODE, MIXTRAL_BOUND = 4159, 4, 1e-4
+# fm at its full CONFIG (39 fields, 33.8 M rows x 10): train_batch,
+# serve_p99, retrieval_cand with n_user = 20 (the reference's launch spec)
+FM_TRAIN_BATCH, FM_TRAIN_STEPS, FM_SERVE_BATCH = 65536, 3, 512
+FM_CANDIDATES, FM_USER_FIELDS = 1_000_000, 20
+FM_TOL = dict(rtol=1e-4, atol=1e-5)
+# H100 SXM published dense BF16 tensor-core peak (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12
+
+
+def lm_flops(cfg, b: int, s: int, *, ctx: int = 0, logits: int = 0) -> float:
+    """Model FLOPs of one forward: 2 per weight per token for every
+    product (the k routed experts of a MoE token, the router), the head
+    on ``logits`` tokens per sequence (all ``s`` when 0), and 4·d_head per
+    attended (query, key) pair per head: causal, within the window, the
+    keys at ``ctx`` earlier positions plus the new ones."""
+    d, dh, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    attn = d * cfg.n_heads * dh * 2 + d * cfg.n_kv_heads * dh * 2
+    ffn = 3 * d * f * (cfg.top_k if cfg.moe else 1) + (
+        d * cfg.n_experts if cfg.moe else 0)
+    body = 2.0 * cfg.n_layers * (attn + ffn) * b * s
+    head = 2.0 * d * cfg.vocab * b * (logits or s)
+    w = cfg.sliding_window or ctx + s
+    pairs = sum(min(ctx + i + 1, w) for i in range(s))
+    return body + head + 4.0 * dh * cfg.n_heads * cfg.n_layers * b * pairs
+
+
+def timed_call(torch, fn) -> tuple:
+    """(result, host ms) of one call ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rates(ms: float, flops: float, items: float) -> dict:
+    return dict(wall_ms=ms, per_s=items / ms * 1e3,
+                model_tflops=flops / 1e12,
+                bf16_peak_share=flops / (ms * 1e-3) / BF16_PEAK_FLOPS)
+
+
+# device kernels by what they compute, matched on the kernel's name (its
+# functor for PyTorch's elementwise and reduce kernels); first match wins
+KERNEL_KINDS = (
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("memcpy", ("Memcpy", "Memset")),
+    ("copy/cast", ("copy_kernel", "CatArray")),
+    ("where", ("where_kernel",)),
+    ("exp/log", ("exp_kernel", "log_kernel", "log1p")),
+    ("mul", ("MulFunctor",)),
+    ("add/sub", ("AddFunctor", "CUDAFunctor_add", "sub_kernel")),
+    ("div", ("DivFunctor", "div_true")),
+    ("max", ("maximum", "MaxOps", "max_kernel", "clamp")),
+    ("compare/bool", ("compare", "bitwise", "CompareFunctor", "logical")),
+    ("segment/gather", ("segment_reduce", "gather", "index", "scatter")),
+    ("sum/reduce", ("reduce_kernel",)),
+    ("fill", ("FillFunctor", "fill_kernel")),
+    ("pow/sqrt/trig", ("rsqrt", "sqrt", "cos_kernel", "sin_kernel", "pow")),
+    ("silu", ("silu",)),
+)
+
+
+def kernel_kind(name: str) -> str:
+    for kind, marks in KERNEL_KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
+def device_items(torch, fn) -> dict:
+    """Device ms of one call, its kernels and busy share, its five
+    largest device items (name and kind) and its device ms by kind
+    (``profile_calls`` over the device alone)."""
+    prof = profile_calls(torch, fn, calls=1, cpu=False, detail=True)
+    per = prof["per_kernel"]
+    by_kind = {}
+    for name, ms in per.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    return dict(device_ms=prof["device_ms_per_infer"],
+                kernels=prof["kernels_per_infer"],
+                busy_share=prof["busy_share"],
+                top5=[[kernel_kind(k), k[:160], ms] for k, ms in top],
+                by_kind=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])))
+
+
+def peak_gib(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _batch(torch, b) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def _bitwise(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def qwen_train(torch, cfg, params) -> tuple:
+    """8 AdamW steps (warmup-cosine, bf16 compute, remat) at 2 x 4096
+    tokens; gates: losses finite and falling, no all-zero gradient (read
+    through ``compress`` at the first step), a 3-step rerun from the
+    same state bitwise. The last steps run under the profiler."""
+    from repro_torch.data import TokenStream
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.steps import make_lm_train_step
+    from repro_torch.tree import flatten_with_path
+
+    problems, nonzero = [], []
+
+    def watch(grads):
+        if not nonzero:
+            nonzero.extend((k, bool((g != 0).any()))
+                           for k, g in flatten_with_path(grads))
+        return grads
+
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, TRAIN_STEPS), weight_decay=0.01)
+    step = make_lm_train_step(cfg, opt, remat=True, compress=watch)
+    stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    run = dict(p=params, s=opt.init(params), i=0, losses=[], ms=[])
+
+    def one():
+        t0 = time.perf_counter()
+        run["p"], run["s"], m = step(run["p"], run["s"],
+                                     _batch(torch, stream.batch_at(run["i"])))
+        run["losses"].append(float(m["loss"]))
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["i"] += 1
+        if run["i"] == LM_RERUN_STEPS:
+            run["at_rerun"] = (run["p"], run["s"], list(run["losses"]))
+
+    for _ in range(TRAIN_STEPS - 3):
+        one()
+    prof = device_items(torch, one)          # three more steps, one traced
+    losses, train_ms = run["losses"], run["ms"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        problems.append(f"lm train: losses {losses}")
+    elif not losses[-1] < losses[0]:
+        problems.append(f"lm train: loss did not fall {losses}")
+    zero = [k for k, ok in nonzero if not ok]
+    if not nonzero or zero:
+        problems.append(f"lm train: all-zero gradients {zero}")
+    peak = peak_gib(torch)
+
+    p3, s3, l3 = run.pop("at_rerun")
+    run.update(p=params, s=opt.init(params), i=0, losses=[], ms=[])
+    for _ in range(LM_RERUN_STEPS):
+        one()
+    rerun_bitwise = (run["losses"] == l3 and _bitwise(torch, run["p"], p3)
+                     and _bitwise(torch, run["s"], s3))
+    if not rerun_bitwise:
+        problems.append(f"lm train: {LM_RERUN_STEPS}-step rerun not "
+                        f"bitwise ({run['losses']} vs {l3})")
+    # the steps outside the profiler, the first (allocations) left out
+    ms = statistics.median(train_ms[1:TRAIN_STEPS - 3])
+    flops = 3 * lm_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    record = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                  losses=losses, step_ms=train_ms,
+                  rerun_bitwise=rerun_bitwise, max_memory_gib=peak,
+                  **rates(ms, flops, TRAIN_BATCH * TRAIN_SEQ), **prof)
+    return problems, record
+
+
+def qwen_breakdown(torch, cfg, params) -> dict:
+    """Host ms (each the second of two calls ending in a synchronize) of
+    the train step's parts at its shape: the loss's forward alone, its
+    value and gradient (forward, remat recompute, backward), the AdamW
+    update; and, inside those, one layer's attention forward and
+    forward + backward, and the chunked cross-entropy forward + backward
+    over the head."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.steps import (chunked_cross_entropy, lm_loss,
+                                         value_and_grad)
+
+    def twice(fn):
+        fn()
+        return timed_call(torch, fn)
+
+    batch = _batch(torch, TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=SEED).batch_at(0))
+    out = {}
+    with torch.no_grad():
+        _, out["forward_ms"] = twice(lambda: lm_loss(params, batch, cfg))
+    (_, grads), out["value_and_grad_ms"] = twice(
+        lambda: value_and_grad(lambda p, b: lm_loss(p, b, cfg), params,
+                               batch))
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    _, out["adamw_ms"] = twice(lambda: opt.update(grads, state, params))
+    del grads, state
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s, dh = TRAIN_BATCH, TRAIN_SEQ, cfg.d_head
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+               .to(torch.bfloat16).requires_grad_(True)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    pos = torch.arange(s, device=dev)
+
+    def attn():
+        return chunked_attention(q, k, v, q_pos=pos, kv_pos=pos)
+
+    with torch.no_grad():
+        _, out["attention_layer_forward_ms"] = twice(attn)
+    _, out["attention_layer_forward_backward_ms"] = twice(
+        lambda: torch.autograd.grad(attn().float().sum(), (q, k, v)))
+    h = torch.randn((b, s, cfg.d_model), generator=gen, device=dev,
+                    requires_grad=True)
+    head = params["lm_head"].detach().requires_grad_(True)
+    _, out["xent_forward_backward_ms"] = twice(
+        lambda: torch.autograd.grad(chunked_cross_entropy(
+            h, head, batch["labels"]), (h, head)))
+    return out
+
+
+def qwen_serve(torch, cfg, params) -> tuple:
+    """bf16 prefill of 8192 tokens at batch 1 and 32 decode steps on its
+    cache; then decode at batch 8 against a 32768-slot cache."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.steps import (make_lm_decode_step,
+                                         make_lm_prefill_step)
+
+    problems = []
+    toks = torch.from_numpy(TokenStream(
+        cfg.vocab, 1, PREFILL_SEQ + DECODE_TOKENS, seed=SEED).batch_at(0)[
+            "tokens"]).cuda()
+    # room for the decode steps and the three of the profile
+    prefill = make_lm_prefill_step(cfg, max_len=PREFILL_SEQ + DECODE_TOKENS
+                                   + 3)
+    decode = make_lm_decode_step(cfg)
+    prompt = toks[:, :PREFILL_SEQ]
+    prefill(params, prompt)
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), pre_ms = timed_call(torch,
+                                         lambda: prefill(params, prompt))
+    pre_peak = peak_gib(torch)
+    pre_prof = device_items(torch, lambda: prefill(params, prompt))
+    dec_ms, outs = [], [logits]
+    for i in range(DECODE_TOKENS):
+        tok = toks[:, PREFILL_SEQ + i:PREFILL_SEQ + i + 1]
+        (lg, cache), ms = timed_call(torch, lambda: decode(params, cache,
+                                                           tok))
+        dec_ms.append(ms)
+        outs.append(lg)
+    if not all(bool(torch.isfinite(x).all()) for x in outs):
+        problems.append("lm prefill/decode: non-finite logits")
+    if int(cache["index"]) != PREFILL_SEQ + DECODE_TOKENS:
+        problems.append(f"lm decode: cache index {int(cache['index'])}")
+    dec_prof = device_items(torch, lambda: decode(params, cache, tok))
+    del cache
+    torch.cuda.empty_cache()
+
+    big = tfm.init_cache(cfg, DECODE_BATCH, DECODE_SLOTS)
+    torch.cuda.reset_peak_memory_stats()
+    stream = TokenStream(cfg.vocab, DECODE_BATCH, DECODE_TIMED + 4,
+                         seed=SEED).batch_at(0)["tokens"]
+    big_ms = []
+    for i in range(DECODE_TIMED + 1):
+        tok = torch.from_numpy(stream[:, i:i + 1]).cuda()
+        (lg, big), ms = timed_call(torch, lambda: decode(params, big, tok))
+        big_ms.append(ms)
+    tok = torch.from_numpy(stream[:, -1:]).cuda()
+    big_prof = device_items(torch, lambda: decode(params, big, tok))
+    if not bool(torch.isfinite(lg).all()):
+        problems.append("lm decode at 32k slots: non-finite logits")
+    big_peak = peak_gib(torch)
+    del big
+    torch.cuda.empty_cache()
+    dec = statistics.median(dec_ms[1:])
+    big_dec = statistics.median(big_ms[1:])
+    record = dict(
+        prefill=dict(batch=1, seq=PREFILL_SEQ, max_memory_gib=pre_peak,
+                     **rates(pre_ms, lm_flops(cfg, 1, PREFILL_SEQ, logits=1),
+                             PREFILL_SEQ), **pre_prof),
+        decode=dict(batch=1, tokens=DECODE_TOKENS, ms_per_token=dec,
+                    first_ms=dec_ms[0],
+                    **rates(dec, lm_flops(cfg, 1, 1, ctx=PREFILL_SEQ), 1),
+                    **dec_prof),
+        decode_32k=dict(batch=DECODE_BATCH, slots=DECODE_SLOTS,
+                        ms_per_token=big_dec, first_ms=big_ms[0],
+                        max_memory_gib=big_peak,
+                        # the reference attends over every slot
+                        **rates(big_dec, lm_flops(cfg, DECODE_BATCH, 1,
+                                                  ctx=DECODE_SLOTS - 1),
+                                DECODE_BATCH), **big_prof))
+    return problems, record
+
+
+def qwen_parity(torch, cfg, params) -> tuple:
+    """f32 on the card: decode after an (S-1)-token prefill equals the
+    forward's last position; the card's forward equals the port's plain
+    CPU forward of the same weights."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+
+    problems = []
+    toks = torch.from_numpy(TokenStream(cfg.vocab, PARITY_BATCH, PARITY_SEQ,
+                                        seed=SEED).batch_at(0)[
+                                            "tokens"]).cuda()
+    with torch.no_grad():
+        h = tfm.forward(params, toks, cfg, remat=False, compute_dtype=None)
+        want = tfm.logits_fn(params, h[:, -1], cfg)
+        _, cache = tfm.prefill(params, toks[:, :-1], cfg,
+                               max_len=PARITY_SEQ, cache_dtype=torch.float32,
+                               compute_dtype=None)
+        got, _ = tfm.decode_step(params, cache, toks[:, -1:], cfg,
+                                 compute_dtype=None)
+    del cache, h
+    dec_err = max_err(got[:, 0], want)
+    dec_bound = DECODE_BOUND * max(1.0, float(want.abs().max()))
+    if not dec_err < dec_bound:
+        problems.append(f"lm f32 decode vs forward: {dec_err} >= "
+                        f"{dec_bound}")
+    short = toks[:1, :CPU_SEQ]
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    with torch.no_grad():
+        card = tfm.logits_fn(params, tfm.forward(
+            params, short, cfg, remat=False, compute_dtype=None), cfg).cpu()
+        t0 = time.perf_counter()
+        plain = tfm.logits_fn(cpu_params, tfm.forward(
+            cpu_params, short.cpu(), cfg, remat=False, compute_dtype=None),
+            cfg)
+        cpu_s = time.perf_counter() - t0
+    del cpu_params
+    cpu_err = max_err(card, plain)
+    bound = CPU_TOL * (float(plain.abs().max()) + plain.abs())
+    if not bool(((card - plain).abs() <= bound).all()):
+        problems.append(f"lm f32 card vs CPU forward: max_abs_err {cpu_err}")
+    record = dict(decode_vs_forward=dict(
+        batch=PARITY_BATCH, seq=PARITY_SEQ, max_abs_err=dec_err,
+        bound=dec_bound, max_abs_logit=float(want.abs().max())),
+        card_vs_cpu=dict(batch=1, seq=CPU_SEQ, max_abs_err=cpu_err,
+                         max_abs_logit=float(plain.abs().max()),
+                         cpu_forward_s=cpu_s))
+    return problems, record
+
+
+def mixtral_phase(torch) -> tuple:
+    """mixtral-8x7b, full width, 2 layers: at f32 with a capacity factor
+    of E / k (every expert can take every token: nothing drops), prefill
+    4159 tokens at batch 1 (past the 4096 window: the ring roll runs)
+    and decode 4; each decode's logits equal the windowed forward's at
+    its position. Then bf16 at the config's capacity factor: prefill
+    and decode of the same prompt, timed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.steps import (make_lm_decode_step,
+                                         make_lm_prefill_step)
+
+    problems = []
+    full = get_arch(MIXTRAL).config
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    exact = dataclasses.replace(
+        cfg, capacity_factor=float(cfg.n_experts) / cfg.top_k)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.init_params(cfg, gen, device="cuda")
+    n = MIXTRAL_PROMPT + MIXTRAL_DECODE
+    toks = torch.from_numpy(TokenStream(cfg.vocab, 1, n, seed=SEED).batch_at(
+        0)["tokens"]).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        h = tfm.forward(params, toks, exact, remat=False, compute_dtype=None)
+        want = tfm.logits_fn(params, h[:, MIXTRAL_PROMPT:], exact)
+        del h
+        _, cache = tfm.prefill(params, toks[:, :MIXTRAL_PROMPT], exact,
+                               max_len=n, cache_dtype=torch.float32,
+                               compute_dtype=None)
+    t_buf = cache["k"].shape[2]
+    errs = []
+    for i in range(MIXTRAL_DECODE):
+        at = MIXTRAL_PROMPT + i
+        lg, cache = tfm.decode_step(params, cache, toks[:, at:at + 1], exact,
+                                    compute_dtype=None)
+        errs.append(max_err(lg[:, 0], want[:, i]))
+    f32_peak = peak_gib(torch)
+    del cache
+    if t_buf != cfg.sliding_window or (MIXTRAL_PROMPT - t_buf) % t_buf == 0:
+        problems.append(f"mixtral: ring of {t_buf} slots, no roll")
+    if not max(errs) < MIXTRAL_BOUND:
+        problems.append(f"mixtral f32 decode vs windowed forward: {errs}")
+
+    prefill = make_lm_prefill_step(cfg, max_len=n)
+    decode = make_lm_decode_step(cfg)
+    prompt = toks[:, :MIXTRAL_PROMPT]
+    prefill(params, prompt)
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), pre_ms = timed_call(torch,
+                                         lambda: prefill(params, prompt))
+    pre_prof = device_items(torch, lambda: prefill(params, prompt))
+    dec_ms = []
+    for i in range(MIXTRAL_DECODE):
+        at = MIXTRAL_PROMPT + i
+        (lg, cache), ms = timed_call(
+            torch, lambda: decode(params, cache, toks[:, at:at + 1]))
+        dec_ms.append(ms)
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(lg).all())):
+        problems.append("mixtral bf16: non-finite logits")
+    tok = toks[:, -1:]
+    dec_prof = device_items(torch, lambda: decode(params, cache, tok))
+    bf16_peak = peak_gib(torch)
+    del params, cache
+    torch.cuda.empty_cache()
+    dec = statistics.median(dec_ms[1:])
+    record = dict(
+        arch=MIXTRAL, layers=MIXTRAL_LAYERS,
+        params_b=cfg.n_params_dense / 1e9,
+        f32=dict(prompt=MIXTRAL_PROMPT, ring_slots=t_buf,
+                 roll=(MIXTRAL_PROMPT - t_buf) % t_buf,
+                 capacity_factor=exact.capacity_factor,
+                 decode_vs_forward=errs, bound=MIXTRAL_BOUND,
+                 max_memory_gib=f32_peak),
+        bf16=dict(capacity_factor=cfg.capacity_factor,
+                  max_memory_gib=bf16_peak,
+                  prefill=dict(**rates(pre_ms, lm_flops(
+                      cfg, 1, MIXTRAL_PROMPT, logits=1), MIXTRAL_PROMPT),
+                      **pre_prof),
+                  decode=dict(ms_per_token=dec, first_ms=dec_ms[0],
+                              **rates(dec, lm_flops(
+                                  cfg, 1, 1, ctx=MIXTRAL_PROMPT), 1),
+                              **dec_prof)),
+        reduced=[f"n_layers {full.n_layers} -> {MIXTRAL_LAYERS}",
+                 f"f32 check: capacity_factor {full.capacity_factor} -> "
+                 f"{exact.capacity_factor} (no drops)",
+                 f"prefill 32768 x 32 -> {MIXTRAL_PROMPT} x 1 (past the "
+                 f"{full.sliding_window} window)"])
+    return problems, record
+
+
+def lm_phase(torch, smi: str) -> tuple:
+    """The language-model path: qwen3-0.6b at its full config (train,
+    f32 parity, prefill and decode), then mixtral at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import count_params
+
+    t0 = time.perf_counter()
+    cfg = get_arch(QWEN).config
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = tfm.init_params(cfg, gen, device="cuda")
+    problems, train = qwen_train(torch, cfg, params)
+    torch.cuda.empty_cache()
+    train["breakdown"] = qwen_breakdown(torch, cfg, params)
+    torch.cuda.empty_cache()
+    p, parity = qwen_parity(torch, cfg, params)
+    problems += p
+    p, serve = qwen_serve(torch, cfg, params)
+    problems += p
+    n_params = count_params(params)
+    del params
+    torch.cuda.empty_cache()
+    p, mixtral = mixtral_phase(torch)
+    problems += p
+    record = dict(
+        gpu=smi, arch=QWEN, params_m=n_params / 1e6, train=train,
+        parity=parity, **serve, mixtral=mixtral,
+        peak_note="share of the H100 SXM dense BF16 peak, 989 TFLOP/s",
+        attention_products="torch.bmm(..., out_dtype=torch.float32)",
+        reduced=[f"train_4k global batch 256 -> {TRAIN_BATCH}",
+                 f"prefill_32k 32768 x 32 -> {PREFILL_SEQ} x 1",
+                 f"decode_32k batch 128 -> {DECODE_BATCH}"],
+        phase_s=time.perf_counter() - t0)
+    return problems, record
+
+
+def fm_phase(torch, smi: str) -> tuple:
+    """fm at its full config: 3 AdamW steps at batch 65536, serve at 512
+    (scores against the pairwise oracle), retrieval of one user's 20
+    fields against 1,000,000 candidates (against direct scores of the
+    first 512)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickStream
+    from repro_torch.models import fm as fm_m
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.steps import (make_fm_retrieval_step,
+                                         make_fm_serve_step,
+                                         make_fm_train_step)
+
+    t0 = time.perf_counter()
+    problems = []
+    cfg = get_arch("fm").config
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = fm_m.fm_init(cfg, gen, device="cuda")
+    opt = AdamW(lr=1e-3)
+    step = make_fm_train_step(cfg, opt)
+    stream = ClickStream(cfg.vocab_sizes, FM_TRAIN_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    run = dict(p=params, s=opt.init(params), i=0, losses=[], ms=[])
+
+    def one():
+        t1 = time.perf_counter()
+        run["p"], run["s"], m = step(run["p"], run["s"],
+                                     _batch(torch, stream.batch_at(run["i"])))
+        run["losses"].append(float(m["loss"]))
+        run["ms"].append((time.perf_counter() - t1) * 1e3)
+        run["i"] += 1
+
+    for _ in range(FM_TRAIN_STEPS):
+        one()
+    losses, train_ms = list(run["losses"]), list(run["ms"])
+    prof = device_items(torch, one)       # three more steps, one traced
+    if not all(np.isfinite(run["losses"])):
+        problems.append(f"fm train: losses {run['losses']}")
+    train_peak = peak_gib(torch)
+    params = run.pop("p")
+    del run
+    f = cfg.n_sparse
+    flops = 2.0 * FM_TRAIN_BATCH * f * cfg.embed_dim * 3 * 3
+
+    serve = make_fm_serve_step(cfg)
+    sb = ClickStream(cfg.vocab_sizes, FM_SERVE_BATCH, seed=SEED).batch_at(0)
+    idx = torch.from_numpy(sb["idx"]).cuda()
+    with torch.no_grad():
+        ref = fm_m.fm_score_ref(params, idx, cfg)
+    got = serve(params, {"idx": idx})
+    serve_err = max_err(got, ref)
+    if not close(got, ref, **FM_TOL):
+        problems.append(f"fm serve vs pairwise oracle: {serve_err}")
+    serve_ms = wall_ms(torch, lambda: serve(params, {"idx": idx}))
+    serve_prof = device_items(torch, lambda: serve(params, {"idx": idx}))
+
+    cand_b = ClickStream(cfg.vocab_sizes, FM_CANDIDATES,
+                         seed=SEED).batch_at(0)["idx"]
+    raw = cand_b.copy()
+    raw[:, :FM_USER_FIELDS] = raw[0, :FM_USER_FIELDS]     # one user
+    flat = raw + fm_m.field_offsets(cfg)[None, :]
+    user = torch.from_numpy(flat[0, :FM_USER_FIELDS]).cuda()
+    cand = torch.from_numpy(flat[:, FM_USER_FIELDS:]).cuda()
+    retrieve = make_fm_retrieval_step(cfg, FM_USER_FIELDS)
+    scores = retrieve(params, user, cand)
+    direct = serve(params, {"idx": torch.from_numpy(raw[:512]).cuda()})
+    ret_err = max_err(scores[:512], direct)
+    if tuple(scores.shape) != (FM_CANDIDATES,) or not bool(
+            torch.isfinite(scores).all()):
+        problems.append(f"fm retrieval: shape {tuple(scores.shape)} or "
+                        "non-finite scores")
+    if not close(scores[:512], direct, **FM_TOL):
+        problems.append(f"fm retrieval vs direct scores: {ret_err}")
+    torch.cuda.reset_peak_memory_stats()
+    ret_ms = wall_ms(torch, lambda: retrieve(params, user, cand))
+    ret_prof = device_items(torch, lambda: retrieve(params, user, cand))
+    ret_peak = peak_gib(torch)
+    n_cf = f - FM_USER_FIELDS
+    del params, scores
+    torch.cuda.empty_cache()
+    record = dict(
+        gpu=smi, rows=int(sum(cfg.vocab_sizes)), fields=f,
+        embed_dim=cfg.embed_dim,
+        train=dict(batch=FM_TRAIN_BATCH, steps=FM_TRAIN_STEPS, losses=losses,
+                   step_ms=train_ms, max_memory_gib=train_peak,
+                   **rates(statistics.median(train_ms[1:]), flops,
+                           FM_TRAIN_BATCH), **prof),
+        serve=dict(batch=FM_SERVE_BATCH, max_abs_err_vs_oracle=serve_err,
+                   **rates(serve_ms, 2.0 * FM_SERVE_BATCH * f
+                           * cfg.embed_dim * 3, FM_SERVE_BATCH),
+                   **serve_prof),
+        retrieval=dict(candidates=FM_CANDIDATES, user_fields=FM_USER_FIELDS,
+                       max_abs_err_vs_direct=ret_err,
+                       max_memory_gib=ret_peak,
+                       **rates(ret_ms, 2.0 * FM_CANDIDATES * n_cf
+                               * cfg.embed_dim * 3, FM_CANDIDATES),
+                       **ret_prof),
+        reduced=[], phase_s=time.perf_counter() - t0)
+    return problems, record
+
+
 # --------------------------------------------------------- kernel phase ----
 def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
@@ -2349,6 +2978,20 @@ def main() -> None:
     for rec in train["graphs"]:
         print("  " + json.dumps(rec))
 
+    lm_problems, lm = lm_phase(torch, smi)
+    problems += lm_problems
+    print(f"lm: {QWEN} train step {lm['train']['wall_ms']:.1f} ms "
+          f"(device {lm['train']['device_ms']:.1f} ms), losses "
+          f"{lm['train']['losses'][0]:.3f} -> {lm['train']['losses'][-1]:.3f}"
+          f"; prefill {PREFILL_SEQ} {lm['prefill']['wall_ms']:.1f} ms; "
+          f"decode {lm['decode']['ms_per_token']:.2f} ms/token; phase "
+          f"{lm['phase_s']:.1f} s")
+    fm_problems, fm = fm_phase(torch, smi)
+    problems += fm_problems
+    print(f"fm: train step {fm['train']['wall_ms']:.1f} ms, serve "
+          f"{fm['serve']['wall_ms']:.3f} ms, retrieval "
+          f"{fm['retrieval']['wall_ms']:.2f} ms; phase {fm['phase_s']:.1f} s")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -2390,6 +3033,8 @@ def main() -> None:
     print(f"smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"lm": lm}))
+    print(json.dumps({"fm": fm}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

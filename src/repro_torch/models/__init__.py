@@ -1,3 +1,4 @@
-"""Model zoo (port of ``repro.models``): so far the shared blocks and
-the message-passing GNNs."""
-from . import common, gnn  # noqa: F401
+"""Model zoo (port of ``repro.models``): the shared blocks, the
+message-passing GNNs, the transformer family with its chunked attention,
+and the factorization machine."""
+from . import attention, common, fm, gnn, transformer  # noqa: F401

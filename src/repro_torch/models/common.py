@@ -132,9 +132,14 @@ class _SegmentSum(torch.autograd.Function):
 
 def take(x: torch.Tensor, idx) -> torch.Tensor:
     """``x[idx]`` along axis 0 (``jnp.take(x, idx, axis=0)``); its
-    gradient sums onto x's rows by plan."""
+    gradient sums onto x's rows by plan. Where no gradient is recorded
+    (serving, decode) no plan is built: the gather alone."""
+    i = _index(idx, x.device)
+    shape = tuple(i.shape) + tuple(x.shape[1:])
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x.index_select(0, i.reshape(-1)).reshape(shape)
     plan = _plan(idx, x.shape[0], x.device)
-    return _Take.apply(x, _index(idx, x.device), plan)
+    return _Take.apply(x, i.reshape(-1), plan).reshape(shape)
 
 
 def segment_sum(v: torch.Tensor, idx, n: int) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""train_step / serve_step factories, the GNN part (port of
-``repro.train.steps``).
+"""train_step / serve_step factories for the LM, GNN and FM families
+(port of ``repro.train.steps``).
 
 A train step takes ``(params, opt_state, batch)`` and returns the new
 ``(params, opt_state, {"loss": loss})``, as the reference's: the loss
@@ -13,18 +13,29 @@ reference write it inline): the 2-layer GCN through the tri-hybrid
 executor (``core.hybrid_spmm.gcn_forward``), whose backward runs the
 same engines over Aᵀ.
 
-DimeNet and NequIP, and the LM and FM factories, wait until their
-models are ported.
+The LM loss avoids materializing [B, S, V] logits with a
+sequence-chunked cross-entropy, each chunk recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``). The LM
+loss and train step take ``compute_dtype`` (default bf16, the
+reference's fixed choice; None runs f32). Prefill, decode and the FM
+serve steps record no gradient.
+
+DimeNet and NequIP wait until their models are ported.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import GNNConfig
+from repro_torch.configs.base import (GNNConfig, RecsysConfig,
+                                      TransformerConfig)
 from repro_torch.core.hybrid_spmm import gcn_forward as hybrid_gcn_forward
+from repro_torch.models import fm as fm_m
 from repro_torch.models import gnn as gnn_m
+from repro_torch.models import transformer as tfm
 
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -35,6 +46,97 @@ def _unported(kind: str):
     raise NotImplementedError(f"{kind!r} is not ported to repro_torch yet")
 
 
+# ------------------------------------------------------------- LM ----------
+def _xent_chunk(hc, lc, head):
+    """(sum of token xent, count of labelled tokens) of one chunk. The
+    label's logit is picked by a comparison with the vocabulary ids, so
+    the backward scatters nothing."""
+    logits = (hc @ head).to(torch.float32)                # [B, c, V]
+    lz = torch.logsumexp(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = vocab == torch.clamp(lc, min=0)[..., None]
+    tgt = torch.where(hit, logits, 0.0).sum(dim=-1)
+    valid = (lc >= 0).to(torch.float32)
+    return torch.sum((lz - tgt) * valid), torch.sum(valid)
+
+
+def chunked_cross_entropy(h, head, labels, *, chunk: int = 256):
+    """Mean token xent without a full [B,S,V] logits tensor.
+
+    h [B,S,D], head [D,V], labels [B,S] -> scalar. Loops over S chunks,
+    each recomputed in the backward, so a chunk's [B,c,V] logits live
+    only transiently; labels < 0 (the padded tail) do not count.
+    """
+    b, s, d = h.shape
+    labels = torch.as_tensor(labels, device=h.device).long()
+    c = min(chunk, s)
+    sp = -(-s // c) * c
+    hp = F.pad(h, (0, 0, 0, sp - s)) if sp > s else h
+    lp = F.pad(labels, (0, sp - s), value=-1) if sp > s else labels
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(sp // c):
+        part, n = checkpoint(_xent_chunk, hp[:, i * c:(i + 1) * c],
+                             lp[:, i * c:(i + 1) * c], head,
+                             use_reentrant=False)
+        tot = tot + part
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, batch, cfg: TransformerConfig, *, remat=True,
+            q_chunk=512, k_chunk=1024, xent_chunk=256, layer_mode="scan",
+            act_constraint=None, moe_shardings=None,
+            compute_dtype=torch.bfloat16):
+    h = tfm.forward(params, batch["tokens"], cfg, remat=remat,
+                    q_chunk=q_chunk, k_chunk=k_chunk, layer_mode=layer_mode,
+                    compute_dtype=compute_dtype,
+                    act_constraint=act_constraint,
+                    moe_shardings=moe_shardings)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return chunked_cross_entropy(h, head, batch["labels"], chunk=xent_chunk)
+
+
+def make_lm_train_step(cfg: TransformerConfig, optimizer, *, remat=True,
+                       q_chunk=512, k_chunk=1024, xent_chunk=256,
+                       compress=None, layer_mode="scan",
+                       act_constraint=None, moe_shardings=None,
+                       compute_dtype=torch.bfloat16):
+    loss_fn = functools.partial(lm_loss, cfg=cfg, remat=remat,
+                                q_chunk=q_chunk, k_chunk=k_chunk,
+                                xent_chunk=xent_chunk, layer_mode=layer_mode,
+                                act_constraint=act_constraint,
+                                moe_shardings=moe_shardings,
+                                compute_dtype=compute_dtype)
+    return _train_step(loss_fn, optimizer, compress)
+
+
+def make_lm_prefill_step(cfg: TransformerConfig, *, max_len,
+                         q_chunk=512, k_chunk=1024, layer_mode="scan",
+                         moe_shardings=None):
+    @torch.no_grad()
+    def prefill_step(params, tokens):
+        h, cache = tfm.prefill(params, tokens, cfg, max_len=max_len,
+                               q_chunk=q_chunk, k_chunk=k_chunk,
+                               layer_mode=layer_mode,
+                               moe_shardings=moe_shardings)
+        logits = tfm.logits_fn(params, h[:, -1:], cfg)
+        return logits, cache
+    return prefill_step
+
+
+def make_lm_decode_step(cfg: TransformerConfig, *, k_chunk=2048,
+                        layer_mode="scan", moe_shardings=None):
+    """``serve_step(params, cache, tokens)``; consumes ``cache`` (see
+    ``transformer.decode_step``)."""
+    def serve_step(params, cache, tokens):
+        return tfm.decode_step(params, cache, tokens, cfg, k_chunk=k_chunk,
+                               layer_mode=layer_mode,
+                               moe_shardings=moe_shardings)
+    return serve_step
+
+
+# ------------------------------------------------------------- GNN ---------
 def gnn_apply(params, graph, cfg: GNNConfig, constrain=None, gops=None,
               remat=False):
     if cfg.kind == "gcn":
@@ -144,3 +246,25 @@ def make_hybrid_gcn_train_step(part, optimizer, **forward_kw):
     built at the first step)."""
     loss_fn = functools.partial(hybrid_gcn_loss, part=part, **forward_kw)
     return _train_step(loss_fn, optimizer)
+
+
+# ---------------------------------------------------------- recsys ---------
+def make_fm_train_step(cfg: RecsysConfig, optimizer, compress=None):
+    def loss_fn(params, batch):
+        return fm_m.fm_loss(params, batch["idx"], batch["labels"], cfg)
+    return _train_step(loss_fn, optimizer, compress)
+
+
+def make_fm_serve_step(cfg: RecsysConfig):
+    @torch.no_grad()
+    def serve_step(params, batch):
+        return fm_m.fm_score(params, batch["idx"], cfg)
+    return serve_step
+
+
+def make_fm_retrieval_step(cfg: RecsysConfig, n_user_fields: int):
+    @torch.no_grad()
+    def serve_step(params, user_idx, cand_idx):
+        return fm_m.retrieval_score(params, user_idx, cand_idx, cfg,
+                                    n_user_fields)
+    return serve_step

@@ -203,3 +203,59 @@ def test_nan_loss_triggers_rollback(tmp_path):
     p_end, _, end = r.run(p0, opt.init(p0))
     assert end == 16 and ("rollback", 8) in r.events
     assert torch.isfinite(p_end["w"]).all()
+
+
+# ------------------------------------------------------------------ LM ----
+def test_reference_lm_checkpoint_resumes_in_the_port(tmp_path):
+    """The reference trains a smoke LM one f32 step and saves its params
+    (stacked ``[L, ...]`` layers) and ``AdamWState``; the port restores
+    them under the same leaf keys and takes the next step, whose loss
+    equals the reference's next loss within ``rtol=1e-4``."""
+    import dataclasses
+
+    from repro.configs import get_arch as jax_get_arch
+    from repro.models import transformer as jt
+    from repro.train.steps import chunked_cross_entropy as jxent
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import steps as tsteps
+
+    jcfg = dataclasses.replace(jax_get_arch("qwen3-moe-235b-a22b").smoke,
+                               capacity_factor=8.0)
+    tcfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b").smoke,
+                               capacity_factor=8.0)
+    stream = TokenStream(jcfg.vocab, 2, 16, seed=0)
+    kw = dict(q_chunk=8, k_chunk=8)
+
+    def jloss(p, batch):
+        h = jt.forward(p, jnp.asarray(batch["tokens"]), jcfg,
+                       compute_dtype=None, **kw)
+        return jxent(h, p["lm_head"], jnp.asarray(batch["labels"]), chunk=8)
+
+    opt = JaxAdamW(lr=1e-3, weight_decay=0.01)
+    grad = jax.jit(jax.value_and_grad(jloss))
+    jp = jt.init_params(jcfg, jax.random.PRNGKey(0))
+    js = opt.init(jp)
+    _, g = grad(jp, stream.batch_at(0))
+    jp, js = jax.jit(opt.update)(g, js, jp)
+    JaxManager(str(tmp_path), async_save=False).save(
+        1, {"params": jp, "opt_state": js, "step": np.asarray(1, np.int32)})
+    want, _ = grad(jp, stream.batch_at(1))
+
+    like = {"params": tt.init_params(tcfg, torch.Generator().manual_seed(0),
+                                     device="cpu"),
+            "step": np.asarray(0, np.int32)}
+    like["opt_state"] = AdamW().init(like["params"])
+    restored, man = CheckpointManager(str(tmp_path)).restore_latest(like)
+    assert man["step"] == 1 and int(restored["step"]) == 1
+    _leaves_equal({"params": jp, "opt_state": js,
+                   "step": np.asarray(1, np.int32)}, restored)
+    step = tsteps.make_lm_train_step(
+        tcfg, AdamW(lr=1e-3, weight_decay=0.01), xent_chunk=8,
+        compute_dtype=None, **kw)
+    _, state, m = step(restored["params"], restored["opt_state"],
+                       {k: torch.from_numpy(v)
+                        for k, v in stream.batch_at(1).items()})
+    np.testing.assert_allclose(float(m["loss"]), float(want), rtol=1e-4)
+    assert int(state.step) == 2

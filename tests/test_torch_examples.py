@@ -1,7 +1,7 @@
 """The port's examples run on the CPU at a small scale
 (``python -m repro_torch.examples.<name> --device cpu``); on the card
 they run without ``--device``. ``quickstart`` is exercised in
-``test_torch_train.py``."""
+``test_torch_train.py``; ``train_lm`` trains the smollm smoke LM here."""
 import os
 import pathlib
 import subprocess
@@ -42,3 +42,26 @@ def test_examples_default_to_the_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "CUDA device requested" in res.stderr
+
+
+def test_train_lm_loss_falls(tmp_path):
+    """``python -m repro_torch.examples.train_lm --device cpu --steps 6``
+    trains the smoke LM through ``TrainingRunner`` (its own assertion:
+    the last loss below the first), and a rerun resumes from the final
+    checkpoint instead of training again."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.examples.train_lm", "--device",
+           "cpu", "--steps", "6", "--ckpt-dir", str(tmp_path)]
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "done at step 6; events: []" in res.stdout
+    from repro_torch.examples import train_lm
+    losses = train_lm.main(["--device", "cpu", "--steps", "6",
+                            "--ckpt-dir", str(tmp_path / "direct")])
+    assert len(losses) == 6 and losses[-1] < losses[0]
+    res = subprocess.run(cmd[:-2] + ["--steps", "6", "--ckpt-dir",
+                                     str(tmp_path)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "done at step 6; events: [('resume', 6)]" in res.stdout

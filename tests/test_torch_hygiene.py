@@ -66,6 +66,12 @@ def test_port_files_found():
             "src/repro_torch/examples/quickstart.py",
             "src/repro_torch/examples/serve_gcn.py",
             "src/repro_torch/examples/hybrid_spmm_demo.py"} <= names
+    assert {"src/repro_torch/models/attention.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/fm.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/data/recsys.py",
+            "src/repro_torch/examples/train_lm.py"} <= names
     assert len(names) >= 20
 
 
