@@ -116,7 +116,24 @@ repository's ``src/`` next to this file. It
      the H100 SXM's 989 TFLOP/s BF16 peak, peak memory and the five
      largest device items; prints one ``{"lm": ...}`` and one
      ``{"fm": ...}`` line;
- 15. holds each of the four kernels against its plain PyTorch version at
+ 15. geometric GNNs (``repro_torch.models.{dimenet,nequip,so3}``,
+     ``distributed.collectives``; no hand kernel on this path): DimeNet
+     (6 blocks, d 128) and NequIP (5 layers, 32 channels, l_max 2) at
+     their full configs on the ``molecule`` cell (``random_molecules(128,
+     30, cutoff=1.55)``, placed on the card once; seeded weights and
+     target energies). Gates: f32 energies within 1e-4 · (max|cpu| +
+     |cpu|) of the port's CPU forward; energies invariant under a
+     seeded rotation and shift (the reference's tolerances); the
+     all-zero gradient leaves those of the CPU; ``remat=True`` bitwise;
+     20 AdamW steps finite and falling, a 3-step rerun bitwise; one
+     step through the EF-compression hook with a non-zero residual.
+     Then a G = 2 stacked cora ``gcn_forward`` (the normalized adjacency
+     and an asymmetric copy) differentiated on the "cuda" backend:
+     forward and each member's gradients bitwise-equal to the member
+     alone. Reports serve and train step wall and device ms, busy share,
+     molecules/s and peak memory; prints one ``{"geometric": ...}``
+     line;
+ 16. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -129,7 +146,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 16. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 17. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
      class, and each kernel's launches and device ms in the training
      backward) and, last, the ``{"ok": true, "device": ...}`` line.
@@ -2356,6 +2373,275 @@ def fm_phase(torch, smi: str) -> tuple:
     return problems, record
 
 
+# ------------------------------------------------------ geometric phase ----
+# the `molecule` shape cell (configs/base.py: 30 atoms, 64 edges a
+# molecule) at 128 molecules; a cutoff of 1.55 gives 64.5 edges a molecule
+# (the reference's default of 3.0 gives five times the cell's)
+GEO_MOLS, GEO_ATOMS, GEO_CUTOFF = 128, 30, 1.55
+GEO_STEPS = 20
+GEO_RERUN = 3
+# AdamW's learning rate: DimeNet's seeded energies are in the hundreds
+# against N(0, 1) targets, and at 1e-3 its first steps overshoot by
+# orders of magnitude; at 1e-4 its loss falls steadily
+GEO_LR = {"dimenet": 1e-4, "nequip": 1e-3}
+# f32 energies on the card vs the port's CPU forward: |card - cpu| <=
+# 1e-4 * (max|cpu| + |cpu|) (the LM phase's rule)
+GEO_CPU_RTOL = 1e-4
+# energy invariance under a rotation and shift: the reference's own
+# tolerances (tests/test_models_gnn.py, TestNequIP / TestDimeNet)
+INVARIANCE_TOL = {"nequip": dict(rtol=1e-4, atol=1e-7),
+                  "dimenet": dict(rtol=1e-4, atol=1e-6)}
+
+
+def molecule_batches(torch) -> tuple:
+    """(host numpy batch, CPU tensors, card tensors) of the molecule
+    cell with seeded target energies; the card's batch is placed once,
+    so the take and segment plans of its index tensors are built once."""
+    from repro_torch.data.graphs import random_molecules
+
+    mols = random_molecules(GEO_MOLS, GEO_ATOMS, cutoff=GEO_CUTOFF,
+                            seed=SEED)
+    host = {k: v for k, v in mols.items() if k != "n_mols"}
+    host["energy"] = np.random.default_rng(SEED).standard_normal(
+        GEO_MOLS).astype(np.float32)
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    return host, cpu, {k: v.cuda() for k, v in cpu.items()}
+
+
+def zero_leaves(torch, grads) -> list:
+    """Keypaths of the gradient leaves that are all zero."""
+    from repro_torch.tree import flatten_with_path
+    return [path for path, g in flatten_with_path(grads)
+            if not bool(torch.any(g != 0))]
+
+
+def rotated(torch, host, batch, seed) -> dict:
+    """``batch`` with its positions rotated (a seeded rotation) and
+    shifted, on the card; the index tensors are the same objects."""
+    from scipy.stats import special_ortho_group
+
+    rot = special_ortho_group.rvs(3, random_state=seed)
+    shift = np.random.default_rng(seed).standard_normal(3) * 4
+    pos = (host["pos"].astype(np.float64) @ rot.T + shift).astype(
+        np.float32)
+    return dict(batch, pos=torch.from_numpy(pos).cuda())
+
+
+def geometric_model(torch, arch, host, cpu_batch, batch) -> tuple:
+    """One geometric GNN at its full config on the molecule cell: serve
+    (card vs CPU, invariance, times), the first step's gradients (card
+    vs CPU zero leaves, remat bitwise), GEO_STEPS AdamW steps (finite
+    and falling, a bitwise rerun of the first GEO_RERUN, timed and
+    profiled), one step through the EF-compression hook."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.collectives import (
+        compress_with_error_feedback, ef_init)
+    from repro_torch.models import dimenet, nequip
+    from repro_torch.models.common import count_params
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_leaves, tree_map
+
+    problems = []
+    cfg = get_arch(arch).config
+    init = dimenet.dimenet_init if arch == "dimenet" else nequip.nequip_init
+    loss_fn = (steps.energy_loss_dimenet if arch == "dimenet"
+               else steps.energy_loss_nequip)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init(cfg, gen, device="cuda")
+    cpu_params = tree_map(lambda p: p.cpu(), params)
+    serve = steps.make_gnn_serve_step(cfg, n_mols=GEO_MOLS)
+
+    e = serve(params, batch)
+    e_cpu = serve(cpu_params, cpu_batch)
+    err = max_err(e.cpu(), e_cpu)
+    bound = GEO_CPU_RTOL * (e_cpu.abs().max() + e_cpu.abs())
+    if tuple(e.shape) != (GEO_MOLS,) or not bool(torch.isfinite(e).all()):
+        problems.append(f"{arch} serve: shape {tuple(e.shape)} or "
+                        "non-finite energies")
+    if not bool(((e.cpu() - e_cpu).abs() <= bound).all()):
+        problems.append(f"{arch} card vs CPU energies: {err}")
+    e_rot = serve(params, rotated(torch, host, batch, SEED))
+    rot_err = max_err(e_rot, e)
+    if not close(e_rot, e, **INVARIANCE_TOL[arch]):
+        problems.append(f"{arch} energy under rotation and shift: {rot_err}")
+    serve_ms = wall_ms(torch, lambda: serve(params, batch))
+    serve_prof = device_items(torch, lambda: serve(params, batch))
+
+    def vg(p, b, **kw):
+        return steps.value_and_grad(
+            lambda q, c: loss_fn(q, c, cfg, **kw), p, b)
+
+    loss0, g0 = vg(params, batch)
+    loss0_cpu, g0_cpu = vg(cpu_params, cpu_batch)
+    zeros, zeros_cpu = zero_leaves(torch, g0), zero_leaves(torch, g0_cpu)
+    if zeros != zeros_cpu:
+        problems.append(f"{arch} all-zero gradient leaves: card {zeros}, "
+                        f"CPU {zeros_cpu}")
+    loss_r, g_r = vg(params, batch, remat=True)
+    remat_bitwise = bool(torch.equal(loss_r, loss0)) and _bitwise(
+        torch, g_r, g0)
+    if not remat_bitwise:
+        problems.append(f"{arch}: remat=True not bitwise-equal to "
+                        "remat=False")
+    del g0_cpu, g_r
+
+    opt = AdamW(lr=GEO_LR[arch])
+    step = steps.make_gnn_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    p, s = params, opt.init(params)
+    losses, step_ms, after_rerun = [], [], None
+    for i in range(GEO_STEPS):
+        (p, s, m), ms = timed_call(torch, lambda: step(p, s, batch))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+        if i == GEO_RERUN - 1:
+            after_rerun = p
+    peak = peak_gib(torch)
+    prof = device_items(torch, lambda: step(p, s, batch))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"{arch} train: losses {losses}")
+    q, t = params, opt.init(params)
+    for _ in range(GEO_RERUN):
+        q, t, _ = step(q, t, batch)
+    rerun_bitwise = _bitwise(torch, q, after_rerun)
+    if not rerun_bitwise:
+        problems.append(f"{arch}: {GEO_RERUN}-step rerun not bitwise")
+
+    ef = {"state": ef_init(params)}
+
+    def compress(grads):
+        grads, ef["state"] = compress_with_error_feedback(grads, ef["state"])
+        return grads
+
+    _, _, m = steps.make_gnn_train_step(cfg, opt, compress=compress)(
+        params, opt.init(params), batch)
+    ef_loss = float(m["loss"])
+    ef_abs = max(float(r.abs().max()) for r in tree_leaves(
+        ef["state"].residual))
+    if not np.isfinite(ef_loss) or not ef_abs > 0:
+        problems.append(f"{arch} EF step: loss {ef_loss}, max |residual| "
+                        f"{ef_abs}")
+    wall = statistics.median(step_ms[1:])
+    record = dict(
+        arch=arch, params=count_params(params),
+        serve=dict(wall_ms=serve_ms, **serve_prof),
+        err_vs_cpu=err, max_abs_cpu=float(e_cpu.abs().max()),
+        rotation_err=rot_err, loss0_card=float(loss0),
+        loss0_cpu=float(loss0_cpu), zero_grad_leaves=zeros,
+        remat_bitwise=remat_bitwise,
+        train=dict(steps=GEO_STEPS, lr=GEO_LR[arch], losses=losses,
+                   step_ms=step_ms, wall_ms=wall,
+                   molecules_per_s=GEO_MOLS / wall * 1e3,
+                   max_memory_gib=peak, rerun_bitwise=rerun_bitwise,
+                   **prof),
+        ef=dict(loss=ef_loss, max_abs_residual=ef_abs))
+    return problems, record
+
+
+def grouped_grad_check(torch) -> tuple:
+    """A G = 2 stacked cora ``gcn_forward`` on the "cuda" backend under
+    grad: cora's normalized adjacency and its pattern with seeded random
+    values (not symmetric: its backward runs over Aᵀ's own partition),
+    each with its own features and weights. Gates: the grouped forward
+    with grad on has the bits of the no-grad grouped forward and of each
+    member alone; each member's weight gradients have the bits of that
+    member differentiated alone."""
+    import dataclasses
+
+    import scipy.sparse as sp
+
+    from repro_torch.core.formats import (TriPartition, csr_from_scipy,
+                                          csr_to_scipy)
+    from repro_torch.core.hybrid_spmm import gcn_forward
+    from repro_torch.core.partition import (PartitionConfig,
+                                            analyze_and_partition)
+    from repro_torch.data.graphs import make_paper_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import masked_xent
+
+    problems = []
+    csr, x, _, st = make_paper_dataset("cora", seed=SEED)
+    rng = np.random.default_rng(SEED)
+    a = csr_to_scipy(csr)
+    asym = csr_from_scipy(sp.csr_matrix(
+        (rng.random(a.data.shape[0]).astype(np.float32), a.indices,
+         a.indptr), shape=a.shape))
+    members = [analyze_and_partition(c, PartitionConfig(tile=64))[:2]
+               for c in (csr, asym)]
+    meta = members[0][1]
+    if dataclasses.asdict(members[1][1]) != dataclasses.asdict(meta):
+        fail("grouped gradient: the two cora partitions differ in shape")
+    stack = TriPartition(*(type(c)(*(np.stack(leaves)
+                                     for leaves in zip(*comps)))
+                           for c, comps in zip(members[0][0],
+                                               zip(*[p for p, _ in
+                                                     members]))))
+    n = meta.n_rows
+    xs = np.stack([x, (rng.random(x.shape) < 0.05).astype(np.float32)])
+    ws_np = [np.stack([glorot(rng, st.n_features, HIDDEN)
+                       for _ in range(2)]),
+             np.stack([glorot(rng, HIDDEN, st.n_classes)
+                       for _ in range(2)])]
+    ys = torch.from_numpy(rng.integers(0, st.n_classes, (2, n))).cuda()
+    masks = torch.from_numpy(rng.random((2, n)) < 0.6).cuda()
+    kw = dict(meta=meta, backend="cuda", device="cuda")
+
+    ws = [torch.from_numpy(w).cuda().requires_grad_(True) for w in ws_np]
+    c0 = ops.launch_counts()
+    out = gcn_forward(stack, xs, ws, **kw)
+    grads = torch.autograd.grad(
+        sum(masked_xent(out[i], ys[i], masks[i]) for i in range(2)), ws)
+    launches = _diff(c0, ops.launch_counts())
+    with torch.no_grad():
+        grouped = gcn_forward(stack, xs, ws, **kw)
+    forward_bitwise = bool(torch.equal(out.detach(), grouped))
+    member_bitwise = []
+    for i, (part, m) in enumerate(members):
+        alone = [torch.from_numpy(w[i]).cuda().requires_grad_(True)
+                 for w in ws_np]
+        logits = gcn_forward(part, xs[i], alone, meta=m, backend="cuda",
+                             device="cuda")
+        g = torch.autograd.grad(masked_xent(logits, ys[i], masks[i]), alone)
+        member_bitwise.append(
+            bool(torch.equal(logits.detach(), grouped[i]))
+            and all(bool(torch.equal(a, b[i])) for a, b in zip(g, grads)))
+    if not forward_bitwise or not all(member_bitwise):
+        problems.append(f"grouped gradient: forward bitwise "
+                        f"{forward_bitwise}, members bitwise "
+                        f"{member_bitwise}")
+    if not any(launches.values()):
+        problems.append("grouped gradient: no kernel launched")
+    return problems, dict(graph="cora x 2 (normalized; random values)",
+                          forward_bitwise=forward_bitwise,
+                          members_bitwise=member_bitwise,
+                          launches=launches)
+
+
+def geometric_phase(torch, smi: str) -> tuple:
+    """DimeNet and NequIP at their full configs on the molecule cell,
+    then the grouped GCN gradient on the card."""
+    t0 = time.perf_counter()
+    host, cpu_batch, batch = molecule_batches(torch)
+    problems, models = [], []
+    for arch in ("dimenet", "nequip"):
+        p, rec = geometric_model(torch, arch, host, cpu_batch, batch)
+        problems += p
+        models.append(rec)
+        torch.cuda.empty_cache()
+    p, grouped = grouped_grad_check(torch)
+    problems += p
+    record = dict(
+        gpu=smi, cell="molecule", molecules=GEO_MOLS,
+        atoms_per_molecule=GEO_ATOMS, cutoff=GEO_CUTOFF,
+        edges=int(host["edge_src"].shape[0]),
+        triplets=int(host["trip_kj"].shape[0]), models=models,
+        grouped_grad=grouped,
+        reduced=[f"molecule cell: {GEO_MOLS} molecules (batch)"],
+        phase_s=time.perf_counter() - t0)
+    return problems, record
+
+
 # --------------------------------------------------------- kernel phase ----
 def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
@@ -2992,6 +3278,18 @@ def main() -> None:
           f"{fm['serve']['wall_ms']:.3f} ms, retrieval "
           f"{fm['retrieval']['wall_ms']:.2f} ms; phase {fm['phase_s']:.1f} s")
 
+    geo_problems, geo = geometric_phase(torch, smi)
+    problems += geo_problems
+    for rec in geo["models"]:
+        print(f"geometric: {rec['arch']} serve {rec['serve']['wall_ms']:.2f}"
+              f" ms (device {rec['serve']['device_ms']:.3f}), train step "
+              f"{rec['train']['wall_ms']:.2f} ms (device "
+              f"{rec['train']['device_ms']:.3f}), losses "
+              f"{rec['train']['losses'][0]:.4f} -> "
+              f"{rec['train']['losses'][-1]:.4f}")
+    print(f"geometric: grouped gradient {geo['grouped_grad']}; phase "
+          f"{geo['phase_s']:.1f} s")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -3035,6 +3333,7 @@ def main() -> None:
     print(json.dumps({"train": train}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"fm": fm}))
+    print(json.dumps({"geometric": geo}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -40,8 +40,9 @@ def tree_from_numpy(tree, device="cuda"):
     ``device`` with the leaf's dtype; dicts, lists and tuples kept, and
     the reference's ``AdamWState``/``SGDState`` (read by type name and
     field) rebuilt as the port's. ``gcn_init``'s ``{"w": [...]}``, the
-    GatedGCN and MeshGraphNet dicts and the optimizer states all carry
-    over."""
+    GatedGCN and MeshGraphNet dicts, the ``dimenet_init`` and
+    ``nequip_init`` trees (dicts, lists of blocks and layers, ``(w, b)``
+    MLP tuples) and the optimizer states all carry over."""
     dev = resolve_device(device)
     states = {"AdamWState": optimizer.AdamWState,
               "SGDState": optimizer.SGDState}

@@ -100,6 +100,11 @@ def grouping_density(nnz_rows: Sequence[int], groups: Sequence[Group]) -> float:
     return 1.0 if padded == 0 else real / padded
 
 
+def padded_ops(nnz_rows: Sequence[int], groups: Sequence[Group]) -> int:
+    """Number of MACs actually executed after padding (cost-model input)."""
+    return sum(g.padded_nnz for g in groups)
+
+
 def groups_cover_exactly(groups: Sequence[Group], rows: int) -> bool:
     """Invariant check: groups tile [0, rows) exactly once, in order."""
     pos = 0

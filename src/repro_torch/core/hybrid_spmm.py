@@ -38,8 +38,9 @@ partition and plan where A is symmetric), on the same backend and ELL
 dispatch. On the ``cuda`` backend the backward therefore runs the hand
 kernels, and every sum in it follows a ``ReductionPlan``: no atomics,
 so a training step repeats bit for bit. A grouped partition (G > 1)
-has no backward and raises ``NotImplementedError`` when a gradient is
-required.
+runs each member through ``HybridSpmmFn`` with its own plan when a
+gradient is required, and stacks the results: each member's result and
+gradient have the bits of that member run alone.
 """
 from __future__ import annotations
 
@@ -171,6 +172,13 @@ def _stacked(part: TriPartition) -> bool:
     return part.dense.tiles.ndim == 4
 
 
+def _member(part: TriPartition, g: int, axis: bool = False) -> TriPartition:
+    """Member ``g`` of a grouped partition: unstacked, or with a group
+    axis of 1 (``axis``)."""
+    at = slice(g, g + 1) if axis else g
+    return TriPartition(*(type(c)(*(a[at] for a in c)) for c in part))
+
+
 class _Adjoint:
     """Aᵀ's tri-partition for the backward, placed on the device of the
     first backward with a group axis of 1, and its reduction plan (one
@@ -209,9 +217,14 @@ class AdjointCache:
         self.builds = 0
         self.build_s = 0.0
 
-    def get(self, part: TriPartition, meta: PartitionMeta) -> _Adjoint:
+    def get(self, part: TriPartition, meta: PartitionMeta,
+            member: int = None) -> _Adjoint:
+        """Aᵀ of ``part``, or of its member ``member`` where ``part`` is
+        grouped (keyed on the grouped leaves)."""
         leaves = tuple(a for comp in part for a in comp)
-        return self._cache.get(leaves, meta, lambda: self._build(part, meta))
+        one = part if member is None else _member(part, member)
+        return self._cache.get(leaves, (meta, member),
+                               lambda: self._build(one, meta))
 
     def _build(self, part, meta) -> _Adjoint:
         t0 = time.perf_counter()
@@ -229,14 +242,26 @@ class AdjointCache:
 
 ADJOINTS = AdjointCache()
 
+# the reduction plan of each member of a grouped partition that a
+# gradient goes through, keyed on the caller's grouped leaves
+MEMBER_PLANS = IdentityCache()
+
+
+def _member_plan(source: TriPartition, meta: PartitionMeta, g: int, dev):
+    leaves = tuple(a for comp in source for a in comp)
+    return MEMBER_PLANS.get(leaves, (meta, g, str(dev)),
+                            lambda: reduction_plan(_member(source, g), meta,
+                                                   device=dev))
+
 
 class HybridSpmmFn(torch.autograd.Function):
     """``Y = A·B`` through the tri-engine executor, differentiable in B.
 
     Forward: the executor (``_hybrid``) with grad off. Backward:
     ``dB = Aᵀ·dY`` through ``_hybrid`` over Aᵀ's partition (``ADJOINTS``,
-    keyed on ``source``, the caller's unstacked partition), on the same
-    backend, ELL dispatch and launch tuning: on ``cuda`` the dense and
+    keyed on ``source``, the caller's unstacked partition, or its member
+    ``member`` where ``source`` is grouped), on the same backend, ELL
+    dispatch and launch tuning: on ``cuda`` the dense and
     ELL row kernels, their sums by plan. dY has the forward's width, so
     a per-width tuning table (``tune_at``) gives the backward's launches
     the forward's config. A, its leaves, the meta and the plan get no
@@ -244,9 +269,10 @@ class HybridSpmmFn(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, b, source, part, meta, plan, backend, ell_dispatch,
-                ell_tune):
-        ctx.source, ctx.meta, ctx.part, ctx.plan = source, meta, part, plan
+    def forward(ctx, b, source, member, part, meta, plan, backend,
+                ell_dispatch, ell_tune):
+        ctx.source, ctx.member = source, member
+        ctx.meta, ctx.part, ctx.plan = meta, part, plan
         ctx.cfg = (backend, ell_dispatch, ell_tune)
         ctx.b_rows = b.shape[-2]
         return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
@@ -254,7 +280,7 @@ class HybridSpmmFn(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
-        adj = ADJOINTS.get(ctx.source, ctx.meta)
+        adj = ADJOINTS.get(ctx.source, ctx.meta, ctx.member)
         if adj.symmetric:
             part_t, plan_t = ctx.part, ctx.plan
         else:
@@ -265,22 +291,25 @@ class HybridSpmmFn(torch.autograd.Function):
             db = db[:, :n]
         else:   # B rows past A's columns meet no entry of A
             db = torch.nn.functional.pad(db, (0, 0, 0, n - db.shape[-2]))
-        return (db,) + (None,) * 7
+        return (db,) + (None,) * 8
 
 
 def _product(source, part, b, meta, plan, backend, ell_dispatch,
              ell_tune=None):
     """``_hybrid`` through ``HybridSpmmFn`` when B needs a gradient;
-    ``source`` is the caller's partition (None: a grouped call, which
-    has no backward)."""
+    ``source`` is the caller's partition. A grouped one runs each
+    member alone (its own group axis of 1 and plan) and stacks the
+    results: the bits of each member's own call."""
     if not (torch.is_grad_enabled() and b.requires_grad):
         return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
-    if source is None:
-        raise NotImplementedError(
-            "hybrid_spmm: no backward for a grouped partition (G > 1); "
-            "differentiate one unstacked partition at a time")
-    return HybridSpmmFn.apply(b, source, part, meta, plan, backend,
-                              ell_dispatch, ell_tune)
+    if not _stacked(source):
+        return HybridSpmmFn.apply(b, source, None, part, meta, plan, backend,
+                                  ell_dispatch, ell_tune)
+    return torch.stack([
+        HybridSpmmFn.apply(b[g:g + 1], source, g, _member(part, g, True),
+                           meta, _member_plan(source, meta, g, b.device),
+                           backend, ell_dispatch, ell_tune)[0]
+        for g in range(b.shape[0])])
 
 
 def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
@@ -296,7 +325,7 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
     outputs are bitwise-equal to the defaults.
     """
     dev = resolve_device(device)
-    source = None if _stacked(part) else part
+    source = part
     part, b, plan, squeeze = _grouped(part, b, plan, meta, dev)
     y = _product(source, part, b, meta, plan, backend, ell_dispatch,
                  ell_tune)
@@ -381,7 +410,7 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
     ``ell_tune`` as for ``hybrid_spmm``.
     """
     dev = resolve_device(device)
-    source = None if _stacked(part) else part
+    source = part
     part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
     w = torch.as_tensor(w, dtype=torch.float32).to(dev)
     y = _layer(source, part, x, w if w.dim() == 3 else w[None], meta, plan,
@@ -401,12 +430,13 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     layer, and each member's logits are bitwise-equal to its own G = 1
     forward. ``ell_tune`` as for ``hybrid_spmm``.
 
-    Differentiable in ``x`` and ``weights`` for one unstacked partition
-    (``HybridSpmmFn``): the reference's ``jax.value_and_grad`` of this
-    forward. X·W's gradients are ``torch.matmul``'s own.
+    Differentiable in ``x`` and ``weights`` (``HybridSpmmFn``): the
+    reference's ``jax.value_and_grad`` of this forward; a group's
+    members one by one, each with the bits of its own G = 1 call. X·W's
+    gradients are ``torch.matmul``'s own.
     """
     dev = resolve_device(device)
-    source = None if _stacked(part) else part
+    source = part
     part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
     for i, w in enumerate(weights):
         w = torch.as_tensor(w, dtype=torch.float32).to(dev)

@@ -211,6 +211,14 @@ def analyze_and_partition(a: CSRMatrix, cfg: PartitionConfig = PartitionConfig()
 
         for g in groups:
             if g.k == 0:
+                # FIND_NNZ gave every row of the group width 0 (a low p
+                # can): all their entries take the scattered path, as an
+                # ELL overflow does. The reference skips them and loses
+                # them; where a group has none, both agree.
+                lost = (brow_o >= g.start) & (brow_o < g.stop)
+                coo_rows.append(band * T + brow_o[lost])
+                coo_cols.append(btile_o[lost] * T + bloc_o[lost])
+                coo_vals.append(bval_o[lost])
                 continue
             K = int(g.k)
             for c0 in range(g.start, g.stop, cfg.r_block):

@@ -1,8 +1,8 @@
 """Synthetic graph generation matching the paper's dataset statistics.
 
-Port of the graph part of ``repro.data.graphs`` (the paper graphs and
-``random_edge_list``; ``random_molecules`` waits for DimeNet): the same
-generator, so the same seed gives the same CSR as the reference.
+Port of ``repro.data.graphs`` (the paper graphs, ``random_edge_list``
+and ``random_molecules``): the same generators, so the same seed gives
+the same arrays as the reference.
 
 The real datasets are not shipped, so Cora/Citeseer/... are synthesized
 as stochastic block-model graphs with the same (n_vertices, density,
@@ -130,3 +130,29 @@ def random_edge_list(n_nodes: int, n_edges: int, seed: int = 0,
     a = sbm_graph(n_nodes, n_edges, seed=seed,
                   n_communities=n_communities).tocoo()
     return a.col.astype(np.int32), a.row.astype(np.int32)
+
+
+def random_molecules(n_mols: int, atoms_per_mol: int, *, cutoff: float = 3.0,
+                     seed: int = 0):
+    """Batched random molecules: returns dict of numpy arrays with edges
+    within cutoff (per molecule) and the (kj, ji) triplet lists."""
+    from repro_torch.models.dimenet import build_triplets
+
+    rng = np.random.default_rng(seed)
+    n = n_mols * atoms_per_mol
+    z = rng.integers(1, 10, n).astype(np.int32)
+    pos = (rng.standard_normal((n, 3)) * 1.6).astype(np.float32)
+    src, dst = [], []
+    for m in range(n_mols):
+        o = m * atoms_per_mol
+        p = pos[o:o + atoms_per_mol]
+        dist = np.linalg.norm(p[:, None] - p[None, :], axis=-1)
+        ii, jj = np.nonzero((dist < cutoff) & (dist > 0))
+        src.extend((jj + o).tolist())
+        dst.extend((ii + o).tolist())
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    kj, ji = build_triplets(src, dst)
+    return dict(z=z, pos=pos, edge_src=src, edge_dst=dst, trip_kj=kj,
+                trip_ji=ji, mol_id=(np.arange(n) // atoms_per_mol).astype(
+                    np.int32), n_mols=n_mols)

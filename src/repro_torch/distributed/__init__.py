@@ -1,3 +1,3 @@
 """Distributed training (port of ``repro.distributed``): so far the
-fault-tolerant runner."""
-from . import fault_tolerance  # noqa: F401
+fault-tolerant runner and error-feedback gradient compression."""
+from . import collectives, fault_tolerance  # noqa: F401

@@ -20,7 +20,9 @@ loss and train step take ``compute_dtype`` (default bf16, the
 reference's fixed choice; None runs f32). Prefill, decode and the FM
 serve steps record no gradient.
 
-DimeNet and NequIP wait until their models are ported.
+DimeNet and NequIP train on the mean squared error of per-molecule
+energies (``energy_loss_dimenet`` / ``energy_loss_nequip``); their serve
+step returns the energies.
 """
 from __future__ import annotations
 
@@ -33,17 +35,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (GNNConfig, RecsysConfig,
                                       TransformerConfig)
 from repro_torch.core.hybrid_spmm import gcn_forward as hybrid_gcn_forward
+from repro_torch.models import dimenet as dimenet_m
 from repro_torch.models import fm as fm_m
 from repro_torch.models import gnn as gnn_m
+from repro_torch.models import nequip as nequip_m
 from repro_torch.models import transformer as tfm
 
 from repro_torch.tree import tree_leaves, tree_unflatten
-
-UNPORTED = ("dimenet", "nequip")
-
-
-def _unported(kind: str):
-    raise NotImplementedError(f"{kind!r} is not ported to repro_torch yet")
 
 
 # ------------------------------------------------------------- LM ----------
@@ -150,8 +148,6 @@ def gnn_apply(params, graph, cfg: GNNConfig, constrain=None, gops=None,
         return gnn_m.meshgraphnet_forward(params, graph, cfg,
                                           constrain=constrain, gops=gops,
                                           remat=remat)
-    if cfg.kind in UNPORTED:
-        _unported(cfg.kind)
     raise ValueError(cfg.kind)
 
 
@@ -206,21 +202,57 @@ def _train_step(loss_fn, optimizer, compress=None):
     return train_step
 
 
+def _molecules(batch, n_mols: int):
+    return dimenet_m.MoleculeBatch(
+        **{k: batch[k] for k in dimenet_m.MoleculeBatch._fields
+           if k != "n_mols"}, n_mols=n_mols)
+
+
+def _atom_graph(batch, n_mols: int):
+    return nequip_m.AtomGraph(
+        **{k: batch[k] for k in nequip_m.AtomGraph._fields
+           if k != "n_mols"}, n_mols=n_mols)
+
+
+def energy_loss_dimenet(params, batch, cfg: GNNConfig, constrain=None,
+                        gops=None, remat=False):
+    """Mean squared error of DimeNet's per-molecule energies against
+    ``batch["energy"]``, whose length is the number of molecules."""
+    e = dimenet_m.dimenet_forward(
+        params, _molecules(batch, batch["energy"].shape[0]), cfg,
+        constrain=constrain, gops=gops, remat=remat)
+    return torch.mean(torch.square(e - batch["energy"]))
+
+
+def energy_loss_nequip(params, batch, cfg: GNNConfig, constrain=None,
+                       gops=None, remat=False):
+    """As ``energy_loss_dimenet``, for NequIP."""
+    e = nequip_m.nequip_forward(
+        params, _atom_graph(batch, batch["energy"].shape[0]), cfg,
+        constrain=constrain, gops=gops, remat=remat)
+    return torch.mean(torch.square(e - batch["energy"]))
+
+
 def make_gnn_train_step(cfg: GNNConfig, optimizer, compress=None,
                         constrain=None, gops=None, remat=False):
-    if cfg.kind in UNPORTED:
-        _unported(cfg.kind)
-    loss_fn = functools.partial(gnn_node_loss, cfg=cfg, constrain=constrain,
+    loss = {"dimenet": energy_loss_dimenet,
+            "nequip": energy_loss_nequip}.get(cfg.kind, gnn_node_loss)
+    loss_fn = functools.partial(loss, cfg=cfg, constrain=constrain,
                                 gops=gops, remat=remat)
     return _train_step(loss_fn, optimizer, compress)
 
 
 def make_gnn_serve_step(cfg: GNNConfig, n_mols: int = 1):
-    if cfg.kind in UNPORTED:
-        _unported(cfg.kind)
-
+    """``serve_step(params, batch)``: node outputs, or for DimeNet and
+    NequIP the energies of ``n_mols`` molecules."""
     @torch.no_grad()
     def serve_step(params, batch):
+        if cfg.kind == "dimenet":
+            return dimenet_m.dimenet_forward(params,
+                                             _molecules(batch, n_mols), cfg)
+        if cfg.kind == "nequip":
+            return nequip_m.nequip_forward(params,
+                                           _atom_graph(batch, n_mols), cfg)
         graph = gnn_m.Graph(batch["senders"], batch["receivers"],
                             batch["node_feat"], batch.get("edge_feat"))
         return gnn_apply(params, graph, cfg)

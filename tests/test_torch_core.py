@@ -113,6 +113,42 @@ def test_reorder_equal(strategy):
     assert rc.bandwidth(c1) == tc.bandwidth(c2)
 
 
+@pytest.mark.parametrize("nnz,tau", [([5] * 100, 0.5),
+                                     ([2] * 50 + [40] * 50, 0.5),
+                                     ([1, 1, 1, 30, 30, 30], 0.3),
+                                     ([0, 0, 3, 0, 7, 7, 1], 1.0)])
+def test_padded_ops_equal(nnz, tau):
+    g1, g2 = rc.group_rows(nnz, tau=tau), tc.group_rows(nnz, tau=tau)
+    got = tc.grouping.padded_ops(nnz, g2)
+    assert got == rc.grouping.padded_ops(nnz, g1)
+    assert got == sum(g.n_rows * g.k for g in g2) >= sum(nnz)
+
+
+def test_width_zero_group_entries_go_to_coo():
+    """FIND_NNZ at p = 0.5 gives a skewed row width 0, so a group has
+    k = 0. The reference skips such a group and loses its entries
+    (A[191, 117] here); the port sends them to the COO residual, so its
+    partition differs from the reference's by exactly those entries and
+    covers A exactly."""
+    a = make_heterogeneous_matrix(300, seed=0)
+    cfg = dict(tile=64, delta=2.0, p=0.5, tau=0.8)
+    ref_part, ref_meta, _ = rc.analyze_and_partition(
+        rc.csr_from_dense(a), rc.PartitionConfig(**cfg))
+    part, meta, reports = tc.analyze_and_partition(
+        tc.csr_from_dense(a), tc.PartitionConfig(**cfg))
+    assert any(g.k == 0 for r in reports for g in r.groups)
+    np.testing.assert_array_equal(tc.partition_to_dense(part, meta), a)
+    lost = a - np.asarray(rc.partition_to_dense(ref_part, ref_meta))
+    assert list(zip(*np.nonzero(lost))) == [(191, 117)]
+    # the dense tiles and the ELL are the reference's; the COO gains the
+    # lost entry
+    assert_parts_equal(ref_part[:2], part[:2])
+    assert meta.nnz_coo == ref_meta.nnz_coo + 1
+    coo = set(zip(part.coo.rows.tolist(), part.coo.cols.tolist()))
+    assert coo == set(zip(ref_part.coo.rows.tolist(),
+                          ref_part.coo.cols.tolist())) | {(191, 117)}
+
+
 def test_paper_dataset_csr_equal():
     for name in ("cora", "pubmed"):
         a1, _, y1, st1 = rg.make_paper_dataset(name, scale=0.05)

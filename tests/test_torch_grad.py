@@ -275,19 +275,59 @@ def test_member_matmul_same_bits_with_grad_on_and_off():
         assert torch.equal(on.detach(), off)
 
 
-def test_grouped_partition_raises_when_a_gradient_is_required():
-    g = graph("hetero_asym")
-    stacked = tc.TriPartition(*(type(c)(*(np.stack([a, a]) for a in c))
-                                for c in g["part"]))
-    x = np.stack([g["x"], g["x"]])
-    ws = [torch.tensor(w, requires_grad=True) for w in g["ws"]]
-    with pytest.raises(NotImplementedError):
-        hs.gcn_forward(stacked, x, ws, meta=g["meta"], backend="torch",
-                       device="cpu")
-    with torch.no_grad():        # no gradient: the grouped forward runs
-        out = hs.gcn_forward(stacked, x, ws, meta=g["meta"],
-                             backend="torch", device="cpu")
-    assert out.shape[0] == 2
+def _grouped_members():
+    """Two asymmetric graphs padded to one shape class, stacked."""
+    from repro_torch.engine.shape_class import ClassRegistry, pad_to_class
+    reg, padded = ClassRegistry(), []
+    for i in range(2):
+        a = make_heterogeneous_matrix(300 + 4 * i, seed=i)
+        part, meta, _ = tc.analyze_and_partition(tc.csr_from_dense(a),
+                                                 tc.PartitionConfig(tile=64))
+        padded.append(pad_to_class(part, meta, reg.classify(part, meta)))
+    meta = padded[0][1]
+    stack = tc.TriPartition(*(type(c)(*(np.stack(leaves)
+                                        for leaves in zip(*comps)))
+                              for c, comps in zip(padded[0][0],
+                                                  zip(*[p for p, _ in
+                                                        padded]))))
+    return padded, stack, meta
+
+
+@pytest.mark.parametrize("backend", hs.BACKENDS)
+def test_grouped_gradient_has_each_members_bits(backend):
+    """Under grad a grouped partition (G = 2) runs each member through
+    ``HybridSpmmFn`` alone: the forward keeps the grouped forward's
+    bits, and each member's weight gradients (over its own Aᵀ) have the
+    bits of that member differentiated at G = 1."""
+    padded, stack, meta = _grouped_members()
+    assert not any(is_symmetric(p, m) for p, m in padded)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, meta.n_rows, 12)).astype(np.float32)
+    ws_np = [(rng.standard_normal((2, 12, HIDDEN)) * 0.1).astype(np.float32),
+             (rng.standard_normal((2, HIDDEN, 5)) * 0.1).astype(np.float32)]
+    y = rng.integers(0, 5, (2, meta.n_rows))
+    mask = rng.random((2, meta.n_rows)) < 0.6
+
+    def loss_of(logits, i):
+        return masked_xent(logits, torch.as_tensor(y[i]),
+                           torch.as_tensor(mask[i]))
+
+    ws = [torch.tensor(w, requires_grad=True) for w in ws_np]
+    out = hs.gcn_forward(stack, x, ws, meta=meta, backend=backend,
+                         device="cpu")
+    with torch.no_grad():
+        grouped = hs.gcn_forward(stack, x, ws, meta=meta, backend=backend,
+                                 device="cpu")
+    assert out.grad_fn is not None and torch.equal(out.detach(), grouped)
+    sum(loss_of(out[i], i) for i in range(2)).backward()
+    for i, (p, m) in enumerate(padded):
+        alone = [torch.tensor(w[i], requires_grad=True) for w in ws_np]
+        logits = hs.gcn_forward(p, x[i], alone, meta=m, backend=backend,
+                                device="cpu")
+        assert torch.equal(logits.detach(), grouped[i])
+        loss_of(logits, i).backward()
+        for w, a in zip(ws, alone):
+            assert torch.equal(w.grad[i], a.grad)
 
 
 def test_hand_kernel_share_of_the_gradient_is_kept(monkeypatch):

@@ -72,6 +72,10 @@ def test_port_files_found():
             "src/repro_torch/data/tokens.py",
             "src/repro_torch/data/recsys.py",
             "src/repro_torch/examples/train_lm.py"} <= names
+    assert {"src/repro_torch/models/so3.py",
+            "src/repro_torch/models/dimenet.py",
+            "src/repro_torch/models/nequip.py",
+            "src/repro_torch/distributed/collectives.py"} <= names
     assert len(names) >= 20
 
 
