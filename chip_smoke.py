@@ -133,7 +133,28 @@ repository's ``src/`` next to this file. It
      alone. Reports serve and train step wall and device ms, busy share,
      molecules/s and peak memory; prints one ``{"geometric": ...}``
      line;
- 16. holds each of the four kernels against its plain PyTorch version at
+ 16. the sharded layer (``repro_torch.{launch.mesh, distributed.{halo,
+     sharding}, models.moe_ep}``; no hand kernel on this path) over an
+     NCCL process group of one rank (a file store in a temporary
+     directory) and its (1, 1) (data, model) mesh: gatedgcn at its full
+     config (16 layers, d 70, 40 classes) on the full_graph_sm cell
+     (cora's 2708 nodes and 12760 CSR entries as edges, seeded edge
+     features of width 4) trains 20 AdamW steps through the halo ops
+     with remat; gates: loss and parameters ``torch.equal`` to the
+     unsharded step after every step, a 3-step rerun bitwise, losses
+     falling; a profile of one step (launches, NCCL kernels, the
+     exchange's share of device time). qwen3-moe-235b-a22b's
+     expert-parallel layer at full width (128 experts on the one rank)
+     on 4096 tokens: at f32 with capacity factor 16 (no drop)
+     ``moe_ffn_ep`` equals ``moe_ffn``; at bf16 and the config's 1.25
+     its values and gradients equal ``moe_ffn``'s and both are timed; a
+     2-layer forward, prefill and decode step with
+     ``moe_shardings={"ep_mesh": ...}`` equal the calls without it. Then, on the CPU and labelled so, 4 gloo ranks
+     on a (2, 2) mesh train gatedgcn's SMOKE config on an RCM-reordered
+     SBM graph that keeps the halo contract, within 1e-5 of the
+     single-rank step after 3 steps; cora's out-of-halo fractions at 4
+     and 8 shards are printed. One ``{"sharded": ...}`` line;
+ 17. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -146,7 +167,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 17. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 18. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
      class, and each kernel's launches and device ms in the training
      backward) and, last, the ``{"ok": true, "device": ...}`` line.
@@ -794,7 +815,8 @@ def profile_calls(torch, fn, calls: int = 5, cpu: bool = True,
     measurement and is taken again, up to ``launch_pass.PROFILE_TRIES``
     traces; the last is returned whatever it holds. ``cpu=False`` traces
     the device alone (for calls of tens of thousands of kernels);
-    ``detail`` adds every kernel's device ms per call (``per_kernel``)."""
+    ``detail`` adds every kernel's device ms and launches per call
+    (``per_kernel``, ``per_kernel_calls``)."""
     from repro_torch.analysis.static.launch_pass import PROFILE_TRIES
 
     for _ in range(PROFILE_TRIES):
@@ -828,7 +850,7 @@ def _profile_calls_once(torch, fn, calls: int, cpu: bool = True,
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
             prof.step()
-    per_kernel, launches = {}, 0
+    per_kernel, per_calls, launches = {}, {}, 0
     by_name = dict.fromkeys(PROFILE_NAMES, 0)
     for e in traced[-1]:
         # the step's own annotation spans the step on the device too
@@ -837,6 +859,7 @@ def _profile_calls_once(torch, fn, calls: int, cpu: bool = True,
             launches += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
+            per_calls[e.name] = per_calls.get(e.name, 0) + 1
             for key, pattern in PROFILE_NAMES.items():
                 by_name[key] += pattern in e.name.lower()
     busy_us = sum(per_kernel.values())
@@ -848,6 +871,7 @@ def _profile_calls_once(torch, fn, calls: int, cpu: bool = True,
                top=[[k[:60], v / calls / 1e3] for k, v in top])
     if detail:
         out["per_kernel"] = {k: v / calls / 1e3 for k, v in per_kernel.items()}
+        out["per_kernel_calls"] = {k: v / calls for k, v in per_calls.items()}
     return out
 
 
@@ -2642,6 +2666,402 @@ def geometric_phase(torch, smi: str) -> tuple:
     return problems, record
 
 
+# ---------------------------------------------------------- sharded layer --
+# the sharded layer (repro_torch.{launch.mesh, distributed.{sharding,halo},
+# models.moe_ep}) over one NCCL rank on a (1, 1) (data, model) mesh.
+# Path A: the reference's distributed GNN cell, gatedgcn at its full
+# CONFIG on full_graph_sm, halo ops + remat, AdamW at the cell's 1e-3.
+# The graph is the port's make_paper_dataset("cora"): its 12760 CSR
+# entries (the cell names 10556 edges) are the edges, in row order
+# (receiver = row, sender = column).
+SHARD_STEPS, SHARD_RERUN, SHARD_LR = 20, 3, 1e-3
+EDGE_FEAT = 4                       # the reference cell's edge width
+# Path B: qwen3-moe-235b-a22b's expert-parallel MoE layer at full width
+# (d 4096, 128 experts, d_ff 1536, top-8) on train_4k's 4096 tokens; at
+# f32 with capacity factor E / k = 16 nothing drops; times in bf16 at
+# the config's 1.25; then 2 layers (depth cut from 94) of the forward
+MOE_ARCH, MOE_TOKENS, MOE_LAYERS, MOE_TIMED = ("qwen3-moe-235b-a22b", 4096,
+                                               2, 5)
+# the CPU check: 4 gloo ranks on a (2, 2) mesh, gatedgcn's SMOKE config,
+# on a graph that keeps the halo contract at 4 and 8 shards (an SBM with
+# every edge inside one of 16 communities, RCM-reordered), against the
+# single-rank step within GLOO_TOL after GLOO_STEPS AdamW steps
+GLOO_RANKS, GLOO_SHAPE, GLOO_STEPS, GLOO_FEAT = 4, (2, 2), 3, 8
+GLOO_TOL = dict(rtol=1e-5, atol=1e-6)
+GLOO_TIMEOUT_S = 300.0
+
+
+def _edges(csr) -> tuple:
+    """(senders, receivers) of a CSR in row order."""
+    rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+    return csr.indices.astype(np.int64), rows.astype(np.int64)
+
+
+def halo_fractions(csr) -> dict:
+    """The share of senders outside the +-1-shard halo of their edge's
+    position (``validate_locality``) at 4 and 8 shards, unreordered and
+    RCM-reordered: a finding, not a gate."""
+    from repro_torch.core.reorder import reorder
+    from repro_torch.distributed.halo import validate_locality
+
+    out = {}
+    for name, a in (("natural", csr), ("rcm", reorder(csr, "rcm")[0])):
+        s, _ = _edges(a)
+        n, e = a.shape[0], s.shape[0]
+        pos = np.arange(e) * n // e
+        out[name] = {k: validate_locality(s, pos, n, k) for k in (4, 8)}
+    return out
+
+
+def gnn_batch(csr, x, labels, seed) -> dict:
+    """A full-graph batch (numpy): the CSR's edges, seeded edge features
+    of the cell's width, every node labelled."""
+    s, r = _edges(csr)
+    rng = np.random.default_rng(seed)
+    return {"senders": s, "receivers": r, "node_feat": x,
+            "edge_feat": rng.standard_normal(
+                (s.shape[0], EDGE_FEAT)).astype(np.float32),
+            "labels": labels.astype(np.int64),
+            "node_mask": np.ones(x.shape[0], np.float32)}
+
+
+def gatedgcn_path(torch, mesh, smi: str, dev="cuda") -> tuple:
+    """Path A: the halo-sharded step against the unsharded one, step for
+    step (loss and parameters ``torch.equal``), a bitwise rerun, losses
+    falling; times, a profile of one step (launches, NCCL kernels, the
+    exchange's device share) and the exchanges per step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import make_paper_dataset
+    from repro_torch.distributed.halo import make_halo_ops
+    from repro_torch.distributed.sharding import graph_batch_specs, shard_tree
+    from repro_torch.launch.mesh import all_axes
+    from repro_torch.models.gnn import gatedgcn_init
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+
+    problems = []
+    cfg = get_arch("gatedgcn").config
+    csr, x, y, _ = make_paper_dataset("cora", scale=1.0, seed=SEED)
+    host = gnn_batch(csr, x, y, SEED)
+    full = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    local = shard_tree(full, graph_batch_specs(mesh, full), mesh)
+    gops = make_halo_ops(mesh, all_axes(mesh))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = gatedgcn_init(cfg, x.shape[1], EDGE_FEAT, gen, device=dev)
+    opt = AdamW(lr=SHARD_LR)
+    sharded = steps.make_gnn_train_step(cfg, opt, gops=gops, remat=True)
+    plain = steps.make_gnn_train_step(cfg, opt, remat=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    p, s = params, opt.init(params)
+    q, t = params, opt.init(params)
+    losses, step_ms, mismatch, after_rerun = [], [], [], None
+    for i in range(SHARD_STEPS):
+        calls = gops.exchange.calls
+        (p, s, m), ms = timed_call(torch, lambda: sharded(p, s, local))
+        exchanges = gops.exchange.calls - calls
+        q, t, m_plain = plain(q, t, full)
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+        if not (torch.equal(m["loss"], m_plain["loss"])
+                and _bitwise(torch, p, q)):
+            mismatch.append(i)
+        if i == SHARD_RERUN - 1:
+            after_rerun = p
+    peak = peak_gib(torch)
+    if mismatch:
+        problems.append(f"gatedgcn halo step != unsharded step at steps "
+                        f"{mismatch}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"gatedgcn halo step losses: {losses}")
+    r, u = params, opt.init(params)
+    for _ in range(SHARD_RERUN):
+        r, u, _ = sharded(r, u, local)
+    rerun_bitwise = _bitwise(torch, r, after_rerun)
+    if not rerun_bitwise:
+        problems.append(f"gatedgcn halo step: {SHARD_RERUN}-step rerun not "
+                        "bitwise")
+    prof = profile_calls(torch, lambda: sharded(p, s, local), calls=1,
+                         cpu=False, detail=True)
+    per, counts = prof.pop("per_kernel"), prof.pop("per_kernel_calls")
+    nccl = {k[:80]: dict(ms=v, launches=counts[k])
+            for k, v in per.items() if "nccl" in k.lower()}
+    halo_ms = sum(v for k, v in per.items()
+                  if "nccl" in k.lower() and "sendrecv" in k.lower())
+    wall = statistics.median(step_ms[1:])
+    record = dict(
+        gpu=smi, arch="gatedgcn", cell="full_graph_sm", graph="cora",
+        nodes=int(x.shape[0]), edges=int(host["senders"].shape[0]),
+        d_feat=int(x.shape[1]), edge_feat=EDGE_FEAT, layers=cfg.n_layers,
+        d_hidden=cfg.d_hidden, classes=cfg.n_classes, mesh=[1, 1],
+        steps=SHARD_STEPS, lr=SHARD_LR, losses=losses, step_ms=step_ms,
+        wall_ms=wall, exchanges_per_step=exchanges,
+        equal_to_unsharded=not mismatch, rerun_bitwise=rerun_bitwise,
+        max_memory_gib=peak, device_ms=prof["device_ms_per_infer"],
+        kernels=prof["kernels_per_infer"], busy_share=prof["busy_share"],
+        nccl=nccl, halo_exchange_ms=halo_ms,
+        halo_exchange_share=halo_ms / prof["device_ms_per_infer"],
+        top=prof["top"])
+    return problems, record
+
+
+def moe_path(torch, mesh, smi: str, dev="cuda") -> tuple:
+    """Path B: ``moe_ffn_ep`` at full width against ``moe_ffn`` (f32 at
+    capacity factor 16: bitwise; bf16 at 1.25: values and gradients
+    bitwise, times), then 2 layers of the forward, the prefill and a
+    decode step with and without ``moe_shardings={"ep_mesh": ...}``
+    (bitwise, times)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe_ep import moe_ffn_ep
+    from repro_torch.tree import tree_map
+
+    problems = []
+    cfg = get_arch(MOE_ARCH).config
+    ep = {"ep_mesh": mesh, "dp": ("data",), "mdl": "model"}
+
+    def ep_ffn(xx, p, c):
+        return moe_ffn_ep(xx, p, c, mesh, dp_axes=ep["dp"],
+                          mdl_axis=ep["mdl"])
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lp = {k: v for k, v in T.init_layer_params(cfg, gen).items()
+          if k in ("router", "w_gate", "w_up", "w_down")}
+    x = torch.randn((MOE_TOKENS, cfg.d_model), generator=gen, device=dev)
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        want, f32_ref_ms = timed_call(torch, lambda: T.moe_ffn(x, lp, nodrop))
+        got, f32_ms = timed_call(torch, lambda: ep_ffn(x, lp, nodrop))
+    f32_peak = peak_gib(torch)
+    f32_equal = bool(torch.equal(got, want))
+    if not f32_equal or not bool(torch.isfinite(got).all()):
+        problems.append(f"moe_ffn_ep f32 (no drop) != moe_ffn: "
+                        f"{max_err(got, want)}")
+    del want, got
+    torch.cuda.empty_cache()
+
+    lb = tree_map(lambda v: v.to(torch.bfloat16), lp)
+    xb = x.to(torch.bfloat16)
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for name, fn in (("moe_ffn", lambda: T.moe_ffn(xb, lb, cfg)),
+                         ("moe_ffn_ep", lambda: ep_ffn(xb, lb, cfg))):
+            times[name] = wall_ms(torch, fn)
+        ep_items = device_items(torch, lambda: ep_ffn(xb, lb, cfg))
+    bf16_peak = peak_gib(torch)
+    ct = torch.randn(xb.shape, generator=gen, device=dev).to(xb.dtype)
+    grads = []
+    for fn in (T.moe_ffn, ep_ffn):
+        p = {k: v.clone().requires_grad_(True) for k, v in lb.items()}
+        xx = xb.clone().requires_grad_(True)
+        out = fn(xx, p, cfg)
+        (out.float() * ct.float()).sum().backward()
+        grads.append([out.detach(), xx.grad] + [p[k].grad for k in sorted(p)])
+    bf16_equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    if not bf16_equal:
+        problems.append("moe_ffn_ep bf16 values or gradients != moe_ffn's")
+    del grads, lb, xb, lp, x
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE_LAYERS)
+    params = T.init_params(cfg2, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (1, MOE_TOKENS), generator=gen,
+                           device=dev)
+    fwd = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for name, kw in (("unsharded", {}), ("ep_mesh", {"moe_shardings":
+                                                         ep})):
+            outs, ms = [], []
+            for _ in range(MOE_TIMED):
+                h, t_ms = timed_call(torch, lambda: T.forward(
+                    params, tokens, cfg2, remat=False, **kw))
+                outs.append(h)
+                ms.append(t_ms)
+            fwd[name] = dict(outs=outs, ms=ms)
+    fwd_peak = peak_gib(torch)
+    a, b = fwd["unsharded"]["outs"], fwd["ep_mesh"]["outs"]
+    fwd_equal = all(torch.equal(a[0], h) for h in a + b)
+    if not fwd_equal or not bool(torch.isfinite(a[0]).all()):
+        problems.append(f"{MOE_ARCH} {MOE_LAYERS}-layer forward with ep_mesh "
+                        "!= without (or reruns differ)")
+    served = {}
+    for name, kw in (("unsharded", {}), ("ep_mesh", {"moe_shardings": ep})):
+        (h, cache), p_ms = timed_call(torch, lambda: T.prefill(
+            params, tokens, cfg2, max_len=MOE_TOKENS + 1, **kw))
+        (logits, _), d_ms = timed_call(torch, lambda: T.decode_step(
+            params, cache, tokens[:, -1:], cfg2, **kw))
+        served[name] = dict(outs=[h, logits] + [cache[k] for k in sorted(
+            cache)], prefill_ms=p_ms, decode_ms=d_ms)
+    serve_equal = all(torch.equal(u, v) for u, v in zip(
+        served["unsharded"]["outs"], served["ep_mesh"]["outs"]))
+    if not serve_equal:
+        problems.append(f"{MOE_ARCH} prefill / decode_step with ep_mesh != "
+                        "without")
+    record = dict(
+        gpu=smi, arch=MOE_ARCH, d_model=cfg.d_model, experts=cfg.n_experts,
+        e_local=cfg.n_experts, d_ff=cfg.d_ff, top_k=cfg.top_k,
+        tokens=MOE_TOKENS,
+        f32_nodrop=dict(capacity_factor=nodrop.capacity_factor,
+                        equal=f32_equal, ms=f32_ms, moe_ffn_ms=f32_ref_ms,
+                        max_memory_gib=f32_peak),
+        bf16=dict(capacity_factor=cfg.capacity_factor, ms=times,
+                  values_and_grads_equal=bf16_equal,
+                  max_memory_gib=bf16_peak, **ep_items),
+        forward=dict(layers=MOE_LAYERS, tokens=MOE_TOKENS, dtype="bf16",
+                     equal=fwd_equal, ms={k: v["ms"] for k, v in fwd.items()},
+                     max_memory_gib=fwd_peak),
+        prefill_decode=dict(equal=serve_equal, **{
+            k: dict(prefill_ms=v["prefill_ms"], decode_ms=v["decode_ms"])
+            for k, v in served.items()}))
+    del params, fwd, a, b, served
+    torch.cuda.empty_cache()
+    return problems, record
+
+
+def gloo_batch(seed: int = SEED) -> dict:
+    """The CPU check's full-graph batch (numpy)."""
+    from repro_torch.core.formats import csr_from_scipy
+    from repro_torch.core.reorder import reorder
+    from repro_torch.data.graphs import sbm_graph
+
+    a = sbm_graph(1024, 8192, n_communities=16, intra_frac=1.0,
+                  power_law=False, seed=seed)
+    csr = reorder(csr_from_scipy(a), "rcm")[0]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((csr.shape[0], GLOO_FEAT)).astype(np.float32)
+    return gnn_batch(csr, x, rng.integers(0, 4, csr.shape[0]), seed)
+
+
+def gloo_run(rank, world, params, batch, steps_n) -> dict:
+    """One rank of the CPU check (or, on one rank, the unsharded step):
+    ``steps_n`` AdamW steps of gatedgcn's SMOKE config; losses and the
+    parameters after."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.distributed.halo import make_halo_ops
+    from repro_torch.distributed.sharding import graph_batch_specs, shard_tree
+    from repro_torch.launch.mesh import all_axes, make_mesh
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch("gatedgcn").smoke
+    full = {k: torch.from_numpy(v) for k, v in batch.items()}
+    gops = None
+    if world > 1:
+        mesh = make_mesh(GLOO_SHAPE, ("data", "model"), "cpu")
+        gops = make_halo_ops(mesh, all_axes(mesh))
+        full = shard_tree(full, graph_batch_specs(mesh, full), mesh)
+    opt = AdamW(lr=SHARD_LR)
+    step = steps.make_gnn_train_step(cfg, opt, gops=gops, remat=True)
+    p = tree_from_numpy(params, "cpu")
+    s = opt.init(p)
+    losses = []
+    for _ in range(steps_n):
+        p, s, m = step(p, s, full)
+        losses.append(float(m["loss"]))
+    return dict(losses=losses, params=[v.numpy() for v in tree_leaves(p)])
+
+
+def gloo_check(torch) -> tuple:
+    """Path A on the CPU across ranks: 4 gloo ranks (processes) on a
+    (2, 2) mesh against the single-rank step in this process."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.local import run_ranks
+    from repro_torch.models.gnn import gatedgcn_init
+    from repro_torch.tree import tree_map
+
+    problems = []
+    t0 = time.perf_counter()
+    batch = gloo_batch()
+    n, e = batch["node_feat"].shape[0], batch["senders"].shape[0]
+    for key in ("senders", "receivers"):
+        for k in (GLOO_RANKS, 2 * GLOO_RANKS):
+            blocks = batch[key] // (n // k) - np.arange(e) // (e // k)
+            if np.abs(blocks).max() > 1:
+                problems.append(f"gloo check graph: {key} leave the halo "
+                                f"at {k} shards")
+    params = tree_map(lambda v: v.numpy(), gatedgcn_init(
+        get_arch("gatedgcn").smoke, GLOO_FEAT, EDGE_FEAT,
+        torch.Generator().manual_seed(SEED), device="cpu"))
+    want = gloo_run(0, 1, params, batch, GLOO_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as d:
+        ranks = run_ranks(gloo_run, GLOO_RANKS, params, batch, GLOO_STEPS,
+                          backend="gloo", store_dir=d,
+                          timeout_s=GLOO_TIMEOUT_S)
+    err = 0.0
+    for r in ranks:
+        for a, b in zip([r["losses"]] + r["params"],
+                        [want["losses"]] + want["params"]):
+            a, b = np.asarray(a), np.asarray(b)
+            err = max(err, float(np.abs(a - b).max()))
+            if not np.allclose(a, b, **GLOO_TOL):
+                problems.append("gloo check: a rank's losses or parameters "
+                                "leave the single-rank step's tolerance")
+                break
+    same = all(np.array_equal(a, b) for r in ranks[1:]
+               for a, b in zip(r["params"], ranks[0]["params"]))
+    if not same:
+        problems.append("gloo check: ranks hold different parameters")
+    record = dict(device="cpu", backend="gloo", ranks=GLOO_RANKS,
+                  mesh=list(GLOO_SHAPE), config="gatedgcn SMOKE",
+                  nodes=int(n), edges=int(e), steps=GLOO_STEPS,
+                  losses=ranks[0]["losses"], single_rank=want["losses"],
+                  max_abs_err=err, ranks_equal=same,
+                  seconds=time.perf_counter() - t0)
+    return problems, record
+
+
+def sharded_phase(torch, smi: str, dev="cuda") -> tuple:
+    """Path A and path B over one NCCL rank on the card (``dev`` "cpu":
+    one gloo rank, for a rehearsal), then the 4-rank gloo check on the
+    CPU, and cora's out-of-halo fractions."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data.graphs import make_paper_dataset
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    backend = "nccl" if dev == "cuda" else "gloo"
+    if dev == "cuda":
+        torch.cuda.set_device(0)       # the mesh's device, before the mesh
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=(
+                                torch.device("cuda", 0) if dev == "cuda"
+                                else None))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        problems, gnn = gatedgcn_path(torch, mesh, smi, dev)
+        torch.cuda.empty_cache()
+        p, moe = moe_path(torch, mesh, smi, dev)
+        problems += p
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    p, gloo = gloo_check(torch)
+    problems += p
+    csr = make_paper_dataset("cora", scale=1.0, seed=SEED)[0]
+    record = dict(gpu=smi, backend=backend, world_size=1, gatedgcn=gnn,
+                  moe=moe, gloo_check=gloo,
+                  cora_out_of_halo=halo_fractions(csr),
+                  phase_s=time.perf_counter() - t0)
+    return problems, record
+
+
 # --------------------------------------------------------- kernel phase ----
 def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
@@ -3290,6 +3710,28 @@ def main() -> None:
     print(f"geometric: grouped gradient {geo['grouped_grad']}; phase "
           f"{geo['phase_s']:.1f} s")
 
+    sh_problems, sharded = sharded_phase(torch, smi)
+    problems += sh_problems
+    g, m = sharded["gatedgcn"], sharded["moe"]
+    print(f"sharded (NCCL, 1 rank, (1, 1) mesh): gatedgcn halo step "
+          f"{g['wall_ms']:.1f} ms (device {g['device_ms']:.2f} ms, "
+          f"{g['kernels']:.0f} kernels, busy {g['busy_share']:.3f}, halo "
+          f"exchange {g['halo_exchange_share']:.4f} of device time, "
+          f"{g['exchanges_per_step']} exchanges), losses "
+          f"{g['losses'][0]:.4f} -> {g['losses'][-1]:.4f}, equal to "
+          f"unsharded {g['equal_to_unsharded']}; {MOE_ARCH} EP layer bf16 "
+          f"{m['bf16']['ms']['moe_ffn_ep']:.2f} ms (moe_ffn "
+          f"{m['bf16']['ms']['moe_ffn']:.2f}), f32 no-drop equal "
+          f"{m['f32_nodrop']['equal']}, {MOE_LAYERS}-layer forward equal "
+          f"{m['forward']['equal']}, prefill/decode equal "
+          f"{m['prefill_decode']['equal']}")
+    c = sharded["gloo_check"]
+    print(f"sharded gloo check (CPU, {c['ranks']} gloo ranks, mesh "
+          f"{c['mesh']}): max |err| vs one rank {c['max_abs_err']:.3g}, "
+          f"ranks equal {c['ranks_equal']}, {c['seconds']:.1f} s; cora "
+          f"out-of-halo {sharded['cora_out_of_halo']}; phase "
+          f"{sharded['phase_s']:.1f} s")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -3334,6 +3776,7 @@ def main() -> None:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"fm": fm}))
     print(json.dumps({"geometric": geo}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

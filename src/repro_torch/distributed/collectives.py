@@ -14,9 +14,10 @@ alone), so a caller holds the ``EFState`` between steps in a closure:
         return grads
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the int8
-codes and scales are the reference's bits. The reference's
-``overlap_flags`` (XLA scheduler flags for the TPU) waits for the
-sharded layer on ``torch.distributed``.
+codes and scales are the reference's bits. The reference compresses the
+gradients its step has already reduced (the global view's gradient), so
+the hook runs after the data-parallel all-reduce here too; int8 on the
+wire is not the reference's.
 """
 from __future__ import annotations
 
@@ -62,3 +63,14 @@ def compress_with_error_feedback(grads, ef: EFState):
     new_g = tree_unflatten(grads, [o[0] for o in outs])
     new_r = tree_unflatten(grads, [o[1] for o in outs])
     return new_g, EFState(new_r)
+
+
+def overlap_flags() -> dict:
+    """The compute/communication overlap knobs the sharded layer sets.
+
+    These are not XLA's: the reference returns XLA's TPU scheduler flags
+    (latency-hiding scheduler, async collective fusion), which nothing
+    on CUDA reads. The port's sharded layer runs its collectives on the
+    process group's own stream with the backends' defaults and sets no
+    NCCL or gloo variable, so there is none to return."""
+    return {}

@@ -17,9 +17,18 @@ here (``layer_mode`` "scan" and "unroll" give the same result).
 Every gather and sum that has a gradient is deterministic: the embedding
 lookup and the MoE dispatch gather go through ``models.common.take``,
 the MoE combine through ``models.common.segment_sum`` (a host-built
-plan, so one host sync per MoE layer on the card). Sharded execution
-(``moe_shardings``, ``act_constraint``) belongs to the distributed
-slice and raises ``NotImplementedError``.
+plan, so one host sync per MoE layer on the card).
+
+Sharding: an ``"ep_mesh"`` dict in ``moe_shardings`` (what
+``make_moe_shardings`` gives an expert-parallel mesh) routes each MoE
+layer to ``models.moe_ep.moe_ffn_ep``: this rank's tokens, this rank's
+slice of the experts. The GSPMD constraints (``act_constraint``, and the
+tensor-parallel ``moe_shardings`` dict of ``NamedSharding``s) change no
+value in the reference; here they are checked against the tensor
+(``distributed.sharding.with_sharding_constraint``) and leave it as it
+is where the constrained axes have one rank. Where an axis has more,
+they raise ``NotImplementedError``: tensor-parallel and FSDP execution
+of the LM is a later slice.
 """
 from __future__ import annotations
 
@@ -41,14 +50,13 @@ NEG_INF = -1e30
 LAYER_MODES = ("scan", "unroll")
 
 
-def _local_only(**sharding) -> None:
-    for name, value in sharding.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}: sharded execution (the reference's device-mesh "
-                "constraints and its expert-parallel 'ep_mesh') belongs to "
-                "the distributed slice (distributed/{collectives,halo,"
-                "sharding} on torch.distributed), which is not ported yet")
+def _constrain(x, sharding):
+    """``jax.lax.with_sharding_constraint``: ``x`` checked against
+    ``sharding`` and returned unchanged (None: no constraint)."""
+    if sharding is None:
+        return x
+    from repro_torch.distributed.sharding import with_sharding_constraint
+    return with_sharding_constraint(x, sharding)
 
 
 # ------------------------------------------------------------ params -------
@@ -111,51 +119,76 @@ def moe_route(x, router, k: int):
     return topv / topv.sum(dim=-1, keepdim=True), topi
 
 
+def moe_slots(topv, topi, c: int, e_first: int, e_local: int):
+    """The dispatch of top-k assignments onto the capacity slots of
+    experts ``[e_first, e_first + e_local)``:
+    (``slot_tok`` [e_local * c] token per slot, ``slot_w`` [e_local, c]
+    its weight). An assignment's rank is the count of earlier ones to
+    its expert; those at rank >= c, and those to other experts, go to a
+    dump slot that is discarded. An empty slot holds token 0 with weight
+    0, as in the reference."""
+    t, k = topi.shape
+    dev = topi.device
+    e_flat = topi.reshape(-1)                               # [T*k]
+    w_flat = topv.reshape(-1)
+    tok_flat = torch.arange(t, device=dev).repeat_interleave(k)
+    local_e = e_flat - e_first
+    mine = (local_e >= 0) & (local_e < e_local)
+
+    onehot = F.one_hot(torch.where(mine, local_e,
+                                   torch.full_like(local_e, e_local)),
+                       e_local + 1)                         # [T*k, E+1]
+    rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
+    rank = torch.sum(rank * onehot, dim=-1)                 # [T*k]
+    keep = mine & (rank < c)
+    dest = torch.where(keep, local_e * c + rank,
+                       torch.full_like(rank, e_local * c))  # dump slot
+
+    # duplicates are written only into the dump slot, which is discarded
+    n = e_local * c
+    slot_tok = torch.zeros((n + 1,), dtype=torch.long,
+                           device=dev).index_put((dest,), tok_flat)
+    slot_w = torch.zeros((n + 1,), dtype=torch.float32,
+                         device=dev).index_put((dest,), w_flat)
+    return slot_tok[:n], slot_w[:n].reshape(e_local, c)
+
+
+def moe_experts(x, p, slot_tok, slot_w, shardings=None):
+    """The SwiGLU experts of ``p`` (``w_*`` [e, ...]) over their slots,
+    each output weighted and summed onto its token in slot order (the
+    plan ``segment_sum``) -> [T, D] in ``x``'s dtype."""
+    t, d = x.shape
+    e, c = slot_w.shape
+    cons = shardings or {}
+    xs = _constrain(take(x, slot_tok).reshape(e, c, d), cons.get("xs"))
+    h = F.silu(torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
+    h = _constrain(h, cons.get("h"))
+    y = _constrain(torch.bmm(h, p["w_down"]), cons.get("xs"))  # [E, C, D]
+
+    # combine in the compute dtype, as the reference
+    y = (y * slot_w[..., None].to(y.dtype)).reshape(e * c, d)
+    y = _constrain(y, cons.get("flat"))
+    out = _constrain(segment_sum(y, slot_tok, t), cons.get("tokens"))
+    return out.to(x.dtype)
+
+
 def moe_ffn(x, p, cfg: TransformerConfig, capacity: Optional[int] = None,
             shardings=None):
     """Capacity-based top-k MoE with gather dispatch (no [T,E,C] one-hots).
 
     x [T, D] flattened tokens -> [T, D]. Assignments past an expert's
     capacity go to a dump slot and are dropped; an empty slot gathers
-    token 0 with weight 0, as in the reference.
+    token 0 with weight 0, as in the reference. ``shardings`` (a dict of
+    ``NamedSharding``s for "xs", "h", "flat" and "tokens") constrains
+    the dispatch buffers as the reference's does.
     """
-    _local_only(shardings=shardings)
-    t, d = x.shape
+    t, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    dev = x.device
     topv, topi = moe_route(x, p["router"], k)
-
     if capacity is None:
         capacity = int(np.ceil(t * k / e * cfg.capacity_factor))
-    c = max(capacity, 1)
-
-    e_flat = topi.reshape(-1)                               # [T*k]
-    w_flat = topv.reshape(-1)
-    tok_flat = torch.arange(t, device=dev).repeat_interleave(k)
-
-    onehot = F.one_hot(e_flat, e)                           # [T*k, E]
-    rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
-    rank = torch.sum(rank * onehot, dim=-1)                 # [T*k]
-    keep = rank < c
-    dest = torch.where(keep, e_flat * c + rank,
-                       torch.full_like(rank, e * c))        # dump slot at end
-
-    # duplicates are written only into the dump slot, which is discarded
-    slot_tok = torch.zeros((e * c + 1,), dtype=torch.long,
-                           device=dev).index_put((dest,), tok_flat)
-    slot_w = torch.zeros((e * c + 1,), dtype=torch.float32,
-                         device=dev).index_put((dest,), w_flat)
-    slot_tok = slot_tok[: e * c]                            # [E*C]
-    slot_w = slot_w[: e * c].reshape(e, c)
-
-    xs = take(x, slot_tok).reshape(e, c, d)                 # [E, C, D]
-    h = F.silu(torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
-    y = torch.bmm(h, p["w_down"])                           # [E, C, D]
-
-    # combine in the compute dtype, as the reference
-    y = (y * slot_w[..., None].to(y.dtype)).reshape(e * c, d)
-    out = segment_sum(y, slot_tok, t)
-    return out.to(x.dtype)
+    slot_tok, slot_w = moe_slots(topv, topi, max(capacity, 1), 0, e)
+    return moe_experts(x, p, slot_tok, slot_w, shardings)
 
 
 def dense_ffn(x, p):
@@ -172,11 +205,18 @@ def _cast_layer(lp, dtype):
 
 
 def _ffn(h, lp, cfg, moe_shardings=None):
-    _local_only(moe_shardings=moe_shardings)
     b, s, d = h.shape
     hn = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
     if cfg.moe:
-        return moe_ffn(hn.reshape(b * s, d), lp, cfg).reshape(b, s, d)
+        if isinstance(moe_shardings, dict) and "ep_mesh" in moe_shardings:
+            from .moe_ep import moe_ffn_ep
+            out = moe_ffn_ep(hn.reshape(b * s, d), lp, cfg,
+                             moe_shardings["ep_mesh"],
+                             dp_axes=moe_shardings["dp"],
+                             mdl_axis=moe_shardings["mdl"])
+            return out.reshape(b, s, d)
+        return moe_ffn(hn.reshape(b * s, d), lp, cfg,
+                       shardings=moe_shardings).reshape(b, s, d)
     return dense_ffn(hn, lp)
 
 
@@ -219,19 +259,20 @@ def forward(params, tokens, cfg: TransformerConfig, *, remat: bool = True,
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``.
     """
-    _local_only(act_constraint=act_constraint, moe_shardings=moe_shardings)
     tokens, h = _embed(params, tokens, compute_dtype)
     b, s = tokens.shape
     q_pos = torch.arange(s, device=h.device)
 
     def layer(h, lp):
+        # the reference's sequence-parallel residual stream constraint
+        h = _constrain(h, act_constraint)
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, kk, vv = _project_qkv(hn, lp, cfg, q_pos)
         attn = chunked_attention(q, kk, vv, q_pos=q_pos, kv_pos=q_pos,
                                  causal=True, window=cfg.sliding_window,
                                  q_chunk=q_chunk, k_chunk=k_chunk)
         h = h + attn.reshape(b, s, -1) @ lp["wo"]
-        return h + _ffn(h, lp, cfg)
+        return h + _ffn(h, lp, cfg, moe_shardings)
 
     for lp in _layers(params, cfg, compute_dtype, layer_mode):
         h = (checkpoint(layer, h, lp, use_reentrant=False) if remat
@@ -275,7 +316,6 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
     (the new token's slot, ``index % t_buf``) and are the new cache's,
     as the reference's decode reuses a donated cache. ``index`` is a new
     tensor. No host sync but the MoE combine's plan."""
-    _local_only(moe_shardings=moe_shardings)
     tokens, h = _embed(params, tokens, compute_dtype)
     b = tokens.shape[0]
     t_buf = cache["k"].shape[2]
@@ -299,7 +339,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
                                  window=cfg.sliding_window,
                                  q_chunk=1, k_chunk=k_chunk)
         h = h + attn.reshape(b, 1, -1) @ lp["wo"]
-        h = h + _ffn(h, lp, cfg)
+        h = h + _ffn(h, lp, cfg, moe_shardings)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, h, cfg)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": new_pos,
@@ -313,7 +353,6 @@ def prefill(params, tokens, cfg: TransformerConfig, *, max_len: int,
             cache_dtype=torch.bfloat16, layer_mode: str = "scan",
             compute_dtype=torch.bfloat16, moe_shardings=None):
     """Prefill the prompt, return (normed hidden [B,S,D], cache)."""
-    _local_only(moe_shardings=moe_shardings)
     tokens, h = _embed(params, tokens, compute_dtype)
     b, s = tokens.shape
     dev = h.device
@@ -338,7 +377,7 @@ def prefill(params, tokens, cfg: TransformerConfig, *, max_len: int,
         h = h + attn.reshape(b, s, -1) @ lp["wo"]
         k_all[i, :, :keep] = kk[:, s - keep:].to(cache_dtype)
         v_all[i, :, :keep] = vv[:, s - keep:].to(cache_dtype)
-        h = h + _ffn(h, lp, cfg)
+        h = h + _ffn(h, lp, cfg, moe_shardings)
     if shift:
         k_all = torch.roll(k_all, shift, dims=2)
         v_all = torch.roll(v_all, shift, dims=2)

@@ -23,12 +23,19 @@ serve steps record no gradient.
 DimeNet and NequIP train on the mean squared error of per-molecule
 energies (``energy_loss_dimenet`` / ``energy_loss_nequip``); their serve
 step returns the energies.
+
+The node models train sharded too: ``make_gnn_train_step(cfg, opt,
+gops=make_halo_ops(mesh, axes))`` runs on every rank of the mesh over
+its shard of the graph, with the loss and the gradients summed over the
+mesh (one all-reduce of one flat buffer) before ``compress`` and the
+optimizer, as the reference's global-view program computes them.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -156,6 +163,12 @@ def masked_xent(logits, labels, mask=None) -> torch.Tensor:
     ``sum((logsumexp - logit[label]) * mask) / max(sum(mask), 1)``.
     The label's logit is picked with a one-hot product, so the backward
     scatters nothing."""
+    num, count = _xent_terms(logits, labels, mask)
+    return num / torch.clamp(count, min=1.0)
+
+
+def _xent_terms(logits, labels, mask=None) -> tuple:
+    """``masked_xent``'s numerator and mask count."""
     logits = logits.to(torch.float32)
     labels = torch.as_tensor(labels, device=logits.device).long()
     mask = (torch.ones(labels.shape[0], device=logits.device)
@@ -166,17 +179,26 @@ def masked_xent(logits, labels, mask=None) -> torch.Tensor:
     onehot = torch.nn.functional.one_hot(torch.clamp(labels, min=0),
                                          logits.shape[-1])
     tgt = (logits * onehot.to(logits.dtype)).sum(-1)
-    return torch.sum((lz - tgt) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum((lz - tgt) * mask), mask.sum()
 
 
 def gnn_node_loss(params, batch, cfg: GNNConfig, constrain=None,
                   gops=None, remat=False):
-    """Masked node-classification xent (padding-safe)."""
+    """Masked node-classification xent (padding-safe). With the halo ops
+    of a mesh (``gops.group``) the batch is this rank's shard of the
+    graph and the loss is this rank's share of the global one: its
+    numerator over the mask count of every rank."""
     graph = gnn_m.Graph(batch["senders"], batch["receivers"],
                         batch["node_feat"], batch.get("edge_feat"))
     logits = gnn_apply(params, graph, cfg, constrain=constrain, gops=gops,
                        remat=remat)
-    return masked_xent(logits, batch["labels"], batch.get("node_mask"))
+    group = getattr(gops, "group", None)
+    if group is None:
+        return masked_xent(logits, batch["labels"], batch.get("node_mask"))
+    num, count = _xent_terms(logits, batch["labels"], batch.get("node_mask"))
+    count = count.detach().clone()
+    dist.all_reduce(count, group=group)
+    return num / torch.clamp(count, min=1.0)
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -192,9 +214,28 @@ def value_and_grad(loss_fn, params, *args):
         for p, g in zip(leaves, grads)])
 
 
-def _train_step(loss_fn, optimizer, compress=None):
+def _sum_over(group, loss, grads) -> tuple:
+    """(loss, grads) each summed over ``group``: one all-reduce of one
+    flat buffer (every rank holds the same bits after it)."""
+    leaves = [loss.reshape(1)] + tree_leaves(grads)
+    if len({x.dtype for x in leaves}) != 1:
+        raise TypeError("the sharded step sums one dtype; got "
+                        f"{sorted({str(x.dtype) for x in leaves})}")
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+    dist.all_reduce(flat, group=group)
+    parts = [p.reshape(x.shape) for p, x in
+             zip(torch.split(flat, [x.numel() for x in leaves]), leaves)]
+    return parts[0].reshape(()), tree_unflatten(grads, parts[1:])
+
+
+def _train_step(loss_fn, optimizer, compress=None, group=None):
+    """``group``: the ranks whose shares of the loss and gradients are
+    summed (before ``compress``, as the reference's global-view step
+    compresses the whole gradient); None runs on one rank."""
     def train_step(params, opt_state, batch):
         loss, grads = value_and_grad(loss_fn, params, batch)
+        if group is not None:
+            loss, grads = _sum_over(group, loss, grads)
         if compress is not None:
             grads = compress(grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
@@ -235,11 +276,24 @@ def energy_loss_nequip(params, batch, cfg: GNNConfig, constrain=None,
 
 def make_gnn_train_step(cfg: GNNConfig, optimizer, compress=None,
                         constrain=None, gops=None, remat=False):
+    """The GNN train step. With ``gops = make_halo_ops(mesh, axes)`` it
+    runs on every rank of the mesh over that rank's shard of a full
+    graph (``graph_batch_specs``) and computes what the reference's
+    global-view program computes: the loss over every rank's nodes, and
+    each replicated parameter's gradient summed over the ranks before
+    ``compress`` and the optimizer, so every rank takes the same step.
+    The energy models' molecule reductions have no sharded form here
+    (``NotImplementedError``)."""
+    group = getattr(gops, "group", None)
     loss = {"dimenet": energy_loss_dimenet,
             "nequip": energy_loss_nequip}.get(cfg.kind, gnn_node_loss)
+    if group is not None and loss is not gnn_node_loss:
+        raise NotImplementedError(
+            f"{cfg.kind}: a sharded energy loss (per-molecule sums across "
+            "ranks) is not ported; the halo step trains node models")
     loss_fn = functools.partial(loss, cfg=cfg, constrain=constrain,
                                 gops=gops, remat=remat)
-    return _train_step(loss_fn, optimizer, compress)
+    return _train_step(loss_fn, optimizer, compress, group)
 
 
 def make_gnn_serve_step(cfg: GNNConfig, n_mols: int = 1):

@@ -76,6 +76,12 @@ def test_port_files_found():
             "src/repro_torch/models/dimenet.py",
             "src/repro_torch/models/nequip.py",
             "src/repro_torch/distributed/collectives.py"} <= names
+    assert {"src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/elastic.py",
+            "src/repro_torch/launch/local.py",
+            "src/repro_torch/distributed/halo.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/models/moe_ep.py"} <= names
     assert len(names) >= 20
 
 

@@ -360,13 +360,31 @@ def test_layer_modes_and_remat_agree():
         tt.forward(tp, batch["tokens"], tcfg, layer_mode="vmap")
 
 
-@pytest.mark.parametrize("kw", [dict(moe_shardings={"ep_mesh": None}),
-                                dict(act_constraint=object())])
+def _two_model_ranks(spec):
+    import types
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                 axis_names=("data", "model"))
+    return NamedSharding(mesh, P(*spec))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(moe_shardings={"xs": ("model", None, None)}),
+    dict(act_constraint=(None, None, "model"))])
 def test_sharded_execution_is_the_distributed_slices(kw):
+    """The distributed slice runs the expert-parallel "ep_mesh" and
+    constraints over one rank (tests/test_torch_distributed.py); a
+    constraint that splits a tensor over two ranks (tensor-parallel and
+    FSDP execution of the LM) is a later slice and raises."""
     _, tcfg = _cfgs("mixtral-8x7b")
     tp = tt.init_params(tcfg, torch.Generator().manual_seed(0),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed"):
+    kw = {k: ({n: _two_model_ranks(s) for n, s in v.items()}
+              if isinstance(v, dict) else _two_model_ranks(v))
+          for k, v in kw.items()}
+    with pytest.raises(NotImplementedError, match="tensor-parallel and "
+                       "FSDP execution of the LM"):
         tt.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, **kw)
 
 
