@@ -149,11 +149,34 @@ repository's ``src/`` next to this file. It
      ``moe_ffn_ep`` equals ``moe_ffn``; at bf16 and the config's 1.25
      its values and gradients equal ``moe_ffn``'s and both are timed; a
      2-layer forward, prefill and decode step with
-     ``moe_shardings={"ep_mesh": ...}`` equal the calls without it. Then, on the CPU and labelled so, 4 gloo ranks
-     on a (2, 2) mesh train gatedgcn's SMOKE config on an RCM-reordered
-     SBM graph that keeps the halo contract, within 1e-5 of the
-     single-rank step after 3 steps; cora's out-of-halo fractions at 4
-     and 8 shards are printed. One ``{"sharded": ...}`` line;
+     ``moe_shardings={"ep_mesh": ...}`` equal the calls without it.
+     Tensor-parallel, sequence-parallel and FSDP execution of the LM
+     (``distributed.tp``; parameters placed by ``shard_tree``, the step
+     given the reference's ``act_constraint`` for its config's
+     ``parallelism``, 1 x 4096 tokens, remat, bf16; each step from the
+     unsharded step's state):
+     path C, qwen3-0.6b at its full config under "tp_fsdp" (3 AdamW
+     steps); path D, granite-8b at full width under "fsdp" (depth cut
+     36 -> 4, 3 steps); path E, mixtral-8x7b at full width, 1 layer,
+     with the tensor-parallel MoE dict passed (1 step). Gates: loss and
+     every parameter leaf ``torch.equal`` to ``make_lm_train_step``
+     unsharded at each step, the collectives of each step (``tp.COUNTS``)
+     equal to ``LMPlan.predicted_counts``. Path F: DimeNet and NequIP at
+     full config on the molecule cell through the halo ops (3 AdamW
+     steps each): loss and parameters ``torch.equal`` to the unsharded
+     step at each step, two all-reduces a step (the energies' sum and its
+     transpose). Each reports wall and device ms of both steps, the NCCL
+     kernels' share, the collectives and peak memory. Then, on the CPU
+     and labelled so, 4 gloo ranks on a (2, 2) mesh train gatedgcn's
+     SMOKE config on an RCM-reordered SBM graph that keeps the halo
+     contract, within 1e-5 of the single-rank step after 3 steps; and
+     gloo ranks run qwen3-0.6b-smoke under "tp_fsdp" and granite-smoke
+     under "fsdp" on (2, 2), mixtral-smoke (d_ff 96) with TP inside its
+     experts on (1, 3) (loss and gathered gradients), DimeNet and NequIP
+     SMOKE energy steps on 4 ranks (3 steps), each within ``rtol=1e-5,
+     atol=1e-6`` of one process's unsharded step; cora's out-of-halo
+     fractions at 4 and 8 shards are printed. One ``{"sharded": ...}``
+     line;
  17. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
@@ -2924,6 +2947,227 @@ def moe_path(torch, mesh, smi: str, dev="cuda") -> tuple:
     return problems, record
 
 
+# Paths C-F: tensor-parallel, sequence-parallel and FSDP execution of the
+# LM and the sharded energy loss, over the same one-rank NCCL group (every
+# collective of the plan issued, a copy over one rank): each sharded step
+# against the unsharded step from the same state, bitwise
+TP_SEQ, TP_LR, TP_XENT = 4096, 1e-4, 256
+# (name, arch, layers kept (None: all), steps, MoE dict); each under its
+# CONFIG's parallelism: "tp_fsdp", granite-8b's "fsdp", "tp_fsdp"
+TP_PATHS = (("C", "qwen3-0.6b", None, 3, None),
+            ("D", "granite-8b", 4, 3, None),
+            ("E", "mixtral-8x7b", 1, 1, "tp"))
+ENERGY_STEPS = 3
+
+
+def device_share(prof, mark: str) -> tuple:
+    """(device ms per call of the items whose name holds ``mark``, their
+    share of the call's device time) from a ``profile_calls(detail=True)``
+    record."""
+    ms = sum(v for k, v in prof["per_kernel"].items()
+             if mark.lower() in k.lower())
+    dev = prof["device_ms_per_infer"]
+    return ms, (ms / dev if dev else 0.0)
+
+
+def _step_profile(torch, fn) -> dict:
+    """Device ms, kernels, busy share, the NCCL kernels' ms and share and
+    the device-to-device copies' (over one rank NCCL moves an
+    all-gather, reduce-scatter or all-reduce as a copy, no kernel) of
+    one call of ``fn`` (its outputs dropped)."""
+    prof = profile_calls(torch, fn, calls=1, cpu=False, detail=True)
+    ms, share = device_share(prof, "nccl")
+    copy_ms, copy_share = device_share(prof, "Memcpy DtoD")
+    return dict(device_ms=prof["device_ms_per_infer"],
+                kernels=prof["kernels_per_infer"],
+                busy_share=prof["busy_share"], nccl_ms=ms, nccl_share=share,
+                dtod_ms=copy_ms, dtod_share=copy_share, top=prof["top"][:5])
+
+
+def lm_tp_path(torch, mesh, smi: str, name: str, arch: str, layers,
+               n_steps: int, moe, dev="cuda") -> tuple:
+    """Paths C-E: ``arch`` at full width (depth cut to ``layers``) under
+    its ``parallelism`` on the (1, 1) mesh, given the reference's
+    ``act_constraint`` for it, 1 x TP_SEQ tokens: ``n_steps`` AdamW
+    steps of the sharded train step (parameters placed by ``shard_tree``),
+    each from the unsharded step's state and ``torch.equal`` to it (loss
+    and every parameter leaf); the collectives a step (``tp.COUNTS``)
+    against ``LMPlan.predicted_counts``; wall and device ms, the NCCL
+    kernels' share and peak GiB of both steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  lm_param_specs,
+                                                  opt_state_specs, shard_tree,
+                                                  tp_expert_shardings)
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.steps import make_lm_train_step
+    from repro_torch.tree import tree_leaves
+
+    problems = []
+    cfg = get_arch(arch).config
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    ms = tp_expert_shardings(mesh) if moe == "tp" else None
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = T.init_params(cfg, gen, device=dev)
+    specs = lm_param_specs(cfg, mesh, params)
+    stream = TokenStream(cfg.vocab, 1, TP_SEQ, seed=SEED)
+    opt = AdamW(lr=TP_LR, weight_decay=0.01)
+    plain = make_lm_train_step(cfg, opt, remat=True, xent_chunk=TP_XENT)
+    act = NamedSharding(mesh, tp.residual_spec(cfg, mesh))
+    sharded = make_lm_train_step(cfg, opt, remat=True, xent_chunk=TP_XENT,
+                                 act_constraint=act, moe_shardings=ms)
+    plan = tp.LMPlan(cfg, mesh, ms)
+    strategy = plan.strategy
+    predicted = plan.predicted_counts(TP_SEQ, TP_XENT, step=True)
+
+    # one state at a time beside the step's own (mixtral's 1.7 B
+    # parameters and their AdamW moments are 27 GB): the sharded step
+    # from the state's blocks, then the unsharded step from the state
+    p, s = params, None                # None: AdamW's zeros, made at use
+    losses, ms_plain, ms_sharded, mismatch, counts = [], [], [], [], []
+    peak = {}
+    for i in range(n_steps):
+        batch = _batch(torch, stream.batch_at(i))
+        lp = shard_tree(p, specs, mesh)
+        ls = (opt.init(lp) if s is None
+              else shard_tree(s, opt_state_specs(specs), mesh))
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_counts()
+        (lq, lt, lm), t_sharded = timed_call(
+            torch, lambda: sharded(lp, ls, batch))
+        counts.append(dict(tp.COUNTS))
+        peak["sharded"] = max(peak.get("sharded", 0.0), peak_gib(torch))
+        del lp, ls, lt
+        torch.cuda.empty_cache()
+        s_in = opt.init(p) if s is None else s
+        torch.cuda.reset_peak_memory_stats()
+        (q, t, m), t_plain = timed_call(torch, lambda: plain(p, s_in,
+                                                              batch))
+        peak["unsharded"] = max(peak.get("unsharded", 0.0),
+                                peak_gib(torch))
+        del s_in
+        losses.append(float(m["loss"]))
+        ms_plain.append(t_plain)
+        ms_sharded.append(t_sharded)
+        if not (torch.equal(lm["loss"], m["loss"]) and _bitwise(torch, lq,
+                                                                q)):
+            mismatch.append(i)
+        del lq
+        p, s = q, t
+        torch.cuda.empty_cache()
+    if mismatch:
+        problems.append(f"path {name} ({arch} {strategy}): sharded step != "
+                        f"unsharded at steps {mismatch}")
+    if not all(np.isfinite(losses)):
+        problems.append(f"path {name}: losses {losses}")
+    if any(c != predicted for c in counts):
+        problems.append(f"path {name}: collectives {counts} != the plan's "
+                        f"{predicted}")
+    # a step from the last state profiled on each path, its outputs
+    # dropped (over one rank each block is the whole leaf, so the
+    # sharded step takes the state itself)
+    batch = _batch(torch, stream.batch_at(0))
+    prof_plain = _step_profile(torch, lambda: plain(p, s, batch) and None)
+    prof_sharded = _step_profile(torch, lambda: sharded(p, s, batch)
+                                 and None)
+    record = dict(
+        path=name, gpu=smi, arch=arch, strategy=strategy,
+        layers=cfg.n_layers, d_model=cfg.d_model, batch=1, seq=TP_SEQ,
+        params_m=sum(int(v.numel()) for v in tree_leaves(params)) / 1e6,
+        plan=dict(attn=plan.attn, ffn=plan.ffn, moe=plan.moe,
+                  head=plan.head, act=repr(plan.act)),
+        steps=n_steps, losses=losses, equal_to_unsharded=not mismatch,
+        collectives=counts[-1], predicted_collectives=predicted,
+        sharded=dict(step_ms=ms_sharded, wall_ms=statistics.median(
+            ms_sharded), max_memory_gib=peak["sharded"], **prof_sharded),
+        unsharded=dict(step_ms=ms_plain, wall_ms=statistics.median(ms_plain),
+                       max_memory_gib=peak["unsharded"], **prof_plain))
+    del params, p, s
+    torch.cuda.empty_cache()
+    return problems, record
+
+
+def energy_path(torch, mesh, smi: str, dev="cuda") -> tuple:
+    """Path F: DimeNet and NequIP at full config on the molecule cell,
+    the halo ops over the one rank: ENERGY_STEPS AdamW steps of the
+    sharded energy step, each from the unsharded step's state and
+    ``torch.equal`` to it; wall and device ms, exchanges and psums a
+    step, the NCCL kernels' share, peak GiB."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.halo import make_halo_ops
+    from repro_torch.distributed.sharding import graph_batch_specs, shard_tree
+    from repro_torch.launch.mesh import all_axes
+    from repro_torch.models import dimenet, nequip
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+
+    problems, records = [], []
+    host, _, batch = molecule_batches(torch)
+    local = shard_tree(batch, graph_batch_specs(mesh, batch), mesh)
+    gops = make_halo_ops(mesh, all_axes(mesh))
+    for arch in ("dimenet", "nequip"):
+        cfg = get_arch(arch).config
+        init = dimenet.dimenet_init if arch == "dimenet" else \
+            nequip.nequip_init
+        params = init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                      device=dev)
+        opt = AdamW(lr=GEO_LR[arch])
+        plain = steps.make_gnn_train_step(cfg, opt)
+        sharded = steps.make_gnn_train_step(cfg, opt, gops=gops)
+        torch.cuda.reset_peak_memory_stats()
+        p, s = params, opt.init(params)
+        losses, ms_plain, ms_sharded, mismatch, per_step = [], [], [], [], []
+        for i in range(ENERGY_STEPS):
+            (q, t, m), t_plain = timed_call(torch, lambda: plain(p, s, batch))
+            calls = gops.exchange.calls
+            tp.reset_counts()
+            (lq, _, lm), t_sh = timed_call(torch, lambda: sharded(p, s,
+                                                                  local))
+            per_step.append(dict(exchanges=gops.exchange.calls - calls,
+                                 **dict(tp.COUNTS)))
+            losses.append(float(m["loss"]))
+            ms_plain.append(t_plain)
+            ms_sharded.append(t_sh)
+            if not (torch.equal(lm["loss"], m["loss"])
+                    and _bitwise(torch, lq, q)):
+                mismatch.append(i)
+            p, s = q, t
+        peak = peak_gib(torch)
+        if mismatch:
+            problems.append(f"path F {arch}: sharded energy step != "
+                            f"unsharded at steps {mismatch}")
+        if not all(np.isfinite(losses)):
+            problems.append(f"path F {arch}: losses {losses}")
+        if any(c.get("all_reduce") != 2 for c in per_step):
+            problems.append(f"path F {arch}: {per_step} (a step sums the "
+                            "energies and their cotangent over the group)")
+        prof_plain = _step_profile(torch, lambda: plain(p, s, batch)
+                                   and None)
+        prof_sharded = _step_profile(torch, lambda: sharded(p, s, local)
+                                     and None)
+        records.append(dict(
+            path="F", gpu=smi, arch=arch, mols=GEO_MOLS,
+            atoms=int(host["z"].shape[0]),
+            edges=int(host["edge_src"].shape[0]),
+            triplets=int(host["trip_kj"].shape[0]), steps=ENERGY_STEPS,
+            losses=losses, equal_to_unsharded=not mismatch,
+            collectives=per_step[-1], max_memory_gib=peak,
+            sharded=dict(step_ms=ms_sharded, wall_ms=statistics.median(
+                ms_sharded), **prof_sharded),
+            unsharded=dict(step_ms=ms_plain, wall_ms=statistics.median(
+                ms_plain), **prof_plain)))
+        del params, p, s, q, lq
+        torch.cuda.empty_cache()
+    return problems, records
+
+
 def gloo_batch(seed: int = SEED) -> dict:
     """The CPU check's full-graph batch (numpy)."""
     from repro_torch.core.formats import csr_from_scipy
@@ -3022,10 +3266,189 @@ def gloo_check(torch) -> tuple:
     return problems, record
 
 
+# the CPU check of paths C-F: SMOKE configs on gloo ranks against one
+# process's unsharded step, within GLOO_TOL. (arch, strategy, mesh, MoE
+# dict, config changes): mixtral's d_ff 96 splits over 3 model ranks
+GLOO_LM = (("qwen3-0.6b", (2, 2), None, {}),
+           ("granite-8b", (2, 2), None, {"parallelism": "fsdp"}),
+           ("mixtral-8x7b", (1, 3), "tp", {"d_ff": 96}))
+GLOO_LM_SHAPE = (4, 24)
+GLOO_LM_KW = dict(q_chunk=8, k_chunk=8, xent_chunk=8, compute_dtype=None)
+# 64 atoms, 200 edges, 656 triplets: each divides over 4 ranks, and
+# every index lies within one shard of its position (the halo contract)
+GLOO_MOLS = dict(n_mols=8, atoms_per_mol=8, cutoff=3.0, seed=1)
+
+
+def gloo_lm_inputs(arch, kw) -> tuple:
+    """(SMOKE config with ``kw``, numpy params from the port's seeded
+    init, numpy batch)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch).smoke, **kw)
+    params = tree_map(lambda v: v.numpy(), T.init_params(
+        cfg, torch.Generator().manual_seed(SEED), "cpu"))
+    b, s = GLOO_LM_SHAPE
+    tok = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s + 1))
+    return cfg, params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def gloo_mol_inputs(arch) -> tuple:
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import random_molecules
+    from repro_torch.models import dimenet, nequip
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch(arch).smoke
+    init = dimenet.dimenet_init if arch == "dimenet" else nequip.nequip_init
+    fields = (dimenet.MoleculeBatch if arch == "dimenet"
+              else nequip.AtomGraph)._fields[:-1]
+    mols = random_molecules(**GLOO_MOLS)
+    batch = {k: mols[k] for k in fields}
+    batch["energy"] = np.random.default_rng(SEED).standard_normal(
+        GLOO_MOLS["n_mols"]).astype(np.float32)
+    params = tree_map(lambda v: v.numpy(), init(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu"))
+    return cfg, params, batch
+
+
+def gloo_lm_run(rank, world, shape, cfg, moe, params, batch) -> dict:
+    """The LM loss and its gradients (gathered to whole leaves): on one
+    rank without a mesh, else sharded on a ``shape`` mesh under the
+    config's ``parallelism``."""
+    import torch
+
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.tp import residual_spec
+    from repro_torch.launch.mesh import all_axes, data_axes, make_mesh
+    from repro_torch.train.steps import make_lm_value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    full = tree_from_numpy(params, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if world == 1:
+        loss, grads = make_lm_value_and_grad(cfg, **GLOO_LM_KW)(full, tb)
+    else:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        specs = shd.lm_param_specs(cfg, mesh, full)
+        ax = (all_axes(mesh) if cfg.parallelism == "fsdp"
+              else data_axes(mesh))
+        lb = shd.shard_tree(tb, {k: shd.P(ax, None) for k in tb}, mesh)
+        ms = shd.tp_expert_shardings(mesh) if moe == "tp" else None
+        act = shd.NamedSharding(mesh, residual_spec(cfg, mesh))
+        fn = make_lm_value_and_grad(cfg, act_constraint=act,
+                                    moe_shardings=ms, **GLOO_LM_KW)
+        loss, grads = fn(shd.shard_tree(full, specs, mesh), lb)
+        grads = shd.gather_tree(grads, specs, mesh)
+    return dict(loss=float(loss),
+                grads=[g.cpu().numpy() for g in tree_leaves(grads)])
+
+
+def gloo_energy_run(rank, world, cfg, params, batch, steps_n) -> dict:
+    """``steps_n`` AdamW steps of the energy step: on one rank unsharded,
+    else over the halo ops on a (2, 2) mesh; losses and parameters."""
+    import torch
+
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.distributed.halo import make_halo_ops
+    from repro_torch.distributed.sharding import graph_batch_specs, shard_tree
+    from repro_torch.launch.mesh import all_axes, make_mesh
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_leaves
+
+    full = {k: torch.from_numpy(v) for k, v in batch.items()}
+    gops = None
+    if world > 1:
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        gops = make_halo_ops(mesh, all_axes(mesh))
+        full = shard_tree(full, graph_batch_specs(mesh, full), mesh)
+    opt = AdamW(lr=SHARD_LR)
+    step = steps.make_gnn_train_step(cfg, opt, gops=gops)
+    p = tree_from_numpy(params, "cpu")
+    s = opt.init(p)
+    losses = []
+    for _ in range(steps_n):
+        p, s, m = step(p, s, full)
+        losses.append(float(m["loss"]))
+    return dict(losses=losses,
+                params=[v.cpu().numpy() for v in tree_leaves(p)])
+
+
+def gloo_jobs(rank, world, todo) -> list:
+    """[fn(rank, world, *args) for (fn name, args) in ``todo``]."""
+    return [globals()[name](rank, world, *args) for name, args in todo]
+
+
+def gloo_tp_check(torch) -> tuple:
+    """Paths C-F across ranks on the CPU: qwen3-0.6b-smoke ("tp_fsdp")
+    and granite-smoke ("fsdp") on (2, 2), mixtral-smoke with TP inside
+    its 4 experts on (1, 3), DimeNet and NequIP SMOKE energy steps on 4
+    ranks; each against one process's unsharded step."""
+    import concurrent.futures
+    import tempfile
+
+    from repro_torch.launch.local import run_ranks
+
+    problems, rows = [], []
+    t0 = time.perf_counter()
+    todo, want = {}, []
+    for arch, shape, moe, kw in GLOO_LM:
+        cfg, params, batch = gloo_lm_inputs(arch, kw)
+        args = (shape, cfg, moe, params, batch)
+        todo.setdefault(int(np.prod(shape)), []).append(("gloo_lm_run",
+                                                         args))
+        want.append((f"{arch} {cfg.parallelism} {shape}",
+                     int(np.prod(shape)),
+                     len(todo[int(np.prod(shape))]) - 1,
+                     gloo_lm_run(0, 1, *args)))
+    for arch in ("dimenet", "nequip"):
+        cfg, params, batch = gloo_mol_inputs(arch)
+        args = (cfg, params, batch, GLOO_STEPS)
+        todo[4].append(("gloo_energy_run", args))
+        want.append((f"{arch} energy (2, 2)", 4, len(todo[4]) - 1,
+                     gloo_energy_run(0, 1, *args)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d, \
+            concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+        futs = {w: pool.submit(run_ranks, gloo_jobs, w, jobs,
+                               backend="gloo", store_dir=d,
+                               timeout_s=GLOO_TIMEOUT_S)
+                for w, jobs in todo.items()}
+        got = {w: f.result() for w, f in futs.items()}
+    for label, world, i, single in want:
+        err, ok = 0.0, True
+        for r in got[world]:
+            res = r[i]
+            pairs = ([(res["loss"], single["loss"])]
+                     + list(zip(res["grads"], single["grads"]))
+                     if "grads" in res else
+                     [(res["losses"], single["losses"])]
+                     + list(zip(res["params"], single["params"])))
+            for a, b in pairs:
+                a, b = np.asarray(a), np.asarray(b)
+                err = max(err, float(np.abs(a - b).max()))
+                ok = ok and bool(np.allclose(a, b, **GLOO_TOL))
+        if not ok:
+            problems.append(f"gloo check {label}: a rank leaves the "
+                            "single-process step's tolerance")
+        rows.append(dict(case=label, ranks=world, max_abs_err=err,
+                         within_tol=ok))
+    return problems, dict(device="cpu", backend="gloo", cases=rows,
+                          seconds=time.perf_counter() - t0)
+
+
 def sharded_phase(torch, smi: str, dev="cuda") -> tuple:
-    """Path A and path B over one NCCL rank on the card (``dev`` "cpu":
-    one gloo rank, for a rehearsal), then the 4-rank gloo check on the
-    CPU, and cora's out-of-halo fractions."""
+    """Paths A-F over one NCCL rank on the card (``dev`` "cpu": one gloo
+    rank, for a rehearsal), then the gloo checks on the CPU, and cora's
+    out-of-halo fractions."""
     import shutil
     import tempfile
 
@@ -3043,20 +3466,32 @@ def sharded_phase(torch, smi: str, dev="cuda") -> tuple:
                             rank=0, world_size=1, device_id=(
                                 torch.device("cuda", 0) if dev == "cuda"
                                 else None))
+    tp_paths = []
     try:
         mesh = make_mesh((1, 1), ("data", "model"), dev)
         problems, gnn = gatedgcn_path(torch, mesh, smi, dev)
         torch.cuda.empty_cache()
         p, moe = moe_path(torch, mesh, smi, dev)
         problems += p
+        for name, arch, layers, n_steps, moe_dict in TP_PATHS:
+            p, rec = lm_tp_path(torch, mesh, smi, name, arch, layers,
+                                n_steps, moe_dict, dev)
+            problems += p
+            tp_paths.append(rec)
+        p, energy = energy_path(torch, mesh, smi, dev)
+        problems += p
+        tp_paths += energy
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     p, gloo = gloo_check(torch)
     problems += p
+    p, gloo_tp = gloo_tp_check(torch)
+    problems += p
     csr = make_paper_dataset("cora", scale=1.0, seed=SEED)[0]
     record = dict(gpu=smi, backend=backend, world_size=1, gatedgcn=gnn,
-                  moe=moe, gloo_check=gloo,
+                  moe=moe, tp_paths=tp_paths, gloo_check=gloo,
+                  gloo_tp_check=gloo_tp,
                   cora_out_of_halo=halo_fractions(csr),
                   phase_s=time.perf_counter() - t0)
     return problems, record
@@ -3725,6 +4160,19 @@ def main() -> None:
           f"{m['f32_nodrop']['equal']}, {MOE_LAYERS}-layer forward equal "
           f"{m['forward']['equal']}, prefill/decode equal "
           f"{m['prefill_decode']['equal']}")
+    for r in sharded["tp_paths"]:
+        print(f"sharded path {r['path']}: {r['arch']} "
+              f"{r.get('strategy', 'halo')} step {r['sharded']['wall_ms']:.1f}"
+              f" ms (device {r['sharded']['device_ms']:.1f} ms, NCCL "
+              f"{r['sharded']['nccl_share']:.4f}) vs unsharded "
+              f"{r['unsharded']['wall_ms']:.1f} ms (device "
+              f"{r['unsharded']['device_ms']:.1f}); collectives "
+              f"{r['collectives']}; equal to unsharded "
+              f"{r['equal_to_unsharded']}; losses {r['losses']}")
+    for row in sharded["gloo_tp_check"]["cases"]:
+        print(f"sharded gloo check (CPU): {row['case']} on {row['ranks']} "
+              f"ranks, max |err| {row['max_abs_err']:.3g}, within tol "
+              f"{row['within_tol']}")
     c = sharded["gloo_check"]
     print(f"sharded gloo check (CPU, {c['ranks']} gloo ranks, mesh "
           f"{c['mesh']}): max |err| vs one rank {c['max_abs_err']:.3g}, "

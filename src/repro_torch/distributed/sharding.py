@@ -19,10 +19,11 @@ out first-axis-major, as JAX lays out ``P(("data", "model"))``:
 
 Placement is the port's own: ``shard_tree`` cuts each leaf to this
 rank's block, ``gather_tree`` puts the blocks of every rank of the mesh
-back together. ``with_sharding_constraint`` checks a tensor against a
-``NamedSharding`` and changes no value; it raises
-``NotImplementedError`` where a constrained axis has more than one rank
-(tensor-parallel and FSDP execution of the LM, a later slice).
+back together. ``with_sharding_constraint`` moves a rank's block from
+its layout to the constrained one (``distributed.tp.relayout``: an
+all-gather, a slice or an all-to-all over the named axes), the reverse
+change as its backward; the global values stay as they are, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -317,26 +318,74 @@ def gather_tree(tree, spec_tree, mesh):
     return tree_unflatten(tree, out)
 
 
-def with_sharding_constraint(x: torch.Tensor, sharding) -> torch.Tensor:
-    """``jax.lax.with_sharding_constraint`` on one rank's tensor: checks
-    that ``x`` fits ``sharding`` (a ``NamedSharding``: no more entries
-    than dimensions, each naming axes of its mesh) and returns ``x``
-    unchanged. A constraint that would split ``x`` over more than one
-    rank needs tensor-parallel or FSDP execution of the LM, which a
-    later slice ports; it raises ``NotImplementedError``."""
+def with_sharding_constraint(x: torch.Tensor, sharding,
+                             src=None) -> torch.Tensor:
+    """``jax.lax.with_sharding_constraint`` on one rank's tensor: ``x``,
+    this rank's block under the spec ``src`` (default ``P()``: the whole
+    tensor), as its block under ``sharding`` (a ``NamedSharding``: no
+    more entries than dimensions, each naming axes of its mesh). The
+    values of the global tensor do not change; its layout does, by
+    ``distributed.tp.relayout`` (a differentiable layout change whose
+    backward is the reverse one). Over axes of one rank every
+    collective still runs and moves the same bits."""
+    from repro_torch.distributed.tp import relayout
+
     spec, mesh = sharding.spec, sharding.mesh
-    if len(spec) > x.dim():
-        raise ValueError(f"{spec} has more entries than the tensor's "
-                         f"{x.dim()} dimensions")
+    src = P() if src is None else getattr(src, "spec", src)
     shape = mesh_shape(mesh)
-    for i, ax in enumerate(spec):
-        names = () if ax is None else (ax,) if isinstance(ax, str) else ax
-        if not set(names) <= set(shape):
-            raise ValueError(f"{spec} names axes that are not on the mesh "
-                             f"{shape}")
-        if axes_size(mesh, ax) > 1:
-            raise NotImplementedError(
-                f"sharding constraint {spec} splits dimension {i} over "
-                f"{axes_size(mesh, ax)} ranks: tensor-parallel and FSDP "
-                "execution of the LM belongs to a later slice")
-    return x
+    for s in (spec, src):
+        if len(s) > x.dim():
+            raise ValueError(f"{s} has more entries than the tensor's "
+                             f"{x.dim()} dimensions")
+        for ax in s:
+            names = () if ax is None else (ax,) if isinstance(ax, str) \
+                else ax
+            if not set(names) <= set(shape):
+                raise ValueError(f"{s} names axes that are not on the "
+                                 f"mesh {shape}")
+    return relayout(x, src, spec, mesh)
+
+
+def same_layout(a, b, mesh) -> bool:
+    """Whether specs ``a`` and ``b`` lay a tensor out alike on ``mesh``
+    (axes of one rank split nothing)."""
+    def norm(spec):
+        out = []
+        for e in spec:
+            names = () if e is None else (e,) if isinstance(e, str) else e
+            out.append(tuple(n for n in names if axes_size(mesh, n) > 1))
+        while out and not out[-1]:
+            out.pop()
+        return out
+    return norm(a) == norm(b)
+
+
+def lm_global_shapes(cfg: TransformerConfig):
+    """The LM's parameter tree as meta tensors of the global shapes
+    (``transformer.init_params``'s structure), for the spec rules."""
+    from repro_torch.models.transformer import _layer_shapes
+
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+    tree = {"embed": meta((cfg.vocab, cfg.d_model)),
+            "layers": {k: meta((cfg.n_layers,) + shape)
+                       for k, (shape, _) in _layer_shapes(cfg).items()},
+            "final_norm": meta((cfg.d_model,))}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = meta((cfg.d_model, cfg.vocab))
+    return tree
+
+
+def tp_expert_shardings(mesh) -> dict:
+    """The MoE dispatch constraints of TP inside the experts
+    (``launch/specs.py`` ``make_moe_shardings``'s second branch of the
+    reference): the capacity dimension over the data axes, d_ff over
+    `model`. ``moe_shardings=`` this dict runs ``transformer.moe_ffn``
+    with d_ff split over `model` whatever the expert count."""
+    mdl = model_axis(mesh)
+    dp = data_axes(mesh)
+    return {"xs": NamedSharding(mesh, P(None, dp, None)),
+            "h": NamedSharding(mesh, P(None, dp, mdl)),
+            "flat": NamedSharding(mesh, P(tuple(dp) + ((mdl,) if mdl
+                                                       else ()), None)),
+            "tokens": NamedSharding(mesh, P(dp, None))}

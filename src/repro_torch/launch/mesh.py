@@ -113,12 +113,17 @@ def ring(mesh, axes) -> tuple:
 
 
 def axes_group(mesh, axes):
-    """The process group of the ranks along ``axes`` that share this
-    rank's other coordinates. One axis: the mesh's own group for it;
-    several: the mesh's flattened group over them (built once by the
+    """The process group of the ranks along ``axes`` (a name or a tuple
+    of names, in the mesh's order) that share this rank's other
+    coordinates; a rank's index in it is its block's index along a
+    dimension sharded over ``axes``. One axis: the mesh's own group for
+    it; several: the mesh's flattened group over them (built once by the
     mesh, collectively: every rank of the mesh makes the same call)."""
-    axes = tuple(axes)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    ordered = tuple(a for a in axis_names(mesh) if a in axes)
+    if ordered != axes:
+        raise ValueError(f"axes {axes} are not in the mesh's order "
+                         f"{axis_names(mesh)}")
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    ordered = tuple(a for a in axis_names(mesh) if a in axes)
     return mesh[ordered]._flatten().get_group()

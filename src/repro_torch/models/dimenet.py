@@ -28,7 +28,7 @@ from repro_torch.configs.base import GNNConfig
 
 from .common import (init_mlp, mlp, normal_init, segment_sum, take,
                      uniform_init)
-from .gnn import _placed, default_gops
+from .gnn import _placed, default_gops, molecule_sums
 
 N_SPECIES = 16  # atomic-number embedding rows (H..S for molecule bench)
 
@@ -173,4 +173,5 @@ def dimenet_forward(params, batch: MoleculeBatch, cfg: GNNConfig,
                      batch.z.shape[0]), "node")
     energy_atom = mlp(per_atom, params["out_mlp"],
                       activation=F.silu)[:, 0]
-    return segment_sum(energy_atom, batch.mol_id, batch.n_mols)
+    e = segment_sum(energy_atom, batch.mol_id, batch.n_mols)
+    return molecule_sums(e, gops)

@@ -49,6 +49,18 @@ def default_gops():
     return take, segment_sum
 
 
+def molecule_sums(e, gops):
+    """Per-molecule sums ``e`` of this rank's atoms as every rank's: under
+    the halo ops (``gops.group``) summed over the group
+    (``distributed.tp.psum``, whose backward sums each rank's share of
+    the loss's cotangent); unchanged otherwise."""
+    group = getattr(gops, "group", None)
+    if group is None:
+        return e
+    from repro_torch.distributed.tp import psum
+    return psum(e, group)
+
+
 def symmetric_normalized_weights(g: Graph, gops=None) -> torch.Tensor:
     """GCN edge weights  d_i^{-1/2} d_j^{-1/2}  (self-loops NOT added here)."""
     tk, seg = gops or default_gops()

@@ -18,50 +18,27 @@ output replicated over the model axis): the output's all-reduce passes
 its cotangent through unchanged (each model rank holds the whole,
 replicated cotangent; summing it again would scale the experts'
 gradients by |model|), and the token activations and the router, which
-every model rank uses, sum their cotangents over the model group. A
-caller's data-parallel all-reduce then completes every gradient.
+every model rank uses, sum their cotangents over the model group (the
+Megatron pair, ``distributed.tp.copy_to`` / ``sum_over``). A caller's
+data-parallel all-reduce then completes every gradient.
+
+Expert stacks sharded over the data axes too (the reference's rule
+``P(mdl, fs, None)``, ZeRO-3) are gathered over them on entry, as the
+reference's ``shard_map`` ``in_specs`` ``P(mdl, None, None)`` forces:
+the FSDP gather (``distributed.tp.gather``), whose backward
+reduce-scatters the experts' gradients, summing them over the data
+group.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
-from repro_torch.launch.mesh import mesh_shape
+from repro_torch.distributed.tp import copy_to, gather, sum_over
+from repro_torch.launch.mesh import axes_group, mesh_shape
 
 from .transformer import moe_experts, moe_route, moe_slots
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity; the backward sums the cotangent over the model group."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _SumOverModel(torch.autograd.Function):
-    """All-reduce (sum) over the model group; the backward passes the
-    (replicated) cotangent through."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
 
 
 def moe_ffn_ep(x, p, cfg, mesh, *, dp_axes, mdl_axis,
@@ -90,11 +67,32 @@ def moe_ffn_ep(x, p, cfg, mesh, *, dp_axes, mdl_axis,
     c = max(capacity, 1)
     group = mesh.get_group(mdl_axis)
     me = mesh.get_local_rank(mdl_axis)
+    p = dict(p, **_gathered_experts(p, cfg, mesh, tuple(dp_axes)))
 
-    x = _CopyToModel.apply(x, group)
-    router = _CopyToModel.apply(p["router"], group)
+    x = copy_to(x, group)
+    router = copy_to(p["router"], group)
     topv, topi = moe_route(x, router, k)
     slot_tok, slot_w = moe_slots(topv, topi, c, me * e_local, e_local)
     out = moe_experts(x, p, slot_tok, slot_w)
     # each token was processed by top_k experts spread over ranks
-    return _SumOverModel.apply(out, group)
+    return sum_over(out, group)
+
+
+def _gathered_experts(p, cfg, mesh, dp_axes) -> dict:
+    """The expert stacks with their second dimension (d_model of
+    ``w_gate``/``w_up``, d_ff of ``w_down``) whole: a block of it over
+    the data axes is gathered over them; a whole one (the LM's layer
+    gathers its leaves) is taken as it is."""
+    full = {"w_gate": cfg.d_model, "w_up": cfg.d_model, "w_down": cfg.d_ff}
+    n = int(np.prod([mesh_shape(mesh)[a] for a in dp_axes]))
+    out = {}
+    for key, want in full.items():
+        have = p[key].shape[1]
+        if have == want:
+            continue
+        if have * n != want:
+            raise ValueError(f"{key} holds {have} of {want} rows of its "
+                             f"second dimension; {n} data ranks hold "
+                             f"{want // n} each")
+        out[key] = gather(p[key], 1, axes_group(mesh, dp_axes))
+    return out

@@ -27,7 +27,7 @@ from repro_torch.configs.base import GNNConfig
 
 from .common import (init_mlp, mlp, normal_init, segment_sum, take,
                      uniform_init)
-from .gnn import _placed, default_gops
+from .gnn import _placed, default_gops, molecule_sums
 from .so3 import cg_tensor, spherical_harmonics
 
 N_SPECIES = 16
@@ -146,4 +146,4 @@ def nequip_forward(params, g: AtomGraph, cfg: GNNConfig, constrain=None,
 
     e_atom = mlp(h[0][:, :, 0], params["readout"],
                  activation=F.silu)[:, 0]
-    return segment_sum(e_atom, g.mol_id, g.n_mols)
+    return molecule_sums(segment_sum(e_atom, g.mol_id, g.n_mols), gops)

@@ -19,16 +19,35 @@ lookup and the MoE dispatch gather go through ``models.common.take``,
 the MoE combine through ``models.common.segment_sum`` (a host-built
 plan, so one host sync per MoE layer on the card).
 
-Sharding: an ``"ep_mesh"`` dict in ``moe_shardings`` (what
+Sharding. ``forward(..., act_constraint=...)`` runs the training
+forward over the constraint's (data, model) mesh under the config's
+``parallelism`` (``distributed.tp.LMPlan``):
+``params`` hold this rank's blocks under ``sharding.lm_param_specs``
+and ``tokens`` this rank's batch block. Under "tp_fsdp" each layer
+gathers its weights over the data axes (ZeRO-3, inside the remat region,
+so the recompute gathers again), runs wq/wk/wv/w_gate/w_up as
+column-parallel and wo/w_down as row-parallel products over `model`,
+and keeps the residual stream sequence-split over `model` between
+layers (the reference's ``act_constraint`` ``P(dp, model, None)``);
+where a rank's column block is not whole heads the projections are
+gathered over `model` before attention. Under "fsdp" every weight is
+gathered over every axis and the batch is split over every axis. The
+reference gets these collectives from GSPMD; here they are
+``distributed.tp``'s, and ``_constrain`` is a real layout change
+(``sharding.with_sharding_constraint``).
+
+MoE under a mesh: an ``"ep_mesh"`` dict in ``moe_shardings`` (what
 ``make_moe_shardings`` gives an expert-parallel mesh) routes each MoE
 layer to ``models.moe_ep.moe_ffn_ep``: this rank's tokens, this rank's
-slice of the experts. The GSPMD constraints (``act_constraint``, and the
-tensor-parallel ``moe_shardings`` dict of ``NamedSharding``s) change no
-value in the reference; here they are checked against the tensor
-(``distributed.sharding.with_sharding_constraint``) and leave it as it
-is where the constrained axes have one rank. Where an axis has more,
-they raise ``NotImplementedError``: tensor-parallel and FSDP execution
-of the LM is a later slice.
+slice of the experts. The tensor-parallel dict (``"xs"``, ``"h"``,
+``"flat"``, ``"tokens"``, as ``sharding.tp_expert_shardings`` makes it)
+runs ``moe_ffn`` with d_ff split over `model` and the capacity ranks
+taken over the global batch (the tokens the unsharded layer drops are
+the ones dropped); each data rank dispatches its own tokens. The
+passes over whole tensors (``forward`` without an ``act_constraint``,
+``prefill``, ``decode_step``) take that dict over one rank, where it
+changes nothing, and raise ``NotImplementedError`` over more: sharded
+serving is a later slice.
 """
 from __future__ import annotations
 
@@ -37,7 +56,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.device import resolve_device
@@ -50,13 +69,14 @@ NEG_INF = -1e30
 LAYER_MODES = ("scan", "unroll")
 
 
-def _constrain(x, sharding):
-    """``jax.lax.with_sharding_constraint``: ``x`` checked against
-    ``sharding`` and returned unchanged (None: no constraint)."""
+def _constrain(x, sharding, src=None):
+    """``jax.lax.with_sharding_constraint``: ``x`` (this rank's block
+    under the spec ``src``, the whole tensor by default) as its block
+    under ``sharding``; None: no constraint."""
     if sharding is None:
         return x
     from repro_torch.distributed.sharding import with_sharding_constraint
-    return with_sharding_constraint(x, sharding)
+    return with_sharding_constraint(x, sharding, src)
 
 
 # ------------------------------------------------------------ params -------
@@ -119,30 +139,39 @@ def moe_route(x, router, k: int):
     return topv / topv.sum(dim=-1, keepdim=True), topi
 
 
-def moe_slots(topv, topi, c: int, e_first: int, e_local: int):
-    """The dispatch of top-k assignments onto the capacity slots of
-    experts ``[e_first, e_first + e_local)``:
-    (``slot_tok`` [e_local * c] token per slot, ``slot_w`` [e_local, c]
-    its weight). An assignment's rank is the count of earlier ones to
-    its expert; those at rank >= c, and those to other experts, go to a
-    dump slot that is discarded. An empty slot holds token 0 with weight
-    0, as in the reference."""
-    t, k = topi.shape
-    dev = topi.device
-    e_flat = topi.reshape(-1)                               # [T*k]
-    w_flat = topv.reshape(-1)
-    tok_flat = torch.arange(t, device=dev).repeat_interleave(k)
+def _slot_dest(e_flat, c: int, e_first: int, e_local: int):
+    """Each assignment's slot among experts ``[e_first, e_first +
+    e_local)`` (``e_local * c``: the dump slot). An assignment's rank is
+    the count of earlier ones to its expert; those at rank >= c, and
+    those to other experts, go to the dump slot."""
     local_e = e_flat - e_first
     mine = (local_e >= 0) & (local_e < e_local)
-
     onehot = F.one_hot(torch.where(mine, local_e,
                                    torch.full_like(local_e, e_local)),
                        e_local + 1)                         # [T*k, E+1]
     rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
     rank = torch.sum(rank * onehot, dim=-1)                 # [T*k]
     keep = mine & (rank < c)
-    dest = torch.where(keep, local_e * c + rank,
+    return torch.where(keep, local_e * c + rank,
                        torch.full_like(rank, e_local * c))  # dump slot
+
+
+def moe_slots(topv, topi, c: int, e_first: int, e_local: int, dest=None):
+    """The dispatch of top-k assignments onto the capacity slots of
+    experts ``[e_first, e_first + e_local)``:
+    (``slot_tok`` [e_local * c] token per slot, ``slot_w`` [e_local, c]
+    its weight). An assignment's rank is the count of earlier ones to
+    its expert; those at rank >= c, and those to other experts, go to a
+    dump slot that is discarded. An empty slot holds token 0 with weight
+    0, as in the reference. ``dest``: each assignment's slot, where the
+    caller ranked them (``_slot_dest``)."""
+    t, k = topi.shape
+    dev = topi.device
+    e_flat = topi.reshape(-1)                               # [T*k]
+    w_flat = topv.reshape(-1)
+    tok_flat = torch.arange(t, device=dev).repeat_interleave(k)
+    if dest is None:
+        dest = _slot_dest(e_flat, c, e_first, e_local)
 
     # duplicates are written only into the dump slot, which is discarded
     n = e_local * c
@@ -153,23 +182,51 @@ def moe_slots(topv, topi, c: int, e_first: int, e_local: int):
     return slot_tok[:n], slot_w[:n].reshape(e_local, c)
 
 
-def moe_experts(x, p, slot_tok, slot_w, shardings=None):
+def moe_experts(x, p, slot_tok, slot_w, tp_group=None):
     """The SwiGLU experts of ``p`` (``w_*`` [e, ...]) over their slots,
     each output weighted and summed onto its token in slot order (the
-    plan ``segment_sum``) -> [T, D] in ``x``'s dtype."""
+    plan ``segment_sum``) -> [T, D] in ``x``'s dtype. ``tp_group``: the
+    experts' d_ff is split over it (``x`` replicated over it; the
+    column-parallel input and the row-parallel output's sum, the
+    Megatron pair)."""
+    from repro_torch.distributed import tp
+
     t, d = x.shape
     e, c = slot_w.shape
-    cons = shardings or {}
-    xs = _constrain(take(x, slot_tok).reshape(e, c, d), cons.get("xs"))
+    xin = x if tp_group is None else tp.copy_to(x, tp_group)
+    xs = take(xin, slot_tok).reshape(e, c, d)
     h = F.silu(torch.bmm(xs, p["w_gate"])) * torch.bmm(xs, p["w_up"])
-    h = _constrain(h, cons.get("h"))
-    y = _constrain(torch.bmm(h, p["w_down"]), cons.get("xs"))  # [E, C, D]
+    y = torch.bmm(h, p["w_down"])                           # [E, C, D]
+    if tp_group is not None:
+        y = tp.sum_over(y, tp_group)
 
     # combine in the compute dtype, as the reference
     y = (y * slot_w[..., None].to(y.dtype)).reshape(e * c, d)
-    y = _constrain(y, cons.get("flat"))
-    out = _constrain(segment_sum(y, slot_tok, t), cons.get("tokens"))
+    out = segment_sum(y, slot_tok, t)
     return out.to(x.dtype)
+
+
+def _tp_experts(shardings, cfg, f_local: int) -> tuple:
+    """(data group, number of data ranks, model group or None) of the
+    tensor-parallel dict: the tokens' data axes (``"tokens"``), and the
+    model axis (``"h"``'s last entry) where the experts' d_ff is split
+    over it."""
+    from repro_torch.launch.mesh import axes_group, axes_size
+
+    mesh = shardings["tokens"].mesh
+    dp = shardings["tokens"].spec[0]
+    mdl = shardings["h"].spec[2] if len(shardings["h"].spec) > 2 else None
+    n_mdl = axes_size(mesh, mdl)
+    if mdl is not None and f_local * n_mdl == cfg.d_ff:
+        mg = axes_group(mesh, mdl)             # a block (over one rank: all)
+    elif f_local == cfg.d_ff:
+        mg = None                              # the same experts everywhere
+    else:
+        raise ValueError(f"experts hold {f_local} of d_ff {cfg.d_ff}; over "
+                         f"{n_mdl} model ranks that is neither all nor a "
+                         "block")
+    dg = axes_group(mesh, dp) if dp is not None else None
+    return dg, axes_size(mesh, dp), mg
 
 
 def moe_ffn(x, p, cfg: TransformerConfig, capacity: Optional[int] = None,
@@ -178,17 +235,40 @@ def moe_ffn(x, p, cfg: TransformerConfig, capacity: Optional[int] = None,
 
     x [T, D] flattened tokens -> [T, D]. Assignments past an expert's
     capacity go to a dump slot and are dropped; an empty slot gathers
-    token 0 with weight 0, as in the reference. ``shardings`` (a dict of
-    ``NamedSharding``s for "xs", "h", "flat" and "tokens") constrains
-    the dispatch buffers as the reference's does.
+    token 0 with weight 0, as in the reference.
+
+    ``shardings``: the tensor-parallel dict (``"xs"``, ``"h"``,
+    ``"flat"``, ``"tokens"``). ``x`` is then this rank's block of the
+    tokens (over the data axes of ``"tokens"``, replicated over
+    `model`), and the expert stacks hold this rank's d_ff block where
+    d_ff is split over `model` (``"h"``). The expert ids of every data
+    rank are gathered and ranked together, so capacity and drops are
+    the global batch's (the reference's global view, capacity from the
+    global token count); each rank fills the slots of its own tokens.
     """
+    from repro_torch.distributed import tp
+
     t, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
     topv, topi = moe_route(x, p["router"], k)
+    if not tp.is_tp_expert_dict(shardings):
+        if capacity is None:
+            capacity = int(np.ceil(t * k / e * cfg.capacity_factor))
+        slot_tok, slot_w = moe_slots(topv, topi, max(capacity, 1), 0, e)
+        return moe_experts(x, p, slot_tok, slot_w)
+    dg, n_dp, mg = _tp_experts(shardings, cfg, p["w_gate"].shape[-1])
     if capacity is None:
-        capacity = int(np.ceil(t * k / e * cfg.capacity_factor))
-    slot_tok, slot_w = moe_slots(topv, topi, max(capacity, 1), 0, e)
-    return moe_experts(x, p, slot_tok, slot_w, shardings)
+        capacity = int(np.ceil(t * n_dp * k / e * cfg.capacity_factor))
+    c = max(capacity, 1)
+    e_flat = topi.reshape(-1)
+    if dg is not None:
+        e_flat = tp._all_gather(e_flat, 0, dg)
+        me = torch.distributed.get_rank(dg)
+        dest = _slot_dest(e_flat, c, 0, e)[me * t * k:(me + 1) * t * k]
+    else:
+        dest = _slot_dest(e_flat, c, 0, e)
+    slot_tok, slot_w = moe_slots(topv, topi, c, 0, e, dest=dest)
+    return moe_experts(x, p, slot_tok, slot_w, tp_group=mg)
 
 
 def dense_ffn(x, p):
@@ -215,16 +295,42 @@ def _ffn(h, lp, cfg, moe_shardings=None):
                              dp_axes=moe_shardings["dp"],
                              mdl_axis=moe_shardings["mdl"])
             return out.reshape(b, s, d)
-        return moe_ffn(hn.reshape(b * s, d), lp, cfg,
-                       shardings=moe_shardings).reshape(b, s, d)
+        return moe_ffn(hn.reshape(b * s, d), lp, cfg).reshape(b, s, d)
     return dense_ffn(hn, lp)
 
 
-def _project_qkv(hn, lp, cfg, q_pos):
+def _whole_tensor_moe(moe_shardings, where: str):
+    """``moe_shardings`` for a pass over whole tensors (the mesh-less
+    forward, prefill, decode): the "ep_mesh" dict as it is; the
+    tensor-parallel dict over one rank changes nothing (None); over more
+    ranks it needs this rank's block of the tokens, which only the
+    sharded training forward holds."""
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import mesh_shape
+
+    if not tp.is_tp_expert_dict(moe_shardings):
+        return moe_shardings
+    n = int(np.prod(list(mesh_shape(moe_shardings["tokens"].mesh)
+                         .values())))
+    if n > 1:
+        raise NotImplementedError(
+            f"{where}: the tensor-parallel MoE dict over {n} ranks runs in "
+            "the sharded training forward only (an act_constraint); "
+            "sharded prefill and decode are the serving slice")
+    return None
+
+
+def _project_qkv(hn, lp, cfg, q_pos, heads=None, proj=None):
+    """q, k, v [B, S, heads, Dh] after qk-norm and RoPE. ``heads``: the
+    (query, kv) head counts this rank holds (the config's by default);
+    ``proj(name)``: the projection by ``lp[name]`` (``hn @ lp[name]`` by
+    default)."""
     b, s, _ = hn.shape
-    q = (hn @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    kk = (hn @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    vv = (hn @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    nh, nkv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    proj = proj or (lambda name: hn @ lp[name])
+    q = proj("wq").reshape(b, s, nh, cfg.d_head)
+    kk = proj("wk").reshape(b, s, nkv, cfg.d_head)
+    vv = proj("wv").reshape(b, s, nkv, cfg.d_head)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         kk = rms_norm(kk, lp["k_norm"], cfg.norm_eps)
@@ -253,19 +359,34 @@ def _embed(params, tokens, compute_dtype):
 def forward(params, tokens, cfg: TransformerConfig, *, remat: bool = True,
             q_chunk: int = 512, k_chunk: int = 1024,
             layer_mode: str = "scan", compute_dtype=torch.bfloat16,
-            act_constraint=None, moe_shardings=None):
+            act_constraint=None, moe_shardings=None, plan=None):
     """Training forward: tokens [B, S] -> normed hidden [B, S, D].
 
     ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``.
+
+    With an ``act_constraint``: the sharded forward on this rank's
+    blocks over its mesh, under the config's ``parallelism`` (module
+    docstring); the result is this rank's block of the normed hidden in
+    the residual layout (``tp.residual_spec``: [B/|dp|, S/|model|, D]
+    under "tp_fsdp"). ``plan``: the ``LMPlan`` of that constraint, where
+    the caller has built it (``train.steps.make_lm_value_and_grad``).
     """
+    if plan is None and act_constraint is not None:
+        from repro_torch.distributed.tp import LMPlan
+        plan = LMPlan(cfg, act_constraint.mesh, moe_shardings)
+    if plan is not None:
+        return _forward_sharded(params, tokens, cfg, plan, remat=remat,
+                                q_chunk=q_chunk, k_chunk=k_chunk,
+                                layer_mode=layer_mode,
+                                compute_dtype=compute_dtype,
+                                act_constraint=act_constraint)
+    moe_shardings = _whole_tensor_moe(moe_shardings, "forward")
     tokens, h = _embed(params, tokens, compute_dtype)
     b, s = tokens.shape
     q_pos = torch.arange(s, device=h.device)
 
     def layer(h, lp):
-        # the reference's sequence-parallel residual stream constraint
-        h = _constrain(h, act_constraint)
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, kk, vv = _project_qkv(hn, lp, cfg, q_pos)
         attn = chunked_attention(q, kk, vv, q_pos=q_pos, kv_pos=q_pos,
@@ -278,6 +399,112 @@ def forward(params, tokens, cfg: TransformerConfig, *, remat: bool = True,
         h = (checkpoint(layer, h, lp, use_reentrant=False) if remat
              else layer(h, lp))
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def _forward_sharded(params, tokens, cfg, plan, *, remat, q_chunk, k_chunk,
+                     layer_mode, compute_dtype, act_constraint):
+    from repro_torch.distributed.sharding import same_layout
+
+    if act_constraint is not None and not same_layout(
+            act_constraint.spec, plan.act, plan.mesh):
+        raise ValueError(f"the {plan.strategy} forward keeps the residual "
+                         f"stream in {plan.act}; act_constraint asks for "
+                         f"{act_constraint.spec}")
+    embed = plan.gather_leaf(params["embed"], plan.gathers["['embed']"])
+    tokens = torch.as_tensor(tokens, device=embed.device).long()
+    s = tokens.shape[1]
+    h = take(embed, plan.seq_block(tokens)).to(compute_dtype or torch.float32)
+    del embed
+    q_pos = torch.arange(s, device=h.device)
+    gathers = plan.layer_gathers()
+
+    def layer(h, lp):
+        # ZeRO-3: the weights gathered here, inside the remat region
+        lp = {k: plan.gather_leaf(v, gathers[k]) for k, v in lp.items()}
+        h = h + _attention_sharded(h, lp, cfg, plan, q_pos, q_chunk, k_chunk)
+        return h + _ffn_sharded(h, lp, cfg, plan)
+
+    # the recompute replays the whole layer, every collective included
+    with set_checkpoint_early_stop(False):
+        for lp in _layers(params, cfg, compute_dtype, layer_mode):
+            h = (checkpoint(layer, h, lp, use_reentrant=False) if remat
+                 else layer(h, lp))
+    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def _layouts(plan):
+    """(whole, split): the layout changes between the residual block
+    (``plan.act``) and this data rank's tokens at every position
+    (``plan.tokens``)."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    tokens = NamedSharding(plan.mesh, plan.tokens)
+    act = NamedSharding(plan.mesh, plan.act)
+    return (lambda x: _constrain(x, tokens, plan.act),
+            lambda x: _constrain(x, act, plan.tokens))
+
+
+def _attention_sharded(h, lp, cfg, plan, q_pos, q_chunk, k_chunk):
+    """The attention block's output on this rank's residual block:
+    column-parallel q/k/v, row-parallel wo (``plan.attn``)."""
+    from repro_torch.distributed import tp
+
+    mg = plan.model_group
+    b, s = h.shape[0], q_pos.shape[0]
+    hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+
+    def attend(q, kk, vv):
+        return chunked_attention(q, kk, vv, q_pos=q_pos, kv_pos=q_pos,
+                                 causal=True, window=cfg.sliding_window,
+                                 q_chunk=q_chunk, k_chunk=k_chunk)
+
+    if plan.attn == "heads":      # Megatron-SP: this rank's whole heads
+        x = tp.gather(hn, 1, mg)
+        q, kk, vv = _project_qkv(x, lp, cfg, q_pos, heads=(
+            cfg.n_heads // plan.m, cfg.n_kv_heads // plan.m))
+        out = attend(q, kk, vv).reshape(b, s, -1) @ lp["wo"]
+        return tp.scatter(out, 1, mg)
+    # every head on every model rank: split projections gathered
+    whole, split = _layouts(plan)
+    x = whole(hn)
+    xc = tp.copy_to(x, mg) if any(plan.col_split.values()) else x
+
+    def proj(name):
+        if plan.col_split[name]:
+            return tp.unshard(xc @ lp[name], 2, mg)
+        return x @ lp[name]
+    attn = attend(*_project_qkv(x, lp, cfg, q_pos, proj=proj))
+    attn = attn.reshape(b, s, -1)
+    if plan.wo_split:
+        return tp.scatter(tp.shard(attn, 2, mg) @ lp["wo"], 1, mg)
+    return split(attn @ lp["wo"])
+
+
+def _ffn_sharded(h, lp, cfg, plan):
+    """The FFN block's output on this rank's residual block: d_ff
+    column- then row-parallel, or the MoE layer on this data rank's
+    tokens."""
+    from repro_torch.distributed import tp
+
+    mg = plan.model_group
+    b, d = h.shape[0], h.shape[2]
+    hn = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+    whole, split = _layouts(plan)
+    if cfg.moe:
+        x = whole(hn)
+        s = x.shape[1]
+        if plan.moe == "ep":
+            from .moe_ep import moe_ffn_ep
+            ms = plan.moe_shardings
+            out = moe_ffn_ep(x.reshape(b * s, d), lp, cfg, ms["ep_mesh"],
+                             dp_axes=ms["dp"], mdl_axis=ms["mdl"])
+        else:
+            out = moe_ffn(x.reshape(b * s, d), lp, cfg,
+                          shardings=plan.moe_shardings)
+        return split(out.reshape(b, s, d))
+    if plan.ffn == "split":
+        return tp.scatter(dense_ffn(tp.gather(hn, 1, mg), lp), 1, mg)
+    return split(dense_ffn(whole(hn), lp))
 
 
 def logits_fn(params, h, cfg: TransformerConfig):
@@ -316,6 +543,7 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
     (the new token's slot, ``index % t_buf``) and are the new cache's,
     as the reference's decode reuses a donated cache. ``index`` is a new
     tensor. No host sync but the MoE combine's plan."""
+    moe_shardings = _whole_tensor_moe(moe_shardings, "decode_step")
     tokens, h = _embed(params, tokens, compute_dtype)
     b = tokens.shape[0]
     t_buf = cache["k"].shape[2]
@@ -353,6 +581,7 @@ def prefill(params, tokens, cfg: TransformerConfig, *, max_len: int,
             cache_dtype=torch.bfloat16, layer_mode: str = "scan",
             compute_dtype=torch.bfloat16, moe_shardings=None):
     """Prefill the prompt, return (normed hidden [B,S,D], cache)."""
+    moe_shardings = _whole_tensor_moe(moe_shardings, "prefill")
     tokens, h = _embed(params, tokens, compute_dtype)
     b, s = tokens.shape
     dev = h.device

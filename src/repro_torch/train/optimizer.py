@@ -51,10 +51,12 @@ class AdamW:
         return self.lr(step) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, norm_reduce=None):
+        """``norm_reduce``: the clipping norm's reduction over ranks
+        (``global_norm``); None on one rank."""
         step = state.step + 1
         if self.clip_norm:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm_reduce)
         b1, b2 = self.b1, self.b2
         mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
@@ -88,9 +90,9 @@ class SGD:
         return SGDState(_step_zero(params), _zeros(params))
 
     @torch.no_grad()
-    def update(self, grads, state: SGDState, params):
+    def update(self, grads, state: SGDState, params, norm_reduce=None):
         if self.clip_norm:
-            grads = clip_by_global_norm(grads, self.clip_norm)
+            grads = clip_by_global_norm(grads, self.clip_norm, norm_reduce)
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         mom = tree_map(lambda m, g: self.momentum * m + g, state.mom, grads)
@@ -99,13 +101,22 @@ class SGD:
         return new_params, SGDState(step, mom)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """The L2 norm of every leaf together. ``reduce``: for leaves that
+    are this rank's blocks of sharded tensors, a function from the
+    per-leaf sums of squares (in leaf order) to each whole leaf's
+    (``distributed.tp.LMPlan.norm_reduce``: each distinct block counted
+    once, a replicated leaf once); the sums are then added in leaf order
+    as without it."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    if reduce is not None:
+        sq = reduce(sq)
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    n = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, reduce=None):
+    n = global_norm(grads, reduce)
     scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads)
 

@@ -21,23 +21,31 @@ reference's fixed choice; None runs f32). Prefill, decode and the FM
 serve steps record no gradient.
 
 DimeNet and NequIP train on the mean squared error of per-molecule
-energies (``energy_loss_dimenet`` / ``energy_loss_nequip``); their serve
-step returns the energies.
+energies (``energy_loss_dimenet`` / ``energy_loss_nequip``), sharded
+too under the halo ops; their serve step returns the energies.
 
-The node models train sharded too: ``make_gnn_train_step(cfg, opt,
+The GNNs train sharded too: ``make_gnn_train_step(cfg, opt,
 gops=make_halo_ops(mesh, axes))`` runs on every rank of the mesh over
 its shard of the graph, with the loss and the gradients summed over the
 mesh (one all-reduce of one flat buffer) before ``compress`` and the
 optimizer, as the reference's global-view program computes them.
+
+The LM trains sharded over a (data, model) mesh:
+``make_lm_train_step(cfg, opt, act_constraint=NamedSharding(mesh,
+tp.residual_spec(cfg, mesh)))`` under the config's ``parallelism``
+("tp_fsdp" or "fsdp"; ``distributed.tp.LMPlan``), as the reference's
+train cells pass it, with the vocab-parallel cross-entropy where the
+head is split over `model`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import (GNNConfig, RecsysConfig,
                                       TransformerConfig)
@@ -52,17 +60,53 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 # ------------------------------------------------------------- LM ----------
-def _xent_chunk(hc, lc, head):
-    """(sum of token xent, count of labelled tokens) of one chunk. The
-    label's logit is picked by a comparison with the vocabulary ids, so
-    the backward scatters nothing."""
+def _xent_chunk(hc, lc, head, v0: int = 0, group=None):
+    """(sum of token xent, count of labelled tokens) of one chunk, the
+    head's vocabulary columns ``[v0, v0 + V_local)``. ``group``: the
+    vocabulary is split over it (vocab-parallel cross-entropy): the max,
+    the sum of exponentials and the label's logit are summed over it.
+    One formula with or without a group: ``lz = max + log(sum(exp(l -
+    max)))``. The label's logit is picked by a comparison with the
+    vocabulary ids, so the backward scatters nothing."""
+    from repro_torch.distributed import tp
+
     logits = (hc @ head).to(torch.float32)                # [B, c, V]
-    lz = torch.logsumexp(logits, dim=-1)
-    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    mx = torch.amax(logits, dim=-1).detach()
+    if group is not None:
+        mx = tp.all_max(mx, group)
+    ex = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+    vocab = torch.arange(v0, v0 + logits.shape[-1], device=logits.device)
     hit = vocab == torch.clamp(lc, min=0)[..., None]
     tgt = torch.where(hit, logits, 0.0).sum(dim=-1)
+    if group is not None:
+        ex, tgt = tp.sum_over(ex, group), tp.sum_over(tgt, group)
+    lz = mx + torch.log(ex)
     valid = (lc >= 0).to(torch.float32)
     return torch.sum((lz - tgt) * valid), torch.sum(valid)
+
+
+def _xent_sums(h, head, labels, *, chunk: int, v0: int = 0, group=None):
+    """(sum of token xent, count of labelled tokens) over S chunks, each
+    recomputed in the backward."""
+    b, s, d = h.shape
+    labels = torch.as_tensor(labels, device=h.device).long()
+    c = min(chunk, s)
+    sp = -(-s // c) * c
+    hp = F.pad(h, (0, 0, 0, sp - s)) if sp > s else h
+    lp = F.pad(labels, (0, sp - s), value=-1) if sp > s else labels
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    # with a group the recompute replays the whole chunk, its collectives
+    # included
+    with (set_checkpoint_early_stop(False) if group is not None
+          else contextlib.nullcontext()):
+        for i in range(sp // c):
+            part, n = checkpoint(_xent_chunk, hp[:, i * c:(i + 1) * c],
+                                 lp[:, i * c:(i + 1) * c], head, v0, group,
+                                 use_reentrant=False)
+            tot = tot + part
+            cnt = cnt + n
+    return tot, cnt
 
 
 def chunked_cross_entropy(h, head, labels, *, chunk: int = 256):
@@ -72,34 +116,95 @@ def chunked_cross_entropy(h, head, labels, *, chunk: int = 256):
     each recomputed in the backward, so a chunk's [B,c,V] logits live
     only transiently; labels < 0 (the padded tail) do not count.
     """
-    b, s, d = h.shape
+    tot, cnt = _xent_sums(h, head, labels, chunk=chunk)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _sharded_xent(h, params, labels, plan, chunk: int):
+    """The mean token xent of the global batch from this rank's block of
+    the normed hidden (``plan.act``), replicated on every rank: each
+    rank's share of the numerator summed over the ranks that split it
+    (``tp.sum_over``: the global view's loss, whose cotangent every rank
+    holds whole), over the global count of labelled tokens. The head
+    split over `model` (``plan.head == "vocab"``) runs the
+    vocab-parallel cross-entropy on the whole sequence; otherwise each
+    rank takes its sequence block against the whole vocabulary."""
+    from repro_torch.distributed import tp
+
+    cfg = plan.cfg
     labels = torch.as_tensor(labels, device=h.device).long()
-    c = min(chunk, s)
-    sp = -(-s // c) * c
-    hp = F.pad(h, (0, 0, 0, sp - s)) if sp > s else h
-    lp = F.pad(labels, (0, sp - s), value=-1) if sp > s else labels
-    tot = torch.zeros((), device=h.device)
-    cnt = torch.zeros((), device=h.device)
-    for i in range(sp // c):
-        part, n = checkpoint(_xent_chunk, hp[:, i * c:(i + 1) * c],
-                             lp[:, i * c:(i + 1) * c], head,
-                             use_reentrant=False)
-        tot = tot + part
-        cnt = cnt + n
+    key = "['embed']" if cfg.tie_embeddings else "['lm_head']"
+    head = plan.gather_leaf(params["embed" if cfg.tie_embeddings
+                                   else "lm_head"], plan.gathers[key])
+    if cfg.tie_embeddings:
+        head = head.T
+    if plan.head == "vocab":
+        mg = plan.model_group
+        v0 = torch.distributed.get_rank(mg) * head.shape[1]
+        tot, cnt = _xent_sums(tp.gather(h, 1, mg), head, labels,
+                              chunk=chunk, v0=v0, group=mg)
+        group = plan.batch_group
+    else:
+        tot, cnt = _xent_sums(h, head, plan.seq_block(labels), chunk=chunk)
+        group = plan.loss_group
+    tot = tp.sum_over(tot, group)
+    cnt = tp.all_sum(cnt, group)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_loss(params, batch, cfg: TransformerConfig, *, remat=True,
             q_chunk=512, k_chunk=1024, xent_chunk=256, layer_mode="scan",
             act_constraint=None, moe_shardings=None,
-            compute_dtype=torch.bfloat16):
+            compute_dtype=torch.bfloat16, plan=None):
+    """The mean token xent. With an ``act_constraint``: the sharded loss
+    over this rank's parameter and batch blocks (``transformer.forward``;
+    ``plan`` its ``LMPlan`` where the caller built it), the global
+    batch's loss on every rank."""
+    if plan is None and act_constraint is not None:
+        from repro_torch.distributed.tp import LMPlan
+        plan = LMPlan(cfg, act_constraint.mesh, moe_shardings)
     h = tfm.forward(params, batch["tokens"], cfg, remat=remat,
                     q_chunk=q_chunk, k_chunk=k_chunk, layer_mode=layer_mode,
                     compute_dtype=compute_dtype,
                     act_constraint=act_constraint,
-                    moe_shardings=moe_shardings)
+                    moe_shardings=moe_shardings, plan=plan)
+    if plan is not None:
+        return _sharded_xent(h, params, batch["labels"], plan, xent_chunk)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return chunked_cross_entropy(h, head, batch["labels"], chunk=xent_chunk)
+
+
+def make_lm_value_and_grad(cfg: TransformerConfig, *, remat=True,
+                           q_chunk=512, k_chunk=1024, xent_chunk=256,
+                           layer_mode="scan", act_constraint=None,
+                           moe_shardings=None, compute_dtype=torch.bfloat16):
+    """``fn(params, batch) -> (loss, grads)``: the LM loss and its
+    gradient. With an ``act_constraint`` (``tp.residual_spec`` over a
+    mesh): over this rank's blocks under the config's ``parallelism``
+    (``params`` from ``sharding.shard_tree`` with ``lm_param_specs``,
+    the batch split over the data axes under "tp_fsdp" and over every
+    axis under "fsdp"), the loss the global batch's and each gradient
+    leaf this rank's block of the global gradient: summed over the axes
+    its computation was split over (``LMPlan.reduce_grads``; a leaf
+    sharded over ``fs`` was summed by its gather's reduce-scatter).
+    ``fn.plan`` is the ``LMPlan``, built once here (None without a
+    constraint)."""
+    plan = None
+    if act_constraint is not None:
+        from repro_torch.distributed.tp import LMPlan
+        plan = LMPlan(cfg, act_constraint.mesh, moe_shardings)
+    loss_fn = functools.partial(lm_loss, cfg=cfg, remat=remat,
+                                q_chunk=q_chunk, k_chunk=k_chunk,
+                                xent_chunk=xent_chunk, layer_mode=layer_mode,
+                                act_constraint=act_constraint,
+                                moe_shardings=moe_shardings,
+                                compute_dtype=compute_dtype, plan=plan)
+
+    def fn(params, batch):
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        return loss, (grads if plan is None else plan.reduce_grads(grads))
+    fn.plan = plan
+    return fn
 
 
 def make_lm_train_step(cfg: TransformerConfig, optimizer, *, remat=True,
@@ -107,13 +212,24 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *, remat=True,
                        compress=None, layer_mode="scan",
                        act_constraint=None, moe_shardings=None,
                        compute_dtype=torch.bfloat16):
-    loss_fn = functools.partial(lm_loss, cfg=cfg, remat=remat,
-                                q_chunk=q_chunk, k_chunk=k_chunk,
-                                xent_chunk=xent_chunk, layer_mode=layer_mode,
-                                act_constraint=act_constraint,
-                                moe_shardings=moe_shardings,
-                                compute_dtype=compute_dtype)
-    return _train_step(loss_fn, optimizer, compress)
+    """The LM train step; with an ``act_constraint``, over this rank's
+    blocks (``make_lm_value_and_grad``), the clipping norm counting
+    every distinct block once (``LMPlan.norm_reduce``)."""
+    grad_fn = make_lm_value_and_grad(
+        cfg, remat=remat, q_chunk=q_chunk, k_chunk=k_chunk,
+        xent_chunk=xent_chunk, layer_mode=layer_mode,
+        act_constraint=act_constraint, moe_shardings=moe_shardings,
+        compute_dtype=compute_dtype)
+    plan = grad_fn.plan
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grad_fn(params, batch)
+        if compress is not None:
+            grads = compress(grads)
+        kw = {} if plan is None else {"norm_reduce": plan.norm_reduce(grads)}
+        params, opt_state = optimizer.update(grads, opt_state, params, **kw)
+        return params, opt_state, {"loss": loss}
+    return train_step
 
 
 def make_lm_prefill_step(cfg: TransformerConfig, *, max_len,
@@ -255,23 +371,48 @@ def _atom_graph(batch, n_mols: int):
            if k != "n_mols"}, n_mols=n_mols)
 
 
+def _n_mols(batch, gops) -> int:
+    """The molecules of the batch: ``batch["energy"]``'s length, times
+    the ranks of the halo group, where ``batch["energy"]`` is this rank's
+    block of them (``graph_batch_specs``)."""
+    group = getattr(gops, "group", None)
+    n = batch["energy"].shape[0]
+    return n if group is None else n * dist.get_world_size(group)
+
+
+def _energy_mse(e, target, gops):
+    """The mean squared error of the energies ``e`` [n_mols] against
+    ``target``. Under the halo ops ``e`` is every molecule's (summed over
+    the group by the model) and ``target`` this rank's block: the rank's
+    share is the error of its block, so the shares sum to the loss."""
+    group = getattr(gops, "group", None)
+    if group is None:
+        return torch.mean(torch.square(e - target))
+    n = target.shape[0]
+    me = dist.get_rank(group)
+    own = e[me * n:(me + 1) * n]
+    return torch.mean(torch.square(own - target)) * (n / e.shape[0])
+
+
 def energy_loss_dimenet(params, batch, cfg: GNNConfig, constrain=None,
                         gops=None, remat=False):
     """Mean squared error of DimeNet's per-molecule energies against
-    ``batch["energy"]``, whose length is the number of molecules."""
+    ``batch["energy"]``, whose length is the number of molecules (under
+    the halo ops: this rank's block of them, and the loss this rank's
+    share)."""
     e = dimenet_m.dimenet_forward(
-        params, _molecules(batch, batch["energy"].shape[0]), cfg,
+        params, _molecules(batch, _n_mols(batch, gops)), cfg,
         constrain=constrain, gops=gops, remat=remat)
-    return torch.mean(torch.square(e - batch["energy"]))
+    return _energy_mse(e, batch["energy"], gops)
 
 
 def energy_loss_nequip(params, batch, cfg: GNNConfig, constrain=None,
                        gops=None, remat=False):
     """As ``energy_loss_dimenet``, for NequIP."""
     e = nequip_m.nequip_forward(
-        params, _atom_graph(batch, batch["energy"].shape[0]), cfg,
+        params, _atom_graph(batch, _n_mols(batch, gops)), cfg,
         constrain=constrain, gops=gops, remat=remat)
-    return torch.mean(torch.square(e - batch["energy"]))
+    return _energy_mse(e, batch["energy"], gops)
 
 
 def make_gnn_train_step(cfg: GNNConfig, optimizer, compress=None,
@@ -279,18 +420,14 @@ def make_gnn_train_step(cfg: GNNConfig, optimizer, compress=None,
     """The GNN train step. With ``gops = make_halo_ops(mesh, axes)`` it
     runs on every rank of the mesh over that rank's shard of a full
     graph (``graph_batch_specs``) and computes what the reference's
-    global-view program computes: the loss over every rank's nodes, and
-    each replicated parameter's gradient summed over the ranks before
-    ``compress`` and the optimizer, so every rank takes the same step.
-    The energy models' molecule reductions have no sharded form here
-    (``NotImplementedError``)."""
+    global-view program computes: the loss over every rank's nodes (or
+    molecules), and each replicated parameter's gradient summed over
+    the ranks before ``compress`` and the optimizer, so every rank takes
+    the same step. DimeNet and NequIP sum each molecule's partial
+    energy over the ranks before the loss."""
     group = getattr(gops, "group", None)
     loss = {"dimenet": energy_loss_dimenet,
             "nequip": energy_loss_nequip}.get(cfg.kind, gnn_node_loss)
-    if group is not None and loss is not gnn_node_loss:
-        raise NotImplementedError(
-            f"{cfg.kind}: a sharded energy loss (per-molecule sums across "
-            "ranks) is not ported; the halo step trains node models")
     loss_fn = functools.partial(loss, cfg=cfg, constrain=constrain,
                                 gops=gops, remat=remat)
     return _train_step(loss_fn, optimizer, compress, group)

@@ -416,12 +416,38 @@ def test_sharded_gnn_step_on_one_rank_is_bitwise(gnn_setup, one_rank):
     _close((out["losses"], out["params"]), s["port"])
 
 
-def test_energy_models_have_no_sharded_step(one_rank):
+@pytest.mark.parametrize("arch", ["dimenet", "nequip"])
+def test_energy_models_have_a_sharded_step(arch, one_rank):
+    """The halo step of the energy models (molecules summed over the
+    group, each rank's share of the loss) over one rank: 3 AdamW steps
+    bitwise-equal to the unsharded step (4 ranks:
+    tests/test_torch_tp.py)."""
+    from repro_torch.data.graphs import random_molecules
     from repro_torch.distributed.halo import make_halo_ops
-    gops = make_halo_ops(one_rank, ("data", "model"))
-    with pytest.raises(NotImplementedError, match="sharded energy loss"):
-        tsteps.make_gnn_train_step(get_arch("dimenet").smoke,
-                                   topt.AdamW(lr=1e-3), gops=gops)
+    from repro_torch.models import dimenet, nequip
+
+    cfg = get_arch(arch).smoke
+    mols = random_molecules(4, 6, cutoff=3.0, seed=0)
+    fields = (dimenet.MoleculeBatch if arch == "dimenet"
+              else nequip.AtomGraph)._fields[:-1]
+    batch = {k: torch.from_numpy(mols[k]) for k in fields}
+    batch["energy"] = torch.from_numpy(np.random.default_rng(1)
+                                       .standard_normal(4)
+                                       .astype(np.float32))
+    init = dimenet.dimenet_init if arch == "dimenet" else nequip.nequip_init
+    params = init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    out = []
+    for gops in (None, make_halo_ops(one_rank, ("data", "model"))):
+        opt = topt.AdamW(lr=1e-3)
+        step = tsteps.make_gnn_train_step(cfg, opt, gops=gops)
+        p, s = params, opt.init(params)
+        losses = []
+        for _ in range(3):
+            p, s, aux = step(p, s, batch)
+            losses.append(aux["loss"])
+        out.append((losses, tree_leaves(p)))
+    assert all(torch.equal(a, b) for a, b in zip(out[0][0], out[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
 # ------------------------------------------------ the LM on a (1, 1) mesh --
@@ -505,18 +531,6 @@ def test_constraints_over_one_rank_change_nothing(one_rank):
     b = tT.forward(params, tokens, cfg, compute_dtype=None, remat=False,
                    act_constraint=act, moe_shardings=tp)
     assert torch.equal(a, b)
-
-
-def test_constraints_over_several_ranks_raise():
-    """Tensor-parallel and FSDP execution of the LM: a later slice."""
-    import types
-    cfg, params, tokens = _lm()
-    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2},
-                                 axis_names=("data", "model"))
-    act = tshd.NamedSharding(mesh, tshd.P("data", None, "model"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tT.forward(params, tokens, cfg, compute_dtype=None, remat=False,
-                   act_constraint=act)
 
 
 def test_overlap_flags_sets_no_knob():

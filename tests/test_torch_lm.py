@@ -369,22 +369,24 @@ def _two_model_ranks(spec):
     return NamedSharding(mesh, P(*spec))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(moe_shardings={"xs": ("model", None, None)}),
-    dict(act_constraint=(None, None, "model"))])
-def test_sharded_execution_is_the_distributed_slices(kw):
-    """The distributed slice runs the expert-parallel "ep_mesh" and
-    constraints over one rank (tests/test_torch_distributed.py); a
-    constraint that splits a tensor over two ranks (tensor-parallel and
-    FSDP execution of the LM) is a later slice and raises."""
+@pytest.mark.parametrize("kw, match", [
+    (dict(moe_shardings={"xs": ("model", None, None)}),
+     "tensor-parallel MoE dict needs"),
+    (dict(act_constraint=(None, None, "model")),
+     "keeps the residual stream")], ids=["kw0", "kw1"])
+def test_sharded_execution_is_the_distributed_slices(kw, match):
+    """Sharded execution runs over process groups (tensor-parallel and
+    FSDP execution of the LM: tests/test_torch_tp.py). Before any
+    collective, a tensor-parallel MoE dict without its four constraints
+    and a residual constraint other than the strategy's layout
+    (``P(dp, model, None)`` under "tp_fsdp") are refused."""
     _, tcfg = _cfgs("mixtral-8x7b")
     tp = tt.init_params(tcfg, torch.Generator().manual_seed(0),
                         device="cpu")
     kw = {k: ({n: _two_model_ranks(s) for n, s in v.items()}
               if isinstance(v, dict) else _two_model_ranks(v))
           for k, v in kw.items()}
-    with pytest.raises(NotImplementedError, match="tensor-parallel and "
-                       "FSDP execution of the LM"):
+    with pytest.raises(ValueError, match=match):
         tt.forward(tp, torch.zeros((1, 4), dtype=torch.long), tcfg, **kw)
 
 
