@@ -177,7 +177,33 @@ repository's ``src/`` next to this file. It
      atol=1e-6`` of one process's unsharded step; cora's out-of-halo
      fractions at 4 and 8 shards are printed. One ``{"sharded": ...}``
      line;
- 17. holds each of the four kernels against its plain PyTorch version at
+ 17. sharded serving (``repro_torch.launch.specs``, ``transformer.prefill``
+     / ``decode_step`` with ``plan=``; no hand kernel on this path) over
+     an NCCL group of one rank on its (1, 1) mesh: the prefill_32k and
+     decode_32k cells of ``build_lm_cell`` (bf16 parameter structs, the
+     serving plan under "tp_fsdp", the cell's MoE dict), parameters
+     placed by ``shard_tree`` with the cell's ``in_specs``; path G,
+     qwen3-0.6b at its full config; H, mixtral-8x7b at full width with 2
+     layers, once with the cell's expert-parallel dict and once with the
+     tensor-parallel one forced; I, granite-8b at full width with 4
+     layers (its "fsdp" config served under "tp_fsdp"). The prefill cell
+     at 1 x 32768 tokens (batch cut from 32), the decode cell at batch 8
+     (cut from 128) with its cache from the prefill cell's step over a
+     4159-token prompt (past mixtral's window: the ring rolls), then 4
+     decodes. Path J: the long_500k decode cell of qwen3-0.6b (2 layers,
+     batch 1, 524288 slots), one token into the empty cache. Gates: each
+     cell's logits and caches ``torch.equal`` to the unsharded prefill /
+     decode steps on the same bf16 parameters. Path K: ``build_cell`` of
+     every cell of every arch in ``ASSIGNED`` on the (1, 1) mesh and on
+     a duck-typed 16 x 16 one, on meta tensors: none may error. Then, on
+     the CPU and labelled so, 4 gloo ranks prefill and decode 2 tokens
+     at f32 for qwen3-0.6b-, granite-, mixtral- (3 experts, TP inside
+     them) and qwen3-moe-smoke (EP) on (2, 2), (1, 4) and (4, 1), each
+     within ``rtol=1e-5, atol=1e-6`` of one process's unsharded passes.
+     Reports wall ms, device span (prefill) or profiled device ms
+     (decode), tokens/s, collectives by kind and peak GiB, with the
+     card's name and power limit; one ``{"serving_tp": ...}`` line;
+ 18. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -190,7 +216,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 18. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 19. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
      class, and each kernel's launches and device ms in the training
      backward) and, last, the ``{"ok": true, "device": ...}`` line.
@@ -3497,6 +3523,446 @@ def sharded_phase(torch, smi: str, dev="cuda") -> tuple:
     return problems, record
 
 
+# Paths G-K: sharded serving (``launch/specs.py`` cells; prefill and
+# decode under the serving plan, "tp_fsdp") over a one-rank NCCL group on
+# a (1, 1) mesh, each against the unsharded passes on the same bf16
+# parameters, bitwise. (name, arch, layers kept (None: all), MoE variants)
+SERVE_PATHS = (("G", "qwen3-0.6b", None, (None,)),
+               ("H", "mixtral-8x7b", 2, ("ep", "tp")),
+               ("I", "granite-8b", 4, (None,)))
+# the cells' batches cut to fit one card (the shapes kept): prefill_32k
+# 32 -> 1; decode_32k 128 -> 8, its cache filled by a prefill of
+# SERVE_PROMPT tokens a sequence (past mixtral's 4096 window, so the
+# ring rolls by 63; prefill_32k's 32768 tokens roll by 0), then
+# SERVE_DECODE tokens decoded
+SERVE_PREFILL_BATCH, SERVE_DECODE_BATCH = 1, 8
+SERVE_PROMPT, SERVE_DECODE = 4159, 4
+# path J: long_500k (batch 1, 524288 slots) at qwen3-0.6b's full width,
+# depth 28 -> 2; one token decoded into the empty cache
+LONG_LAYERS = 2
+# the gloo check of paths G-J (CPU): SMOKE configs, prefill of
+# GLOO_SERVE_SHAPE[1] - 2 tokens into GLOO_SERVE_SLOTS slots and 2
+# decodes at f32 on each mesh, against one process's unsharded passes.
+# (arch, MoE dict, config changes): mixtral's 3 experts keep TP inside
+# them on 2 and 4 model ranks; qwen3-moe at E / k has no drop
+GLOO_SERVE = (("qwen3-0.6b", None, {}), ("granite-8b", None, {}),
+              ("mixtral-8x7b", "tp", {"n_experts": 3}),
+              ("qwen3-moe-235b-a22b", "ep", {"capacity_factor": 4.0}))
+GLOO_SERVE_MESHES = ((2, 2), (1, 4), (4, 1))
+GLOO_SERVE_SHAPE, GLOO_SERVE_SLOTS = (4, 22), 24
+
+
+def serving_arch(name: str, layers):
+    """The arch with its depth cut to ``layers`` (None: kept)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(name)
+    if layers:
+        arch = dataclasses.replace(arch, config=dataclasses.replace(
+            arch.config, n_layers=layers))
+    return arch
+
+
+def serving_progs(arch, cells, mesh, moe) -> dict:
+    """{cell name: CellProgram} of ``launch.specs.build_lm_cell``; with
+    ``moe`` "tp", each step rebuilt with the tensor-parallel MoE dict
+    forced in place of the cell's expert-parallel one."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import tp_expert_shardings
+    from repro_torch.distributed.tp import LMPlan
+    from repro_torch.launch.specs import build_lm_cell
+    from repro_torch.models.transformer import cache_len
+    from repro_torch.train import steps
+
+    out = {}
+    for cell in cells:
+        prog = build_lm_cell(arch, cell, mesh)
+        if moe == "tp":
+            cfg = dataclasses.replace(arch.config, parallelism="tp_fsdp")
+            plan = LMPlan(cfg, mesh, tp_expert_shardings(mesh),
+                          batch=cell.global_batch)
+            fn = (steps.make_lm_prefill_step(cfg, max_len=cell.seq_len,
+                                             plan=plan)
+                  if cell.kind == "prefill" else steps.make_lm_decode_step(
+                      cfg, k_chunk=min(cache_len(cfg, cell.seq_len), 2048),
+                      plan=plan))
+            prog = dataclasses.replace(prog, fn=fn)
+        out[cell.name] = prog
+    return out
+
+
+def serving_params(torch, cfg, prog, mesh, dev):
+    """(the seeded parameters cast to the cell's bf16 structs, this
+    rank's blocks of them)."""
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    full = tree_map(lambda v: v.to(torch.bfloat16),
+                    T.init_params(cfg, gen, device=dev))
+    torch.cuda.empty_cache()
+    return full, shard_tree(full, prog.in_specs[0], mesh)
+
+
+def _counted(torch, fn) -> tuple:
+    """(result, host ms, device span ms, the collectives by kind) of one
+    call ending in a synchronize; the span is CUDA events recorded on
+    the stream before and after it (device time with its idle gaps)."""
+    from repro_torch.distributed import tp
+
+    tp.reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, start.elapsed_time(end), dict(tp.COUNTS)
+
+
+def _decode_record(torch, fn, ms: list, flops, batch: int) -> dict:
+    """The decode steps' host ms, the median's rates, and the device ms,
+    kernels and busy share of one more step (profiled, its output
+    dropped)."""
+    return dict(device_items(torch, lambda: fn() and None),
+                ms_per_token=ms,
+                **rates(statistics.median(ms), flops, batch))
+
+
+def serve_path(torch, mesh, smi: str, name: str, arch_name: str, layers,
+               variants, dev="cuda") -> tuple:
+    """Paths G-I: the prefill_32k and decode_32k cells of ``arch_name``
+    (depth cut to ``layers``) through ``build_lm_cell`` on the (1, 1)
+    mesh, once per MoE variant, each against the unsharded prefill and
+    decode steps on the same bf16 parameters: logits and caches
+    ``torch.equal``. The prefill cell at SERVE_PREFILL_BATCH x its
+    32768 tokens (wall ms and device span, tokens/s); the decode cell at
+    SERVE_DECODE_BATCH, its cache from the prefill cell's step over
+    SERVE_PROMPT tokens, then SERVE_DECODE decodes (wall ms a token,
+    one more step profiled). Collectives and peak GiB."""
+    from repro_torch.data import TokenStream
+    from repro_torch.models.transformer import cache_len
+    from repro_torch.train import steps
+
+    problems = []
+    arch = serving_arch(arch_name, layers)
+    cfg = arch.config
+    cells = {c.name: c for c in arch.shapes}
+    pre_cell, dec_cell = cells["prefill_32k"], cells["decode_32k"]
+    progs = {v: serving_progs(arch, (pre_cell, dec_cell), mesh, v)
+             for v in variants}
+    full, local = serving_params(torch, cfg, progs[variants[0]][
+        pre_cell.name], mesh, dev)
+    slots = cache_len(cfg, dec_cell.seq_len)
+    plain_pre = steps.make_lm_prefill_step(cfg, max_len=pre_cell.seq_len)
+    plain_dec = steps.make_lm_decode_step(cfg, k_chunk=min(slots, 2048))
+    seq = pre_cell.seq_len
+    toks = torch.from_numpy(TokenStream(cfg.vocab, SERVE_PREFILL_BATCH, seq,
+                                        seed=SEED).batch_at(0)["tokens"]
+                            ).to(dev)
+    pre_flops = lm_flops(cfg, SERVE_PREFILL_BATCH, seq, logits=1)
+
+    def prefill_record(ms, span, **extra):
+        return dict(device_span_ms=span, max_memory_gib=peak_gib(torch),
+                    **rates(ms, pre_flops, SERVE_PREFILL_BATCH * seq),
+                    **extra)
+
+    # the prefill cell: one unsharded call, one per variant
+    torch.cuda.reset_peak_memory_stats()
+    want, ms, span, _ = _counted(torch, lambda: plain_pre(full, toks))
+    record = dict(path=name, gpu=smi, arch=arch_name, layers=cfg.n_layers,
+                  d_model=cfg.d_model, strategy="tp_fsdp",
+                  parallelism=cfg.parallelism,
+                  prefill=dict(cell=pre_cell.name, batch=SERVE_PREFILL_BATCH,
+                               cell_batch=pre_cell.global_batch, seq=seq,
+                               unsharded=prefill_record(ms, span)),
+                  decode=dict(cell=dec_cell.name, batch=SERVE_DECODE_BATCH,
+                              cell_batch=dec_cell.global_batch, slots=slots,
+                              prompt=SERVE_PROMPT, tokens=SERVE_DECODE),
+                  variants={})
+    for v in variants:
+        fn = progs[v][pre_cell.name].fn
+        torch.cuda.reset_peak_memory_stats()
+        got, ms, span, counts = _counted(torch, lambda: fn(local, toks))
+        equal = _bitwise(torch, got, want)
+        if not equal:
+            problems.append(f"path {name} ({arch_name}, {v}): the prefill "
+                            "cell != the unsharded prefill")
+        del got
+        record["variants"][str(v)] = dict(prefill=prefill_record(
+            ms, span, equal=equal, collectives=counts))
+    del want
+    torch.cuda.empty_cache()
+
+    # the decode cell: a cache per pass from the prefill cell's step
+    stream = TokenStream(cfg.vocab, SERVE_DECODE_BATCH,
+                         SERVE_PROMPT + SERVE_DECODE + 1,
+                         seed=SEED).batch_at(0)["tokens"]
+    prompt = torch.from_numpy(stream[:, :SERVE_PROMPT]).to(dev)
+    dec_toks = [torch.from_numpy(stream[:, SERVE_PROMPT + i:
+                                        SERVE_PROMPT + i + 1]).to(dev)
+                for i in range(SERVE_DECODE + 1)]
+    dec_flops = lm_flops(cfg, SERVE_DECODE_BATCH, 1, ctx=slots - 1)
+    torch.cuda.reset_peak_memory_stats()
+    _, cache = plain_pre(full, prompt)
+    outs, ms_plain = [], []
+    for tok in dec_toks[:-1]:
+        (lg, cache), ms, _, _ = _counted(torch, lambda: plain_dec(
+            full, cache, tok))
+        outs.append(lg)
+        ms_plain.append(ms)
+    want = (outs, cache)
+    for v in variants:
+        pre, dec = (progs[v][c.name].fn for c in (pre_cell, dec_cell))
+        (_, mine), pre_ms, _, pre_counts = _counted(torch, lambda: pre(
+            local, prompt))
+        got, ms_sh, counts = [], [], {}
+        for tok in dec_toks[:-1]:
+            (lg, mine), ms, _, counts = _counted(torch, lambda: dec(
+                local, mine, tok))
+            got.append(lg)
+            ms_sh.append(ms)
+        equal = _bitwise(torch, (got, mine), want)
+        if not equal:
+            problems.append(f"path {name} ({arch_name}, {v}): the decode "
+                            "cell != the unsharded decode steps")
+        tok = dec_toks[-1]
+        record["variants"][str(v)]["decode"] = dict(
+            equal=equal, prompt_prefill_ms=pre_ms,
+            prompt_collectives=pre_counts, collectives=counts,
+            **_decode_record(torch, lambda: dec(local, mine, tok), ms_sh,
+                             dec_flops, SERVE_DECODE_BATCH))
+        del mine, got
+        torch.cuda.empty_cache()
+    tok = dec_toks[-1]
+    record["decode"]["unsharded"] = _decode_record(
+        torch, lambda: plain_dec(full, cache, tok), ms_plain, dec_flops,
+        SERVE_DECODE_BATCH)
+    record["decode"]["max_memory_gib"] = peak_gib(torch)
+    del want, cache, full, local, outs
+    torch.cuda.empty_cache()
+    return problems, record
+
+
+def long_path(torch, mesh, smi: str, dev="cuda") -> tuple:
+    """Path J: the long_500k decode cell of qwen3-0.6b (which the
+    configs skip for its full attention; built here by ``build_lm_cell``
+    directly) at full width and LONG_LAYERS layers: batch 1 (the data
+    axes' spec replicated by ``fit_specs``), one token decoded into an
+    empty 524288-slot cache, ``torch.equal`` to the unsharded step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps
+
+    problems = []
+    arch = serving_arch("qwen3-0.6b", LONG_LAYERS)
+    cfg = arch.config
+    cell = next(c for c in arch.shapes if c.name == "long_500k")
+    prog = serving_progs(arch, (cell,), mesh, None)[cell.name]
+    full, local = serving_params(torch, cfg, prog, mesh, dev)
+    plain = steps.make_lm_decode_step(cfg, k_chunk=min(cell.seq_len, 2048))
+    tok = torch.full((cell.global_batch, 1), 7, dtype=torch.long, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    cache = T.init_cache(cfg, cell.global_batch, cell.seq_len, device=dev)
+    mine = {k: v.clone() for k, v in cache.items()}
+    want, plain_ms, _, _ = _counted(torch, lambda: plain(full, cache, tok))
+    got, ms, _, counts = _counted(torch, lambda: prog.fn(local, mine, tok))
+    equal = _bitwise(torch, got, want)
+    if not equal:
+        problems.append("path J: the long_500k cell != the unsharded decode")
+    flops = lm_flops(cfg, 1, 1, ctx=cell.seq_len - 1)
+    record = dict(
+        path="J", gpu=smi, arch="qwen3-0.6b", cell=cell.name,
+        layers=cfg.n_layers, batch=cell.global_batch, slots=cell.seq_len,
+        cache_gib=sum(v.numel() * v.element_size()
+                      for v in cache.values()) / 2**30,
+        token_spec=repr(prog.in_specs[2]),
+        cache_specs={k: repr(v) for k, v in prog.in_specs[1].items()},
+        equal=equal, collectives=counts, max_memory_gib=peak_gib(torch),
+        sharded=_decode_record(torch, lambda: prog.fn(local, mine, tok),
+                               [ms], flops, 1),
+        unsharded=_decode_record(torch, lambda: plain(full, cache, tok),
+                                 [plain_ms], flops, 1))
+    del full, local, cache, mine, got, want
+    torch.cuda.empty_cache()
+    return problems, record
+
+
+def cells_path(mesh) -> tuple:
+    """Path K: ``build_cell`` for every cell of every arch in ``ASSIGNED``
+    on ``mesh`` and on a duck-typed 16 x 16 mesh (host only, meta
+    tensors): ok and skipped counts; an error is a problem."""
+    import types
+
+    from repro_torch.configs import ASSIGNED, get_arch
+    from repro_torch.launch.specs import SkippedCell, build_cell
+    from repro_torch.tree import tree_leaves
+
+    problems, record = [], {}
+    t0 = time.perf_counter()
+    duck = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                 axis_names=("data", "model"))
+    for label, m in (("1x1", mesh), ("16x16", duck)):
+        ok, skipped = 0, 0
+        for arch in ASSIGNED:
+            for cell in get_arch(arch).shapes:
+                try:
+                    prog = build_cell(arch, cell.name, m)
+                except SkippedCell:
+                    skipped += 1
+                    continue
+                except Exception as e:  # noqa: BLE001 -- a failed cell
+                    problems.append(f"path K: {arch}/{cell.name} on {label}"
+                                    f": {type(e).__name__}: {e}")
+                    continue
+                if any(x.device.type != "meta"
+                       for x in tree_leaves(prog.args)):
+                    problems.append(f"path K: {arch}/{cell.name} holds "
+                                    "storage")
+                ok += 1
+        record[label] = dict(ok=ok, skipped=skipped)
+    record["seconds"] = time.perf_counter() - t0
+    return problems, record
+
+
+def gloo_serve_run(rank, world, shape, cfg, moe, params, tokens) -> dict:
+    """The prefill and 2 decodes at f32 (f32 cache): on one rank
+    unsharded, else sharded on a ``shape`` mesh under the serving plan,
+    gathered; logits and caches (numpy)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.convert import tree_from_numpy
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.tp import LMPlan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_moe_shardings
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    full = tree_from_numpy(params, "cpu")
+    t = torch.from_numpy(tokens)
+    plan, mesh = None, None
+    if world > 1:
+        mesh = make_mesh(shape, ("data", "model"), "cpu")
+        cfg = dataclasses.replace(cfg, parallelism="tp_fsdp")
+        ms = (make_moe_shardings(cfg, mesh) if moe == "ep" else
+              shd.tp_expert_shardings(mesh) if moe == "tp" else None)
+        plan = LMPlan(cfg, mesh, ms, batch=t.shape[0])
+        full = shd.shard_tree(full, shd.lm_param_specs(cfg, mesh, full),
+                              mesh)
+        t = shd.shard_tree({"t": t}, {"t": shd.P(plan.batch_axes, None)},
+                           mesh)["t"]
+    s = t.shape[1] - 2
+    kw = dict(compute_dtype=None, plan=plan)
+    h, cache = T.prefill(full, t[:, :s], cfg, max_len=GLOO_SERVE_SLOTS,
+                         q_chunk=8, k_chunk=8, cache_dtype=torch.float32,
+                         **kw)
+    out = {"prefill": T.logits_fn(full, h[:, -1:], cfg, plan)}
+    for i in range(2):
+        out[f"decode{i}"], cache = T.decode_step(
+            full, cache, t[:, s + i:s + i + 1], cfg, **kw)
+    out["cache"] = cache
+    if plan is not None:
+        lspec = shd.P(plan.batch_axes, None, None)
+        out = shd.gather_tree(out, {"prefill": lspec, "decode0": lspec,
+                                    "decode1": lspec, "cache": plan.cache},
+                              mesh)
+    return tree_map(lambda x: x.numpy(), out)
+
+
+def gloo_serve_check(torch) -> tuple:
+    """Paths G-J across ranks on the CPU: each GLOO_SERVE case on each
+    of GLOO_SERVE_MESHES (4 gloo ranks, one spawn) against one process's
+    unsharded passes, within GLOO_TOL."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.local import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+
+    problems, rows = [], []
+    t0 = time.perf_counter()
+    todo, want = [], []
+    for arch, moe, kw in GLOO_SERVE:
+        cfg = dataclasses.replace(get_arch(arch).smoke, **kw)
+        params = tree_map(lambda v: v.numpy(), T.init_params(
+            cfg, torch.Generator().manual_seed(SEED), "cpu"))
+        tok = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, GLOO_SERVE_SHAPE).astype(np.int32)
+        single = gloo_serve_run(0, 1, None, cfg, moe, params, tok)
+        for shape in GLOO_SERVE_MESHES:
+            todo.append(("gloo_serve_run", (shape, cfg, moe, params, tok)))
+            want.append((f"{arch} {moe or 'dense'} {shape}", single))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as d:
+        got = run_ranks(gloo_jobs, 4, todo, backend="gloo", store_dir=d,
+                        timeout_s=GLOO_TIMEOUT_S)
+    for i, (label, single) in enumerate(want):
+        err, ok = 0.0, True
+        for r in got:
+            for a, b in zip(tree_leaves(r[i]), tree_leaves(single)):
+                err = max(err, float(np.abs(a - b).max()))
+                ok = ok and bool(np.allclose(a, b, **GLOO_TOL))
+        if not ok:
+            problems.append(f"gloo serving check {label}: a rank leaves "
+                            "the single-process passes' tolerance")
+        rows.append(dict(case=label, ranks=4, max_abs_err=err,
+                         within_tol=ok))
+    return problems, dict(device="cpu", backend="gloo", cases=rows,
+                          seconds=time.perf_counter() - t0)
+
+
+def serving_tp_phase(torch, smi: str, dev="cuda") -> tuple:
+    """Paths G-K over one NCCL rank on a (1, 1) mesh on the card (``dev``
+    "cpu": one gloo rank, for a rehearsal), then the gloo serving check
+    on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_serve_pg_")
+    backend = "nccl" if dev == "cuda" else "gloo"
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=(
+                                torch.device("cuda", 0) if dev == "cuda"
+                                else None))
+    paths = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        problems, cells = cells_path(mesh)
+        for name, arch, layers, variants in SERVE_PATHS:
+            p, rec = serve_path(torch, mesh, smi, name, arch, layers,
+                                variants, dev)
+            problems += p
+            paths.append(rec)
+        p, rec = long_path(torch, mesh, smi, dev)
+        problems += p
+        paths.append(rec)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    p, gloo = gloo_serve_check(torch)
+    problems += p
+    return problems, dict(gpu=smi, backend=backend, world_size=1,
+                          mesh=[1, 1], paths=paths, cells=cells,
+                          gloo_check=gloo,
+                          phase_s=time.perf_counter() - t0)
+
+
 # --------------------------------------------------------- kernel phase ----
 def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
@@ -4180,6 +4646,38 @@ def main() -> None:
           f"out-of-halo {sharded['cora_out_of_halo']}; phase "
           f"{sharded['phase_s']:.1f} s")
 
+    sv_problems, serving_tp = serving_tp_phase(torch, smi)
+    problems += sv_problems
+    for r in serving_tp["paths"]:
+        if r["path"] == "J":
+            print(f"serving path J ({smi}): {r['arch']} {r['cell']} "
+                  f"{r['layers']} layers, {r['slots']} slots, decode "
+                  f"{r['sharded']['wall_ms']:.1f} ms (device "
+                  f"{r['sharded']['device_ms']:.2f}) vs unsharded "
+                  f"{r['unsharded']['wall_ms']:.1f}; collectives "
+                  f"{r['collectives']}; equal {r['equal']}")
+            continue
+        for v, rec in r["variants"].items():
+            pre, dec = rec["prefill"], rec["decode"]
+            print(f"serving path {r['path']} ({smi}): {r['arch']} "
+                  f"{r['layers']} layers, MoE {v}: prefill "
+                  f"{r['prefill']['batch']}x{r['prefill']['seq']} "
+                  f"{pre['wall_ms']:.1f} ms (device span "
+                  f"{pre['device_span_ms']:.1f}, unsharded "
+                  f"{r['prefill']['unsharded']['wall_ms']:.1f}), "
+                  f"{pre['per_s']:.0f} tokens/s, equal {pre['equal']}; "
+                  f"decode {r['decode']['batch']} x "
+                  f"{r['decode']['slots']} slots "
+                  f"{dec['wall_ms']:.1f} ms a token"
+                  f" (device {dec['device_ms']:.2f}), equal {dec['equal']};"
+                  f" collectives a decode {dec['collectives']}")
+    c = serving_tp["cells"]
+    print(f"serving path K: cells ok / skipped: {c['1x1']} on (1, 1), "
+          f"{c['16x16']} on 16x16; gloo serving check (CPU) "
+          f"{sum(r['within_tol'] for r in serving_tp['gloo_check']['cases'])}"
+          f" of {len(serving_tp['gloo_check']['cases'])} cases within tol;"
+          f" phase {serving_tp['phase_s']:.1f} s")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -4225,6 +4723,7 @@ def main() -> None:
     print(json.dumps({"fm": fm}))
     print(json.dumps({"geometric": geo}))
     print(json.dumps({"sharded": sharded}))
+    print(json.dumps({"serving_tp": serving_tp}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -382,10 +382,5 @@ def tp_expert_shardings(mesh) -> dict:
     reference): the capacity dimension over the data axes, d_ff over
     `model`. ``moe_shardings=`` this dict runs ``transformer.moe_ffn``
     with d_ff split over `model` whatever the expert count."""
-    mdl = model_axis(mesh)
-    dp = data_axes(mesh)
-    return {"xs": NamedSharding(mesh, P(None, dp, None)),
-            "h": NamedSharding(mesh, P(None, dp, mdl)),
-            "flat": NamedSharding(mesh, P(tuple(dp) + ((mdl,) if mdl
-                                                       else ()), None)),
-            "tokens": NamedSharding(mesh, P(dp, None))}
+    from repro_torch.distributed.tp import tp_expert_dict
+    return tp_expert_dict(mesh, data_axes(mesh), model_axis(mesh))

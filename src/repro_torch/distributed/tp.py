@@ -331,6 +331,22 @@ def is_tp_expert_dict(moe_shardings) -> bool:
     return True
 
 
+def tp_expert_dict(mesh, dp: tuple, mdl) -> dict:
+    """The MoE dispatch constraints of TP inside the experts: the
+    capacity dimension over the axes ``dp`` (the tokens' batch axes),
+    d_ff over ``mdl`` (None: whole). ``transformer.moe_ffn`` reads
+    ``"tokens"`` (whose tokens rank the capacity together) and
+    ``"h"`` (the d_ff split)."""
+    from repro_torch.distributed.sharding import NamedSharding, P
+
+    dp = tuple(dp)
+    flat = dp + ((mdl,) if mdl else ())
+    return {"xs": NamedSharding(mesh, P(None, dp, None)),
+            "h": NamedSharding(mesh, P(None, dp, mdl)),
+            "flat": NamedSharding(mesh, P(flat, None)),
+            "tokens": NamedSharding(mesh, P(dp, None))}
+
+
 def residual_spec(cfg, mesh):
     """The residual stream's layout under the config's ``parallelism``,
     the reference's ``act_constraint``: ``P(dp, model, None)`` under
@@ -377,12 +393,22 @@ class LMPlan:
     - the head: ``"vocab"`` (vocab-parallel cross-entropy) where the
       head is split over `model`, else ``"seq"`` (each rank's sequence
       block against the whole vocabulary).
+
+    Serving (``transformer.prefill`` / ``decode_step`` with ``plan=``)
+    runs the same blocks with no remat and no gradient, the residual
+    stream whole over `model`. ``batch``: the global batch of those
+    passes; where it does not divide over the batch axes it is whole on
+    every rank (the reference's ``fit_specs``) and the plan has no batch
+    axes. ``cache`` is the KV cache's layout: the batch over the batch
+    axes, whole over the rest (``sharding.lm_cache_specs`` under
+    "tp_fsdp").
     """
 
-    def __init__(self, cfg, mesh, moe_shardings=None):
+    def __init__(self, cfg, mesh, moe_shardings=None, *, batch=None):
         from repro_torch.distributed.sharding import (P, lm_param_specs,
                                                       lm_global_shapes)
-        from repro_torch.launch.mesh import all_axes, data_axes, model_axis
+        from repro_torch.launch.mesh import (all_axes, axes_size, data_axes,
+                                             model_axis)
         from repro_torch.tree import flatten_with_path
 
         self.cfg, self.mesh = cfg, mesh
@@ -393,6 +419,13 @@ class LMPlan:
         else:
             self.mdl = model_axis(mesh)
             self.batch_axes = tuple(data_axes(mesh))
+        if batch is not None and int(batch) % axes_size(mesh,
+                                                         self.batch_axes):
+            self.batch_axes = ()
+        dp = self.batch_axes or None
+        self.cache = {"k": P(None, dp, None, None, None),
+                      "v": P(None, dp, None, None, None),
+                      "pos": P(dp, None), "index": P()}
         self.act = residual_spec(cfg, mesh)
         self.m = shape[self.mdl] if self.mdl else 1
         self.spec_of = dict(flatten_with_path(lm_param_specs(
@@ -455,9 +488,6 @@ class LMPlan:
         return self.group(self.loss_axes)
 
     def _moe_mode(self, moe_shardings, split) -> None:
-        from repro_torch.distributed.sharding import (NamedSharding, P,
-                                                      tp_expert_shardings)
-
         cfg, mesh = self.cfg, self.mesh
         if isinstance(moe_shardings, dict) and "ep_mesh" in moe_shardings:
             self.moe = "ep"
@@ -477,17 +507,8 @@ class LMPlan:
             raise ValueError(f"the rules split {cfg.n_experts} experts over"
                              f" {self.m} model ranks (expert parallelism);"
                              " TP inside the experts needs them whole")
-        if self.strategy == "fsdp":
-            ax = self.batch_axes
-            self.moe_shardings = {
-                "xs": NamedSharding(mesh, P(None, ax, None)),
-                "h": NamedSharding(mesh, P(None, ax, None)),
-                "flat": NamedSharding(mesh, P(ax, None)),
-                "tokens": NamedSharding(mesh, P(ax, None))}
-        else:
-            self.moe_shardings = (moe_shardings
-                                  if is_tp_expert_dict(moe_shardings)
-                                  else tp_expert_shardings(mesh))
+        # the capacity dimension over the batch axes, d_ff over `model`
+        self.moe_shardings = tp_expert_dict(mesh, self.batch_axes, self.mdl)
         # d_ff split over `model` (over one model rank: whole, and still
         # run through the Megatron pair, as transformer._tp_experts does)
         one = self.mdl is not None and self.m == 1

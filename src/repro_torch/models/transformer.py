@@ -43,11 +43,28 @@ slice of the experts. The tensor-parallel dict (``"xs"``, ``"h"``,
 ``"flat"``, ``"tokens"``, as ``sharding.tp_expert_shardings`` makes it)
 runs ``moe_ffn`` with d_ff split over `model` and the capacity ranks
 taken over the global batch (the tokens the unsharded layer drops are
-the ones dropped); each data rank dispatches its own tokens. The
-passes over whole tensors (``forward`` without an ``act_constraint``,
-``prefill``, ``decode_step``) take that dict over one rank, where it
-changes nothing, and raise ``NotImplementedError`` over more: sharded
-serving is a later slice.
+the ones dropped); each data rank dispatches its own tokens.
+
+Sharded serving. ``prefill`` and ``decode_step`` given ``plan=`` (an
+``LMPlan``; the reference's serving cells build it under "tp_fsdp"
+whatever the config's ``parallelism``, ``launch.specs.build_lm_cell``)
+run on this rank's blocks: the parameters under ``lm_param_specs``,
+the tokens and the KV cache split over the plan's batch axes and whole
+over `model` (``plan.cache``, the reference's ``lm_cache_specs``). Each
+layer gathers its weights over the data axes, runs the column- and
+row-parallel products over `model` with the residual stream whole on
+every model rank (a row-parallel output is all-reduced, decode has one
+position), and in ``"heads"`` mode all-gathers this rank's k and v
+heads over `model` before the cache write; each rank's query heads
+attend to its own kv heads of the cache. MoE layers run as in the
+training forward: ``moe_ffn_ep``, or ``moe_ffn`` with capacity ranked
+over the global batch (a batch that does not divide over the data axes
+is whole on every rank and ranks its own tokens). The logits are whole
+over `model` (the vocabulary all-gathered where the head is split).
+Without a plan the passes run on whole tensors: they take the
+tensor-parallel dict over one rank, where it changes nothing, and
+refuse it over more (``plan=`` is then needed), as ``forward`` without
+an ``act_constraint`` does.
 """
 from __future__ import annotations
 
@@ -301,10 +318,10 @@ def _ffn(h, lp, cfg, moe_shardings=None):
 
 def _whole_tensor_moe(moe_shardings, where: str):
     """``moe_shardings`` for a pass over whole tensors (the mesh-less
-    forward, prefill, decode): the "ep_mesh" dict as it is; the
-    tensor-parallel dict over one rank changes nothing (None); over more
-    ranks it needs this rank's block of the tokens, which only the
-    sharded training forward holds."""
+    forward, prefill and decode without a plan): the "ep_mesh" dict as
+    it is; the tensor-parallel dict over one rank changes nothing
+    (None); over more ranks it needs this rank's block of the tokens,
+    which only the sharded passes hold."""
     from repro_torch.distributed import tp
     from repro_torch.launch.mesh import mesh_shape
 
@@ -312,12 +329,15 @@ def _whole_tensor_moe(moe_shardings, where: str):
         return moe_shardings
     n = int(np.prod(list(mesh_shape(moe_shardings["tokens"].mesh)
                          .values())))
-    if n > 1:
+    if n == 1:
+        return None
+    if where == "forward":
         raise NotImplementedError(
-            f"{where}: the tensor-parallel MoE dict over {n} ranks runs in "
-            "the sharded training forward only (an act_constraint); "
-            "sharded prefill and decode are the serving slice")
-    return None
+            f"forward: the tensor-parallel MoE dict over {n} ranks runs in "
+            "the sharded training forward only (an act_constraint)")
+    raise ValueError(f"{where}: the tensor-parallel MoE dict over {n} "
+                     "ranks needs this rank's blocks: pass plan= (an "
+                     "LMPlan over its mesh)")
 
 
 def _project_qkv(hn, lp, cfg, q_pos, heads=None, proj=None):
@@ -507,9 +527,118 @@ def _ffn_sharded(h, lp, cfg, plan):
     return split(dense_ffn(whole(hn), lp))
 
 
-def logits_fn(params, h, cfg: TransformerConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+def logits_fn(params, h, cfg: TransformerConfig, plan=None):
+    """``h @ head``; with a serving ``plan``: from this rank's block of
+    the head, the logits whole over `model`."""
+    if plan is None:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return h @ head
+    from repro_torch.distributed import tp
+
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = plan.gather_leaf(params[name], plan.gathers[f"['{name}']"])
+    out = h @ (head.T if cfg.tie_embeddings else head)
+    if plan.head == "vocab":
+        out = tp.gather(out, out.dim() - 1, plan.model_group)
+    return out
+
+
+class _Serve:
+    """The blocks of the serving passes (prefill, decode): over whole
+    tensors (``plan`` None), or over this rank's blocks under a serving
+    ``LMPlan`` (module docstring). Each block runs the whole-tensor
+    operations in their order, a collective where the plan splits
+    them, so over one rank both give the same bits."""
+
+    def __init__(self, cfg, plan, moe_shardings, where: str):
+        self.cfg, self.plan, self.kv_block = cfg, plan, None
+        if plan is None:
+            self.moe = _whole_tensor_moe(moe_shardings, where)
+            return
+        self.mg = plan.model_group
+        self.gathers = plan.layer_gathers()
+        if plan.attn == "heads" and plan.m > 1:
+            n = cfg.n_kv_heads // plan.m
+            me = torch.distributed.get_rank(self.mg)
+            self.kv_block = slice(me * n, (me + 1) * n)
+
+    def embed(self, params, tokens, compute_dtype):
+        if self.plan is None:
+            return _embed(params, tokens, compute_dtype)
+        embed = self.plan.gather_leaf(params["embed"],
+                                      self.plan.gathers["['embed']"])
+        tokens = torch.as_tensor(tokens, device=embed.device).long()
+        return tokens, take(embed, tokens).to(compute_dtype or torch.float32)
+
+    def layers(self, params, compute_dtype, layer_mode):
+        """Each layer's parameters, its weights gathered over the data
+        axes as the layer comes (ZeRO-3: one layer whole at a time)."""
+        for lp in _layers(params, self.cfg, compute_dtype, layer_mode):
+            yield lp if self.plan is None else {
+                k: self.plan.gather_leaf(v, self.gathers[k])
+                for k, v in lp.items()}
+
+    def qkv(self, hn, lp, q_pos) -> tuple:
+        """(q, k, v) of this rank's heads, and (k, v) of every kv head
+        (the cache's)."""
+        from repro_torch.distributed import tp
+
+        cfg, p = self.cfg, self.plan
+        if p is None or p.attn == "replicated":
+            q, kk, vv = _project_qkv(hn, lp, cfg, q_pos)
+            return q, kk, vv, kk, vv
+        if p.attn == "heads":
+            q, kk, vv = _project_qkv(hn, lp, cfg, q_pos, heads=(
+                cfg.n_heads // p.m, cfg.n_kv_heads // p.m))
+            return (q, kk, vv, tp.gather(kk, 2, self.mg),
+                    tp.gather(vv, 2, self.mg))
+
+        def proj(name):           # a column block that is not whole heads
+            y = hn @ lp[name]
+            return tp.gather(y, 2, self.mg) if p.col_split[name] else y
+        q, kk, vv = _project_qkv(hn, lp, cfg, q_pos, proj=proj)
+        return q, kk, vv, kk, vv
+
+    def own(self, kv):
+        """The kv heads of the cache this rank's query heads attend."""
+        return kv if self.kv_block is None else kv[:, :, self.kv_block]
+
+    def attn_out(self, attn, lp):
+        """The attention block's output, whole over `model` (wo
+        row-parallel where it is split)."""
+        from repro_torch.distributed import tp
+
+        b, s = attn.shape[:2]
+        attn = attn.reshape(b, s, -1)
+        p = self.plan
+        if p is None or not p.wo_split:
+            return attn @ lp["wo"]
+        if p.attn != "heads":     # every head here: this rank's rows of wo
+            attn = tp.shard(attn, 2, self.mg)
+        return tp.sum_over(attn @ lp["wo"], self.mg)
+
+    def ffn(self, h, lp):
+        """The FFN block's output, whole over `model`."""
+        from repro_torch.distributed import tp
+
+        cfg, p = self.cfg, self.plan
+        if p is None:
+            return _ffn(h, lp, cfg, self.moe)
+        b, s, d = h.shape
+        hn = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+        if cfg.moe:
+            x = hn.reshape(b * s, d)
+            if p.moe == "ep":
+                from .moe_ep import moe_ffn_ep
+                ms = p.moe_shardings
+                out = moe_ffn_ep(x, lp, cfg, ms["ep_mesh"], dp_axes=ms["dp"],
+                                 mdl_axis=ms["mdl"])
+            else:
+                out = moe_ffn(x, lp, cfg, shardings=p.moe_shardings)
+            return out.reshape(b, s, d)
+        if p.ffn == "split":
+            return tp.sum_over(dense_ffn(hn, lp), self.mg)
+        return dense_ffn(hn, lp)
 
 
 # --------------------------------------------------------- KV cache --------
@@ -536,15 +665,17 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
                 k_chunk: int = 2048, layer_mode: str = "scan",
-                compute_dtype=torch.bfloat16, moe_shardings=None):
+                compute_dtype=torch.bfloat16, moe_shardings=None, plan=None):
     """One decode step: tokens [B, 1] -> (logits [B, 1, V], new cache).
 
     Consumes ``cache``: its ``k``, ``v`` and ``pos`` are written in place
     (the new token's slot, ``index % t_buf``) and are the new cache's,
     as the reference's decode reuses a donated cache. ``index`` is a new
-    tensor. No host sync but the MoE combine's plan."""
-    moe_shardings = _whole_tensor_moe(moe_shardings, "decode_step")
-    tokens, h = _embed(params, tokens, compute_dtype)
+    tensor. No host sync but the MoE combine's plan. ``plan``: a serving
+    ``LMPlan``; ``params``, ``cache`` and ``tokens`` are then this rank's
+    blocks, and so are the logits (whole over `model`) and the cache."""
+    run = _Serve(cfg, plan, moe_shardings, "decode_step")
+    tokens, h = run.embed(params, tokens, compute_dtype)
     b = tokens.shape[0]
     t_buf = cache["k"].shape[2]
     pos = cache["index"]                       # absolute position of token
@@ -555,21 +686,20 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
     new_pos.index_copy_(1, slot, q_pos.expand(b, 1).contiguous())
     kv_valid = new_pos >= 0
 
-    layers = _layers(params, cfg, compute_dtype, layer_mode)
-    for i, lp in enumerate(layers):
+    for i, lp in enumerate(run.layers(params, compute_dtype, layer_mode)):
         kc, vc = cache["k"][i], cache["v"][i]
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, kk, vv = _project_qkv(hn, lp, cfg, q_pos)
+        q, _, _, kk, vv = run.qkv(hn, lp, q_pos)
         kc.index_copy_(1, slot, kk.to(kc.dtype))
         vc.index_copy_(1, slot, vv.to(vc.dtype))
-        attn = chunked_attention(q, kc, vc, q_pos=q_pos, kv_pos=new_pos,
-                                 kv_valid=kv_valid, causal=True,
-                                 window=cfg.sliding_window,
+        attn = chunked_attention(q, run.own(kc), run.own(vc), q_pos=q_pos,
+                                 kv_pos=new_pos, kv_valid=kv_valid,
+                                 causal=True, window=cfg.sliding_window,
                                  q_chunk=1, k_chunk=k_chunk)
-        h = h + attn.reshape(b, 1, -1) @ lp["wo"]
-        h = h + _ffn(h, lp, cfg, moe_shardings)
+        h = h + run.attn_out(attn, lp)
+        h = h + run.ffn(h, lp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(params, h, cfg)
+    logits = logits_fn(params, h, cfg, plan)
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": new_pos,
                  "index": pos + 1}
     return logits, new_cache
@@ -579,10 +709,13 @@ def decode_step(params, cache, tokens, cfg: TransformerConfig, *,
 def prefill(params, tokens, cfg: TransformerConfig, *, max_len: int,
             q_chunk: int = 512, k_chunk: int = 1024,
             cache_dtype=torch.bfloat16, layer_mode: str = "scan",
-            compute_dtype=torch.bfloat16, moe_shardings=None):
-    """Prefill the prompt, return (normed hidden [B,S,D], cache)."""
-    moe_shardings = _whole_tensor_moe(moe_shardings, "prefill")
-    tokens, h = _embed(params, tokens, compute_dtype)
+            compute_dtype=torch.bfloat16, moe_shardings=None, plan=None):
+    """Prefill the prompt, return (normed hidden [B,S,D], cache).
+    ``plan``: a serving ``LMPlan``; ``params`` and ``tokens`` are then
+    this rank's blocks, and so are the hidden (whole over `model`) and
+    the cache (``plan.cache``)."""
+    run = _Serve(cfg, plan, moe_shardings, "prefill")
+    tokens, h = run.embed(params, tokens, compute_dtype)
     b, s = tokens.shape
     dev = h.device
     q_pos = torch.arange(s, device=dev)
@@ -597,16 +730,16 @@ def prefill(params, tokens, cfg: TransformerConfig, *, max_len: int,
     shape = (cfg.n_layers, b, t_buf, cfg.n_kv_heads, cfg.d_head)
     k_all = torch.zeros(shape, dtype=cache_dtype, device=dev)
     v_all = torch.zeros(shape, dtype=cache_dtype, device=dev)
-    for i, lp in enumerate(_layers(params, cfg, compute_dtype, layer_mode)):
+    for i, lp in enumerate(run.layers(params, compute_dtype, layer_mode)):
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, kk, vv = _project_qkv(hn, lp, cfg, q_pos)
+        q, kk, vv, k_heads, v_heads = run.qkv(hn, lp, q_pos)
         attn = chunked_attention(q, kk, vv, q_pos=q_pos, kv_pos=q_pos,
                                  causal=True, window=cfg.sliding_window,
                                  q_chunk=q_chunk, k_chunk=k_chunk)
-        h = h + attn.reshape(b, s, -1) @ lp["wo"]
-        k_all[i, :, :keep] = kk[:, s - keep:].to(cache_dtype)
-        v_all[i, :, :keep] = vv[:, s - keep:].to(cache_dtype)
-        h = h + _ffn(h, lp, cfg, moe_shardings)
+        h = h + run.attn_out(attn, lp)
+        k_all[i, :, :keep] = k_heads[:, s - keep:].to(cache_dtype)
+        v_all[i, :, :keep] = v_heads[:, s - keep:].to(cache_dtype)
+        h = h + run.ffn(h, lp)
     if shift:
         k_all = torch.roll(k_all, shift, dims=2)
         v_all = torch.roll(v_all, shift, dims=2)

@@ -234,26 +234,30 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer, *, remat=True,
 
 def make_lm_prefill_step(cfg: TransformerConfig, *, max_len,
                          q_chunk=512, k_chunk=1024, layer_mode="scan",
-                         moe_shardings=None):
+                         moe_shardings=None, plan=None):
+    """``prefill_step(params, tokens) -> (last-position logits, cache)``.
+    ``plan``: a serving ``LMPlan``; the step then runs on this rank's
+    blocks (``transformer.prefill``), its MoE mode the plan's."""
     @torch.no_grad()
     def prefill_step(params, tokens):
         h, cache = tfm.prefill(params, tokens, cfg, max_len=max_len,
                                q_chunk=q_chunk, k_chunk=k_chunk,
                                layer_mode=layer_mode,
-                               moe_shardings=moe_shardings)
-        logits = tfm.logits_fn(params, h[:, -1:], cfg)
+                               moe_shardings=moe_shardings, plan=plan)
+        logits = tfm.logits_fn(params, h[:, -1:], cfg, plan)
         return logits, cache
     return prefill_step
 
 
 def make_lm_decode_step(cfg: TransformerConfig, *, k_chunk=2048,
-                        layer_mode="scan", moe_shardings=None):
-    """``serve_step(params, cache, tokens)``; consumes ``cache`` (see
-    ``transformer.decode_step``)."""
+                        layer_mode="scan", moe_shardings=None, plan=None):
+    """``serve_step(params, cache, tokens) -> (logits, new cache)``;
+    consumes ``cache`` (see ``transformer.decode_step``). ``plan``: as
+    ``make_lm_prefill_step``'s."""
     def serve_step(params, cache, tokens):
         return tfm.decode_step(params, cache, tokens, cfg, k_chunk=k_chunk,
                                layer_mode=layer_mode,
-                               moe_shardings=moe_shardings)
+                               moe_shardings=moe_shardings, plan=plan)
     return serve_step
 
 
@@ -431,6 +435,26 @@ def make_gnn_train_step(cfg: GNNConfig, optimizer, compress=None,
     loss_fn = functools.partial(loss, cfg=cfg, constrain=constrain,
                                 gops=gops, remat=remat)
     return _train_step(loss_fn, optimizer, compress, group)
+
+
+def make_gnn_minibatch_step(cfg: GNNConfig, optimizer, n_total: int,
+                            group=None):
+    """The sampled-subgraph train step: ``batch`` leaves carry a leading
+    subgraph dimension; the loss is the mean of the per-subgraph losses
+    over ``n_total`` subgraphs, then one optimizer update (the
+    reference's ``vmap``, here a loop). ``group``: the ranks that hold
+    the other subgraphs (the batch's data axes), over which each rank's
+    share of the loss and its gradients are summed; None when ``batch``
+    holds all ``n_total``."""
+    loss = {"dimenet": energy_loss_dimenet,
+            "nequip": energy_loss_nequip}.get(cfg.kind, gnn_node_loss)
+
+    def loss_fn(params, batch):
+        n = next(iter(batch.values())).shape[0]
+        losses = [loss(params, {k: v[i] for k, v in batch.items()}, cfg)
+                  for i in range(n)]
+        return torch.stack(losses).sum() / n_total
+    return _train_step(loss_fn, optimizer, group=group)
 
 
 def make_gnn_serve_step(cfg: GNNConfig, n_mols: int = 1):

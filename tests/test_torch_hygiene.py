@@ -82,7 +82,8 @@ def test_port_files_found():
             "src/repro_torch/distributed/halo.py",
             "src/repro_torch/distributed/sharding.py",
             "src/repro_torch/models/moe_ep.py",
-            "src/repro_torch/distributed/tp.py"} <= names
+            "src/repro_torch/distributed/tp.py",
+            "src/repro_torch/launch/specs.py"} <= names
     assert len(names) >= 20
 
 

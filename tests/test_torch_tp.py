@@ -438,14 +438,18 @@ def test_constraints_over_several_ranks_run(runs):
 @pytest.mark.parametrize("call", ["forward", "prefill", "decode_step"])
 def test_whole_tensor_passes_refuse_a_multi_rank_tp_dict(call, runs):
     """On a (2, 1) mesh, the passes over whole tensors given the
-    tensor-parallel MoE dict raise ``NotImplementedError`` (it needs this
-    data rank's block of the tokens, which only the sharded training
-    forward holds) instead of ranking capacity over tokens every rank
-    holds whole."""
+    tensor-parallel MoE dict refuse it (it needs this data rank's block
+    of the tokens) instead of ranking capacity over tokens every rank
+    holds whole: ``forward`` without an ``act_constraint`` raises
+    ``NotImplementedError`` (only the sharded training forward holds a
+    block), ``prefill`` and ``decode_step`` without a plan raise
+    ``ValueError`` naming ``plan=`` (their sharded serving passes)."""
+    want, hint = (("NotImplementedError", "act_constraint")
+                  if call == "forward" else ("ValueError", "plan="))
     for r in runs["whole_tensor_tp"]:
         kind, msg = r[call]
-        assert kind == "NotImplementedError", (kind, msg)
-        assert call in msg and "serving slice" in msg
+        assert kind == want, (kind, msg)
+        assert call in msg and hint in msg
 
 
 # ------------------------------------------------------- world size 1 -----
