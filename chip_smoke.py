@@ -203,7 +203,25 @@ repository's ``src/`` next to this file. It
      Reports wall ms, device span (prefill) or profiled device ms
      (decode), tokens/s, collectives by kind and peak GiB, with the
      card's name and power limit; one ``{"serving_tp": ...}`` line;
- 18. holds each of the four kernels against its plain PyTorch version at
+ 18. the dry-run (``repro_torch.launch.dryrun``, ``analysis.{op_trace,
+     roofline}``; no hand kernel on this path): (a) ``python -m
+     repro_torch.launch.dryrun --all`` on 16 x 16 in a process of its
+     own (rank 0 of a fake process group of 256 ranks, every cell's
+     step on fake tensors of its blocks, ``--jobs`` up to 8 processes,
+     host only): 36 cells ok, 4 skipped, 0 errors; each cell's
+     bottleneck, t_bound and mfu_bound (H100 SXM data-sheet peaks) is
+     printed. (b) qwen3-0.6b ``train_4k`` (batch cut to 1, as path C),
+     gatedgcn ``full_graph_sm``, fm ``train_batch`` at full config and
+     mixtral-8x7b ``prefill_32k`` (2 layers, batch 1, as path H), traced
+     on a (1, 1) mesh in a process of its own and run on the card over
+     one NCCL rank (a warm-up call, one timed by CUDA events, one under
+     ``OpCounter``): FLOPs and collectives by kind equal to the trace's,
+     the traced peak of live bytes within 15 % of
+     ``torch.cuda.max_memory_allocated()``, and t_bound at most 1.05 x
+     the measured time. (c) the FM train, serve and retrieval cells'
+     ``fn`` (tables' rows split over the one rank) ``torch.equal`` to
+     the unsharded steps at full config. One ``{"dryrun": ...}`` line;
+ 19. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -216,7 +234,7 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 19. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+ 20. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
      class, and each kernel's launches and device ms in the training
      backward) and, last, the ``{"ok": true, "device": ...}`` line.
@@ -3963,6 +3981,324 @@ def serving_tp_phase(torch, smi: str, dev="cuda") -> tuple:
                           phase_s=time.perf_counter() - t0)
 
 
+# -------------------------------------------------------- dry-run phase ----
+# (a) ``python -m repro_torch.launch.dryrun --all`` on 16 x 16 (a fake
+# process group of 256 ranks, host only): 36 cells ok, 4 skipped.
+DRYRUN_OK, DRYRUN_SKIP = 36, 4
+# (b) cells traced on a (1, 1) mesh (a fake group of one rank) and run on
+# the card over one NCCL rank, each held to its trace: (arch, cell, depth
+# kept (None: all), batch (None: the cell's)); qwen3-0.6b's batch cut
+# 256 -> 1 as path C's, mixtral's depth 32 -> 2 and batch 32 -> 1 as
+# path H's
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k", None, 1),
+                ("gatedgcn", "full_graph_sm", None, None),
+                ("fm", "train_batch", None, None),
+                ("mixtral-8x7b", "prefill_32k", 2, 1))
+DRYRUN_PEAK_TOL = 0.15          # the trace's peak against the card's
+DRYRUN_BOUND_SLACK = 1.05       # t_bound may not exceed the measured time
+DRYRUN_TIMEOUT_S = 600.0
+
+
+def dryrun_progs(mesh) -> list:
+    """[(arch, program)] of the (b) cells on ``mesh`` (``launch.specs``),
+    the arch with its depth cut."""
+    import dataclasses
+
+    from repro_torch.configs.base import GNNConfig, TransformerConfig
+    from repro_torch.launch import specs
+
+    out = []
+    for name, cell_name, layers, batch in DRYRUN_CELLS:
+        arch = serving_arch(name, layers)
+        cell = next(c for c in arch.shapes if c.name == cell_name)
+        if batch:
+            cell = dataclasses.replace(cell, global_batch=batch)
+        build = (specs.build_lm_cell
+                 if isinstance(arch.config, TransformerConfig)
+                 else specs.build_gnn_cell
+                 if isinstance(arch.config, GNNConfig)
+                 else specs.build_fm_cell)
+        out.append((arch, build(arch, cell, mesh)))
+    return out
+
+
+def dryrun_predict(path: str) -> None:
+    """(b)'s traces: this process as the one rank of a fake group, the
+    (b) cells traced on fake tensors on a (1, 1) mesh; written to
+    ``path`` as JSON. Run as a process of its own."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    dryrun.fake_world(1)
+    mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+    recs = [dryrun.trace(p, mesh, "1x1") for _, p in dryrun_progs(mesh)]
+    with open(path, "w") as f:
+        json.dump(recs, f, default=str)
+
+
+def _filled(torch, v, hi: int, gen, dev):
+    """A tensor of ``v``'s shape and dtype: integers in [0, hi), True,
+    or N(0, 1) floats."""
+    shape = tuple(v.shape)
+    if v.dtype == torch.bool:
+        return torch.ones(shape, dtype=torch.bool, device=dev)
+    if v.dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev).to(v.dtype)
+    return torch.randint(0, hi, shape, generator=gen, device=dev,
+                         dtype=v.dtype)
+
+
+def dryrun_args(torch, arch, prog, dev) -> tuple:
+    """Seeded full-size arguments of a (b) cell on ``dev`` (whole: the
+    mesh has one rank)."""
+    from repro_torch.configs.base import GNNConfig, TransformerConfig
+    from repro_torch.data import ClickStream
+    from repro_torch.models import fm as fm_m
+    from repro_torch.models import gnn as gnn_m
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.tree import tree_map
+
+    cfg = arch.config
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if isinstance(cfg, TransformerConfig):
+        params = T.init_params(cfg, gen, device=dev)
+        if prog.step_name == "prefill_step":
+            return (tree_map(lambda v: v.to(torch.bfloat16), params),
+                    _filled(torch, prog.args[1], cfg.vocab, gen, dev))
+        tok = _filled(torch, prog.args[2]["tokens"], cfg.vocab, gen, dev)
+        return (params, AdamW(lr=1e-4, weight_decay=0.01).init(params),
+                {"tokens": tok, "labels": tok})
+    if isinstance(cfg, GNNConfig):
+        b = prog.args[2]
+        n = b["node_feat"].shape[0]
+        params = gnn_m.gatedgcn_init(cfg, b["node_feat"].shape[1],
+                                     b["edge_feat"].shape[1], gen, dev)
+        batch = {k: _filled(torch, v, n if k in ("senders", "receivers")
+                            else cfg.n_classes, gen, dev)
+                 for k, v in b.items()}
+        return params, AdamW(lr=1e-3).init(params), batch
+    params = fm_m.fm_init(cfg, gen, device=dev)
+    batch = ClickStream(cfg.vocab_sizes, prog.args[2]["labels"].shape[0],
+                        seed=SEED).batch_at(0)
+    return (params, AdamW(lr=1e-3).init(params),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+
+
+def dryrun_real(torch, mesh, arch, prog, pred: dict, dev="cuda") -> tuple:
+    """One (b) cell on the card: a warm-up call, one timed call (CUDA
+    events around it), one call under ``OpCounter``; held to its trace
+    ``pred``."""
+    import gc
+
+    from repro_torch.analysis.op_trace import OpCounter, collective_summary
+    from repro_torch.distributed.sharding import shard_tree
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    full = dryrun_args(torch, arch, prog, dev)
+    args = tuple(shard_tree(a, s, mesh) for a, s in zip(full, prog.in_specs))
+    del full
+    gc.collect()
+    prog.fn(*args)
+    gc.collect()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    prog.fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    counter = OpCounter()
+    counter.track(args)
+    with counter:
+        prog.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = counter.counts()
+    del args
+    coll = collective_summary(got["collectives"])["by_kind"]
+    rec = dict(arch=prog.arch, cell=prog.cell, measured_ms=ms,
+               t_bound_ms=pred["t_bound"] * 1e3,
+               bottleneck=pred["bottleneck"],
+               flops=[pred["hlo_flops"], got["flops"]],
+               collectives=[pred["collectives"]["by_kind"], coll],
+               peak_bytes=[pred["per_device_memory"], peak],
+               bytes=[pred["hlo_bytes"], got["bytes"]],
+               tiles_replayed=pred["tiles_replayed"],
+               plan_stand_ins=pred["plan_stand_ins"])
+    problems = []
+    what = f"dryrun (b) {prog.arch}/{prog.cell}"
+    if pred["hlo_flops"] != got["flops"]:
+        problems.append(f"{what}: FLOPs {pred['hlo_flops']} traced, "
+                        f"{got['flops']} run")
+    if pred["collectives"]["by_kind"] != coll:
+        problems.append(f"{what}: collectives {pred['collectives']} "
+                        f"traced, {coll} run")
+    if abs(pred["per_device_memory"] - peak) > DRYRUN_PEAK_TOL * peak:
+        problems.append(f"{what}: peak {pred['per_device_memory']} B "
+                        f"traced, {peak} B on the card")
+    if pred["t_bound"] * 1e3 > DRYRUN_BOUND_SLACK * ms:
+        problems.append(f"{what}: t_bound {pred['t_bound'] * 1e3:.3f} ms "
+                        f"above the measured {ms:.3f} ms")
+    return problems, rec
+
+
+def fm_cells_equal(torch, mesh, dev="cuda") -> tuple:
+    """(c): the FM cells' ``fn`` (``launch.specs.build_fm_cell`` at full
+    config, rows split over the one rank) against the unsharded steps on
+    the same inputs: one train step (loss, parameters, AdamW state),
+    serve at FM_SERVE_BATCH, retrieval of one user against
+    FM_CANDIDATES; each ``torch.equal``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickStream
+    from repro_torch.launch import specs
+    from repro_torch.models import fm as fm_m
+    from repro_torch.train import steps
+    from repro_torch.train.optimizer import AdamW
+
+    arch = get_arch("fm")
+    cfg = arch.config
+    progs = {c.kind: specs.build_fm_cell(arch, c, mesh)
+             for c in arch.shapes if c.name != "serve_bulk"}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = fm_m.fm_init(cfg, gen, device=dev)
+    def batch(n):
+        return {k: torch.from_numpy(v).to(dev) for k, v in ClickStream(
+            cfg.vocab_sizes, n, seed=SEED).batch_at(0).items()}
+    tb = batch(FM_TRAIN_BATCH)
+    state = AdamW(lr=1e-3).init(params)
+    out = {}
+    plain = steps.make_fm_train_step(cfg, AdamW(lr=1e-3))
+    out["train"] = _bitwise(torch, progs["rec_train"].fn(params, state, tb),
+                            plain(params, state, tb))
+    del state, tb
+    sb = batch(FM_SERVE_BATCH)
+    out["serve"] = _bitwise(torch, progs["rec_serve"].fn(params, sb),
+                            steps.make_fm_serve_step(cfg)(params, sb))
+    raw = ClickStream(cfg.vocab_sizes, FM_CANDIDATES,
+                      seed=SEED).batch_at(0)["idx"]
+    flat = raw + fm_m.field_offsets(cfg)[None, :]
+    user = torch.from_numpy(flat[0, :FM_USER_FIELDS]).to(dev)
+    cand = torch.from_numpy(flat[:, FM_USER_FIELDS:]).to(dev)
+    out["retrieval"] = _bitwise(
+        torch, progs["rec_retrieval"].fn(params, user, cand),
+        steps.make_fm_retrieval_step(cfg, FM_USER_FIELDS)(params, user,
+                                                           cand))
+    problems = [f"dryrun (c) fm {k}: the cell is not the unsharded step"
+                for k, ok in out.items() if not ok]
+    return problems, out
+
+
+def _start(cmd: list, log: str):
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    f = open(log, "w")
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=f,
+                            stderr=subprocess.STDOUT), f
+
+
+def _finish(proc, f, log: str, what: str) -> list:
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    f.close()
+    if rc == 0:
+        return []
+    with open(log) as g:
+        tail = g.read()[-3000:]
+    return [f"dryrun {what}: exit {rc}\n{tail}"]
+
+
+def dryrun_phase(torch, smi: str, dev="cuda") -> tuple:
+    """(a) the dry-run of every cell on 16 x 16 and (b)'s traces, in
+    processes of their own (host only, at once); then on the card over
+    one NCCL rank on a (1, 1) mesh: (b) each cell against its trace, (c)
+    the FM cells against the unsharded steps."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        out16, pred = (os.path.join(tmp, n) for n in ("16x16.json",
+                                                      "1x1.json"))
+        jobs = max(1, min(8, (os.cpu_count() or 2) - 1))
+        a = _start([sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--all", "--jobs", str(jobs), "--out", out16],
+                   os.path.join(tmp, "a.log"))
+        b = _start([sys.executable, "-c", "import chip_smoke as C; "
+                    f"C.dryrun_predict({pred!r})"],
+                   os.path.join(tmp, "b.log"))
+        problems = _finish(*a, os.path.join(tmp, "a.log"), "(a)")
+        problems += _finish(*b, os.path.join(tmp, "b.log"), "(b) trace")
+        trace_s = time.perf_counter() - t0
+        cells = []
+        if os.path.exists(out16):
+            with open(out16) as f:
+                cells = json.load(f)
+        preds = []
+        if os.path.exists(pred):
+            with open(pred) as f:
+                preds = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    status = {k: sum(r["status"] == k for r in cells)
+              for k in ("ok", "skip", "error")}
+    if (status["ok"], status["skip"], status["error"]) != (
+            DRYRUN_OK, DRYRUN_SKIP, 0):
+        problems.append(f"dryrun (a): {status}, want {DRYRUN_OK} ok, "
+                        f"{DRYRUN_SKIP} skipped, 0 errors")
+    a_cells = [dict(cell=f"{r['arch']}/{r['cell']}", status=r["status"],
+                    bottleneck=r.get("bottleneck"), t_bound=r.get("t_bound"),
+                    mfu_bound=r.get("mfu_bound"),
+                    per_device_memory=r.get("per_device_memory"),
+                    peak=(r.get("peak") or {}).get("flops_per_s"),
+                    trace_s=r.get("compile_s")) for r in cells]
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_dry_pg_")
+    backend = "nccl" if dev == "cuda" else "gloo"
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=(
+                                torch.device("cuda", 0) if dev == "cuda"
+                                else None))
+    real = []
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        progs = dryrun_progs(mesh)
+        if len(preds) != len(progs):
+            problems.append(f"dryrun (b): {len(preds)} traces for "
+                            f"{len(progs)} cells")
+        for (arch, prog), p in zip(progs, preds):
+            pr, rec = dryrun_real(torch, mesh, arch, prog, p, dev)
+            problems += pr
+            real.append(rec)
+        torch.cuda.empty_cache()
+        pr, fm_equal = fm_cells_equal(torch, mesh, dev)
+        problems += pr
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return problems, dict(gpu=smi, mesh_a="16x16", status=status,
+                          cells=a_cells, trace_s=trace_s, jobs=jobs,
+                          predicted_vs_measured=real, fm_cells_equal=fm_equal,
+                          phase_s=time.perf_counter() - t0)
+
+
 # --------------------------------------------------------- kernel phase ----
 def kernel_cases(torch, engine, graphs):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
@@ -4678,6 +5014,28 @@ def main() -> None:
           f" of {len(serving_tp['gloo_check']['cases'])} cases within tol;"
           f" phase {serving_tp['phase_s']:.1f} s")
 
+    dr_problems, dry = dryrun_phase(torch, smi)
+    problems += dr_problems
+    for r in dry["cells"]:
+        if r["status"] == "ok":
+            print(f"dryrun (a) 16x16 {r['cell']}: bottleneck "
+                  f"{r['bottleneck']}, t_bound {r['t_bound']:.4g} s, "
+                  f"mfu_bound {r['mfu_bound']:.4g}, peak "
+                  f"{r['per_device_memory'] / 2**30:.2f} GiB, traced in "
+                  f"{r['trace_s']:.1f} s")
+        else:
+            print(f"dryrun (a) 16x16 {r['cell']}: {r['status']}")
+    print(f"dryrun (a): {dry['status']} in {dry['trace_s']:.1f} s "
+          f"({dry['jobs']} processes, host only)")
+    for r in dry["predicted_vs_measured"]:
+        print(f"dryrun (b) {r['arch']}/{r['cell']} ({smi}): measured "
+              f"{r['measured_ms']:.3f} ms, t_bound {r['t_bound_ms']:.3f} ms "
+              f"({r['bottleneck']}); FLOPs traced/run {r['flops']}; peak "
+              f"bytes traced/card {r['peak_bytes']}; collectives "
+              f"{r['collectives'][1]}")
+    print(f"dryrun (c) fm cells equal to the unsharded steps: "
+          f"{dry['fm_cells_equal']}; phase {dry['phase_s']:.1f} s")
+
     e2e = []
     for name, g in graphs.items():
         h = engine.handle(name)
@@ -4724,6 +5082,7 @@ def main() -> None:
     print(json.dumps({"geometric": geo}))
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving_tp": serving_tp}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -246,6 +246,29 @@ def to_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
+# host plans built from a stand-in index (``plan_index``) in this process
+STAND_IN = {"plans": 0}
+
+
+def plan_index(idx, bound: int) -> np.ndarray:
+    """The host values of an index array that a plan is built from. A
+    ``FakeTensor`` (the dry-run's trace, ``launch/dryrun.py``) has no
+    values: its stand-in is ``arange(numel) % bound`` in its shape, an
+    index of the same shape and bound, so the plan's shapes, and the
+    FLOPs and collectives of the ops that read it, are those of any real
+    index (``SegmentPlan.live`` keeps only live segments, so its size is
+    the stand-in's). Counted in ``STAND_IN``. Any other array: its
+    values (``to_numpy``)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if not isinstance(idx, FakeTensor):
+        return to_numpy(idx)
+    STAND_IN["plans"] += 1
+    n = int(np.prod(tuple(idx.shape)))
+    return (np.arange(n, dtype=np.int64) % max(int(bound), 1)).reshape(
+        tuple(idx.shape))
+
+
 def _to_tensor(a, np_dtype, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=_TORCH_DTYPES[np_dtype])

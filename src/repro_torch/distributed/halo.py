@@ -47,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.formats import (IdentityCache, _segments_to,
-                                      segment_plan, to_numpy)
+                                      plan_index, segment_plan)
 from repro_torch.core.formats import segment_sum as _plan_sum
 from repro_torch.launch.mesh import axes_group, ring
 
@@ -107,8 +107,8 @@ def make_halo_ops(mesh, axes) -> HaloOps:
         each index and the plan that sums onto the 3 * shard halo rows."""
         def build():
             base = me * shard - shard
-            loc = np.clip(to_numpy(il).astype(np.int64).reshape(-1) - base,
-                          0, 3 * shard - 1)
+            loc = np.clip(plan_index(il, 3 * shard).astype(np.int64)
+                          .reshape(-1) - base, 0, 3 * shard - 1)
             plan = _segments_to(segment_plan(loc, 3 * shard), device)
             return torch.as_tensor(loc, device=device), plan
         return locs.get((il,), (int(shard), str(device)), build)

@@ -81,12 +81,24 @@ def axes_size(mesh, axes) -> int:
     return int(np.prod([shape[a] for a in axes]))
 
 
+def grid(mesh):
+    """A ``DeviceMesh``'s global ranks as a host array of its shape (None
+    for a duck-typed mesh), read outside any dispatch mode (under the
+    dry-run's fake tensors too)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        ranks = getattr(mesh, "mesh", None)
+        return ranks.numpy() if isinstance(ranks, torch.Tensor) else None
+
+
 def coordinates(mesh, rank: int) -> dict:
     """{axis name: index} of global ``rank`` on ``mesh``. A duck-typed
     mesh numbers its positions row-major (``rank`` is then a position)."""
     names = axis_names(mesh)
-    if isinstance(getattr(mesh, "mesh", None), torch.Tensor):
-        hit = (mesh.mesh == int(rank)).nonzero()
+    ranks = grid(mesh)
+    if ranks is not None:
+        hit = np.argwhere(ranks == int(rank))
         if hit.shape[0] != 1:
             raise ValueError(f"rank {rank} is not on the mesh")
         return dict(zip(names, (int(i) for i in hit[0])))
@@ -103,10 +115,10 @@ def ring(mesh, axes) -> tuple:
     names = axis_names(mesh)
     axes = tuple(axes)
     me = coordinates(mesh, dist.get_rank())
-    grid = mesh.mesh
     sel = tuple(slice(None) if a in axes else me[a] for a in names)
     kept = [a for a in names if a in axes]
-    sub = grid[sel].permute([kept.index(a) for a in axes]).reshape(-1)
+    sub = grid(mesh)[sel].transpose([kept.index(a) for a in axes])
+    sub = sub.reshape(-1)
     sizes = [mesh_shape(mesh)[a] for a in axes]
     pos = int(np.ravel_multi_index([me[a] for a in axes], sizes))
     return [int(r) for r in sub], pos
@@ -126,4 +138,7 @@ def axes_group(mesh, axes):
                          f"{axis_names(mesh)}")
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    return mesh[ordered]._flatten().get_group()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():     # the mesh's own host tensors
+        return mesh[ordered]._flatten().get_group()

@@ -19,8 +19,9 @@ the config's ``parallelism`` (``distributed.tp.LMPlan``), prefill and
 decode under "tp_fsdp" (the serving plan), the full-graph GNN step over
 the halo ops (made at the first call: collective), the sampled-subgraph
 step with each rank's share of the loss and gradients summed over the
-data axes. The FM steps run on one rank (a row-sharded lookup is not
-ported).
+data axes, the FM steps in either layout of their tables (rows split
+over every axis, or whole where the rows do not divide:
+``distributed.rows``).
 """
 from __future__ import annotations
 
@@ -352,16 +353,19 @@ def build_gnn_cell(arch: Arch, cell: ShapeCell, mesh) -> CellProgram:
 
 
 # --------------------------------------------------------- recsys ----------
-def _one_rank(step, mesh):
-    """``step`` over whole tensors: refused on a mesh of several ranks,
-    where the specs split the embedding rows (a row-sharded lookup is
-    not ported)."""
+def _fm_fn(make, mesh, p_specs):
+    """``make(shards)``'s step over a rank's blocks, in the layout of the
+    tables' specs (``distributed.rows.FMShards``: rows split over every
+    axis, or whole), made at the first call (its groups are
+    collective)."""
+    step = []
+
     def fn(*args):
-        n = axes_size(mesh, all_axes(mesh))
-        if n > 1:
-            raise NotImplementedError(
-                f"the FM steps run on one rank; this mesh has {n}")
-        return step(*args)
+        if not step:
+            from repro_torch.distributed.rows import FMShards
+            rows = p_specs["v"][0] is not None
+            step.append(make(FMShards(mesh, rows)))
+        return step[0](*args)
     return fn
 
 
@@ -378,7 +382,9 @@ def build_fm_cell(arch: Arch, cell: ShapeCell, mesh) -> CellProgram:
         o_specs = shd.opt_state_specs(p_specs)
         batch = {"idx": sds((cell.global_batch, f), I32),
                  "labels": sds((cell.global_batch,), F32)}
-        fn = _one_rank(steps_m.make_fm_train_step(cfg, opt), mesh)
+        fn = _fm_fn(lambda sh: steps_m.make_fm_train_step(cfg, opt,
+                                                           shards=sh),
+                    mesh, p_specs)
         flops = 2.0 * cell.global_batch * f * cfg.embed_dim * 3 * 3
         return CellProgram(arch.name, cell.name, "train_step", fn,
                            (p_structs, o_structs, batch),
@@ -388,7 +394,8 @@ def build_fm_cell(arch: Arch, cell: ShapeCell, mesh) -> CellProgram:
 
     if cell.kind == "rec_serve":
         batch = {"idx": sds((cell.global_batch, f), I32)}
-        fn = _one_rank(steps_m.make_fm_serve_step(cfg), mesh)
+        fn = _fm_fn(lambda sh: steps_m.make_fm_serve_step(cfg, sh), mesh,
+                    p_specs)
         flops = 2.0 * cell.global_batch * f * cfg.embed_dim * 3
         return CellProgram(arch.name, cell.name, "serve_step", fn,
                            (p_structs, batch),
@@ -399,7 +406,8 @@ def build_fm_cell(arch: Arch, cell: ShapeCell, mesh) -> CellProgram:
     # to a 1024-divisible count; padding candidates score as junk rows)
     n_user = 20
     n_cand_f = f - n_user
-    fn = _one_rank(steps_m.make_fm_retrieval_step(cfg, n_user), mesh)
+    fn = _fm_fn(lambda sh: steps_m.make_fm_retrieval_step(cfg, n_user, sh),
+                mesh, p_specs)
     user = sds((n_user,), I32)
     n_cand = -(-cell.n_candidates // 1024) * 1024
     cand = sds((n_cand, n_cand_f), I32)

@@ -17,6 +17,11 @@ operands multiply in f32; bf16 operands go through
 ``torch.bmm(..., out_dtype=torch.float32)`` on the card (tensor cores,
 f32 accumulator) and are upcast to f32 on the CPU (bf16 products are
 exact in f32), where that form of ``bmm`` does not exist.
+
+The tile loops are ``analysis.op_trace.tiles``: ``range`` on real
+tensors; under the dry-run's fake tensors two tiles run and the second
+one's ops are counted for every later tile (every tile dispatches the
+same ops on the same shapes).
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.analysis.op_trace import tiles
 
 NEG_INF = -1e30
 
@@ -63,13 +70,13 @@ class _Attention(torch.autograd.Function):
         nq, nk = rows // (qc * g), k.shape[2] // kc
         out = torch.empty_like(q)
         lse = q.new_empty((b, kvh, rows // g, g), dtype=torch.float32)
-        for i in range(nq):
+        for i in tiles(nq, q):
             qi = q[:, :, i * qc * g:(i + 1) * qc * g]
             qpos_i = qpos[i * qc:(i + 1) * qc]
             m = q.new_full((b, kvh, qc, g), NEG_INF, dtype=torch.float32)
             l = q.new_zeros((b, kvh, qc, g), dtype=torch.float32)
             acc = q.new_zeros((b, kvh, qc, g, dh), dtype=torch.float32)
-            for j in range(nk):
+            for j in tiles(nk, q):
                 cols = slice(j * kc, (j + 1) * kc)
                 vj = v[:, :, cols]
                 sc = _mm(qi, k[:, :, cols].mT).view(b, kvh, qc, g, kc) \
@@ -109,12 +116,12 @@ class _Attention(torch.autograd.Function):
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
         dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-        for j in range(nk):
+        for j in tiles(nk, q):
             cols = slice(j * kc, (j + 1) * kc)
             kj, vj = k[:, :, cols], v[:, :, cols]
             dk_j = k.new_zeros((b, kvh, kc, dh), dtype=torch.float32)
             dv_j = torch.zeros_like(dk_j)
-            for i in range(nq):
+            for i in tiles(nq, q):
                 qrows = slice(i * qc * g, (i + 1) * qc * g)
                 qi, go_i = q[:, :, qrows], g_out[:, :, qrows]
                 qpos_i = qpos[i * qc:(i + 1) * qc]

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import (IdentityCache, _segments_to,
-                                      segment_plan, to_numpy)
+                                      plan_index, segment_plan)
 from repro_torch.core.formats import segment_sum as _plan_sum
 from repro_torch.tree import tree_leaves
 
@@ -33,6 +33,15 @@ def normal_init(gen: torch.Generator, shape, stddev=0.02,
                 dtype=torch.float32):
     return torch.randn(shape, generator=gen, dtype=dtype,
                        device=gen.device) * stddev
+
+
+def one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)`` (int64) as a comparison with the class ids:
+    the same ops on real and on fake tensors (``F.one_hot`` checks the
+    range of real ids with a reduction, and fake ones it expands into a
+    comparison), so the dry-run's trace counts the ops a step runs.
+    ``ids`` must lie in ``[0, n)``."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).long()
 
 
 def rms_norm(x, scale, eps=1e-6):
@@ -90,7 +99,7 @@ _PLANS = IdentityCache()
 
 def _plan(idx, n: int, device):
     def build():
-        dest = to_numpy(idx).astype(np.int64).reshape(-1)
+        dest = plan_index(idx, n).astype(np.int64).reshape(-1)
         return _segments_to(segment_plan(dest, int(n)), device)
     return _PLANS.get((idx,), (int(n), str(device)), build)
 
@@ -171,8 +180,8 @@ def embedding_bag(table, indices, offsets=None, mode="sum"):
     (None -> one id per bag)."""
     if offsets is None:
         return take(table, indices)
-    offsets = to_numpy(offsets).astype(np.int64)
     n = int(np.asarray(indices.shape[0]))
+    offsets = plan_index(offsets, n).astype(np.int64)
     bag_ids = np.zeros(n, np.int64)
     if offsets.shape[0] > 1:
         np.add.at(bag_ids, offsets[1:], 1)

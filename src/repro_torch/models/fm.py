@@ -48,40 +48,47 @@ def _flat_ids(idx, cfg, device) -> torch.Tensor:
     return torch.as_tensor(idx, device=device) + offs[None, :]
 
 
-def fm_score(params, idx, cfg: RecsysConfig):
-    """idx [B, n_fields] per-field ids -> scores [B]."""
+def fm_score(params, idx, cfg: RecsysConfig, lookup=take):
+    """idx [B, n_fields] per-field ids -> scores [B]. ``lookup(table,
+    ids)``: the rows of ``table`` at ``ids`` (``take``; a rank's block
+    of a sharded table: ``distributed.rows``)."""
     flat = _flat_ids(idx, cfg, params["v"].device)         # [B, F]
-    v = take(params["v"], flat)                            # [B, F, k]
-    lin = take(params["w"][:, 0], flat).sum(-1)
+    v = lookup(params["v"], flat)                          # [B, F, k]
+    lin = lookup(params["w"][:, 0], flat).sum(-1)
     s = v.sum(dim=1)                                       # [B, k]
     pair = 0.5 * (torch.square(s) - torch.square(v).sum(dim=1)).sum(-1)
     return params["w0"] + lin + pair
 
 
-def fm_loss(params, idx, labels, cfg: RecsysConfig):
-    logits = fm_score(params, idx, cfg)
+def fm_loss(params, idx, labels, cfg: RecsysConfig, lookup=take,
+            n_total=None):
+    """The mean BCE over ``n_total`` examples (default: this batch's);
+    with a larger ``n_total``, this block's share of the mean."""
+    logits = fm_score(params, idx, cfg, lookup)
     labels = torch.as_tensor(labels, device=logits.device)
-    return torch.mean(
+    n = logits.shape[0] if n_total is None else n_total
+    return torch.sum(
         torch.clamp(logits, min=0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits))))      # stable BCE
+        + torch.log1p(torch.exp(-torch.abs(logits)))) / n  # stable BCE
 
 
 def retrieval_score(params, user_idx, cand_idx, cfg: RecsysConfig,
-                    n_user_fields: int):
+                    n_user_fields: int, user_lookup=take, cand_lookup=take):
     """user_idx [F_u] ids (already offset-flat fields 0..F_u),
-    cand_idx [M, F_c] ids (offset-flat fields F_u..) -> [M] scores."""
+    cand_idx [M, F_c] ids (offset-flat fields F_u..) -> [M] scores.
+    ``user_lookup`` / ``cand_lookup``: as ``fm_score``'s ``lookup``."""
     dev = params["v"].device
     user_idx = torch.as_tensor(user_idx, device=dev)
     cand_idx = torch.as_tensor(cand_idx, device=dev)
     w = params["w"][:, 0]
-    vu = take(params["v"], user_idx)                       # [F_u, k]
+    vu = user_lookup(params["v"], user_idx)                # [F_u, k]
     su = vu.sum(dim=0)                                     # [k]
-    lin_u = take(w, user_idx).sum()
+    lin_u = user_lookup(w, user_idx).sum()
     pair_u = 0.5 * (torch.square(su) - torch.square(vu).sum(0)).sum()
 
-    vc = take(params["v"], cand_idx)                       # [M, F_c, k]
+    vc = cand_lookup(params["v"], cand_idx)                # [M, F_c, k]
     sc = vc.sum(dim=1)                                     # [M, k]
-    lin_c = take(w, cand_idx).sum(-1)
+    lin_c = cand_lookup(w, cand_idx).sum(-1)
     pair_c = 0.5 * (torch.square(sc) - torch.square(vc).sum(1)).sum(-1)
 
     cross = sc @ su                                        # [M]

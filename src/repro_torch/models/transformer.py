@@ -80,7 +80,8 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_map
 
 from .attention import chunked_attention
-from .common import apply_rope, normal_init, rms_norm, segment_sum, take
+from .common import (apply_rope, normal_init, one_hot, rms_norm, segment_sum,
+                     take)
 
 NEG_INF = -1e30
 LAYER_MODES = ("scan", "unroll")
@@ -163,9 +164,9 @@ def _slot_dest(e_flat, c: int, e_first: int, e_local: int):
     those to other experts, go to the dump slot."""
     local_e = e_flat - e_first
     mine = (local_e >= 0) & (local_e < e_local)
-    onehot = F.one_hot(torch.where(mine, local_e,
-                                   torch.full_like(local_e, e_local)),
-                       e_local + 1)                         # [T*k, E+1]
+    onehot = one_hot(torch.where(mine, local_e,
+                                 torch.full_like(local_e, e_local)),
+                     e_local + 1)                           # [T*k, E+1]
     rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
     rank = torch.sum(rank * onehot, dim=-1)                 # [T*k]
     keep = mine & (rank < c)

@@ -55,6 +55,7 @@ from repro_torch.models import fm as fm_m
 from repro_torch.models import gnn as gnn_m
 from repro_torch.models import nequip as nequip_m
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import one_hot, take
 
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -296,8 +297,7 @@ def _xent_terms(logits, labels, mask=None) -> tuple:
             else torch.as_tensor(mask, device=logits.device)
             ).to(torch.float32)
     lz = torch.logsumexp(logits, dim=-1)
-    onehot = torch.nn.functional.one_hot(torch.clamp(labels, min=0),
-                                         logits.shape[-1])
+    onehot = one_hot(torch.clamp(labels, min=0), logits.shape[-1])
     tgt = (logits * onehot.to(logits.dtype)).sum(-1)
     return torch.sum((lz - tgt) * mask), mask.sum()
 
@@ -496,22 +496,55 @@ def make_hybrid_gcn_train_step(part, optimizer, **forward_kw):
 
 
 # ---------------------------------------------------------- recsys ---------
-def make_fm_train_step(cfg: RecsysConfig, optimizer, compress=None):
-    def loss_fn(params, batch):
-        return fm_m.fm_loss(params, batch["idx"], batch["labels"], cfg)
-    return _train_step(loss_fn, optimizer, compress)
+def make_fm_train_step(cfg: RecsysConfig, optimizer, compress=None,
+                       shards=None):
+    """The FM train step; with ``shards`` (``distributed.rows.FMShards``)
+    over a rank's blocks of the tables and of the batch: its share of
+    the loss, the loss and the gradients ``shards.summed`` names summed
+    over the data axes before ``compress`` and the optimizer."""
+    if shards is None:
+        def loss_fn(params, batch):
+            return fm_m.fm_loss(params, batch["idx"], batch["labels"], cfg)
+        return _train_step(loss_fn, optimizer, compress)
+
+    def sharded_loss(params, batch):
+        return fm_m.fm_loss(params, batch["idx"], batch["labels"], cfg,
+                            lookup=shards.batch,
+                            n_total=shards.global_batch(batch["labels"]))
+
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(sharded_loss, params, batch)
+        if shards.data_group is not None:
+            loss, summed = _sum_over(shards.data_group, loss,
+                                     shards.summed(grads))
+            grads = {**grads, **summed}
+        if compress is not None:
+            grads = compress(grads)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+    return train_step
 
 
-def make_fm_serve_step(cfg: RecsysConfig):
+def make_fm_serve_step(cfg: RecsysConfig, shards=None):
+    """Scores of ``batch["idx"]``; with ``shards``, of this rank's block
+    of the batch over its blocks of the tables."""
+    lookup = take if shards is None else shards.batch
+
     @torch.no_grad()
     def serve_step(params, batch):
-        return fm_m.fm_score(params, batch["idx"], cfg)
+        return fm_m.fm_score(params, batch["idx"], cfg, lookup)
     return serve_step
 
 
-def make_fm_retrieval_step(cfg: RecsysConfig, n_user_fields: int):
+def make_fm_retrieval_step(cfg: RecsysConfig, n_user_fields: int,
+                           shards=None):
+    """One user's context against candidates; with ``shards``, this
+    rank's block of the candidates (the context whole on every rank)."""
+    user = take if shards is None else shards.context
+    cand = take if shards is None else shards.candidates
+
     @torch.no_grad()
     def serve_step(params, user_idx, cand_idx):
         return fm_m.retrieval_score(params, user_idx, cand_idx, cfg,
-                                    n_user_fields)
+                                    n_user_fields, user, cand)
     return serve_step
