@@ -381,6 +381,10 @@ def wall_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+# contract_cost's bytes and operations against ell_bytes / band_bytes
+COST_TOL = 0.01
+
+
 def bound(nbytes: float, flops: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / F32_FLOPS_PER_S * 1e3
@@ -3985,6 +3989,22 @@ def serving_tp_phase(torch, smi: str, dev="cuda") -> tuple:
 # (a) ``python -m repro_torch.launch.dryrun --all`` on 16 x 16 (a fake
 # process group of 256 ranks, host only): 36 cells ok, 4 skipped.
 DRYRUN_OK, DRYRUN_SKIP = 36, 4
+# (b) cells whose traced bytes must be within DRYRUN_BYTES_TOL of the
+# card's (the card's branch traced); traced on the meta device as well,
+# whose counts must equal the CUDA trace's (a host without a card traces
+# on meta)
+DRYRUN_BYTES_CELLS = ("qwen3-0.6b", "mixtral-8x7b")
+DRYRUN_BYTES_TOL = 0.05
+# mixtral's 16 x 16 cells as PR 25's dry-run traced them (TP experts
+# holding the global capacity on every rank, the CPU's branch): per rank,
+# all-reduce bytes, FLOPs, peak bytes (python -m repro_torch.launch.dryrun
+# --arch mixtral-8x7b on the parent tree); the TP-expert window must cut
+# the all-reduce bytes to at most a quarter, the FLOPs and peak below
+DRYRUN_PR25 = {
+    "mixtral-8x7b/train_4k": (2817577746520.0, 8080243673460794.0,
+                              134100996372.0),
+    "mixtral-8x7b/prefill_32k": (1408749273088.0, 2999279261450240.0,
+                                 74339958804.0)}
 # (b) cells traced on a (1, 1) mesh (a fake group of one rank) and run on
 # the card over one NCCL rank, each held to its trace: (arch, cell, depth
 # kept (None: all), batch (None: the cell's)); qwen3-0.6b's batch cut
@@ -4024,17 +4044,23 @@ def dryrun_progs(mesh) -> list:
 
 def dryrun_predict(path: str) -> None:
     """(b)'s traces: this process as the one rank of a fake group, the
-    (b) cells traced on fake tensors on a (1, 1) mesh; written to
-    ``path`` as JSON. Run as a process of its own."""
+    (b) cells traced on fake tensors on a (1, 1) mesh, on the card's
+    device (``dryrun.card_device``: fake CUDA tensors here); the
+    ``DRYRUN_BYTES_CELLS`` also on fake meta tensors (as a host without a
+    card traces them); written to ``path`` as JSON. Run as a process of
+    its own."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
 
     dryrun.fake_world(1)
     mesh = make_mesh((1, 1), ("data", "model"), "cpu")
-    recs = [dryrun.trace(p, mesh, "1x1") for _, p in dryrun_progs(mesh)]
+    progs = dryrun_progs(mesh)
+    recs = [dryrun.trace(p, mesh, "1x1") for _, p in progs]
+    meta = {p.arch: dryrun.trace(p, mesh, "1x1", device="meta")
+            for _, p in progs if p.arch in DRYRUN_BYTES_CELLS}
     with open(path, "w") as f:
-        json.dump(recs, f, default=str)
+        json.dump({"traces": recs, "meta": meta}, f, default=str)
 
 
 def _filled(torch, v, hi: int, gen, dev):
@@ -4130,6 +4156,7 @@ def dryrun_real(torch, mesh, arch, prog, pred: dict, dev="cuda") -> tuple:
                collectives=[pred["collectives"]["by_kind"], coll],
                peak_bytes=[pred["per_device_memory"], peak],
                bytes=[pred["hlo_bytes"], got["bytes"]],
+               traced_on=pred["traced_on"],
                tiles_replayed=pred["tiles_replayed"],
                plan_stand_ins=pred["plan_stand_ins"])
     problems = []
@@ -4140,6 +4167,11 @@ def dryrun_real(torch, mesh, arch, prog, pred: dict, dev="cuda") -> tuple:
     if pred["collectives"]["by_kind"] != coll:
         problems.append(f"{what}: collectives {pred['collectives']} "
                         f"traced, {coll} run")
+    if (prog.arch in DRYRUN_BYTES_CELLS and abs(pred["hlo_bytes"]
+                                               - got["bytes"])
+            > DRYRUN_BYTES_TOL * got["bytes"]):
+        problems.append(f"{what}: {pred['hlo_bytes']} bytes traced, "
+                        f"{got['bytes']} run")
     if abs(pred["per_device_memory"] - peak) > DRYRUN_PEAK_TOL * peak:
         problems.append(f"{what}: peak {pred['per_device_memory']} B "
                         f"traced, {peak} B on the card")
@@ -4248,10 +4280,11 @@ def dryrun_phase(torch, smi: str, dev="cuda") -> tuple:
         if os.path.exists(out16):
             with open(out16) as f:
                 cells = json.load(f)
-        preds = []
+        preds, meta = [], {}
         if os.path.exists(pred):
             with open(pred) as f:
-                preds = json.load(f)
+                traced = json.load(f)
+            preds, meta = traced["traces"], traced["meta"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     status = {k: sum(r["status"] == k for r in cells)
@@ -4265,7 +4298,41 @@ def dryrun_phase(torch, smi: str, dev="cuda") -> tuple:
                     mfu_bound=r.get("mfu_bound"),
                     per_device_memory=r.get("per_device_memory"),
                     peak=(r.get("peak") or {}).get("flops_per_s"),
-                    trace_s=r.get("compile_s")) for r in cells]
+                    trace_s=r.get("compile_s"),
+                    traced_on=r.get("traced_on")) for r in cells]
+    moe = {}
+    for r in cells:
+        name = f"{r['arch']}/{r['cell']}"
+        if name in DRYRUN_PR25 and r["status"] == "ok":
+            now = (r["collectives"]["by_kind"].get("all-reduce", {}).get(
+                "bytes", 0.0), r["hlo_flops"], r["per_device_memory"])
+            moe[name] = dict(all_reduce_bytes=[DRYRUN_PR25[name][0], now[0]],
+                             flops=[DRYRUN_PR25[name][1], now[1]],
+                             peak_bytes=[DRYRUN_PR25[name][2], now[2]])
+            if not (now[0] <= 0.25 * DRYRUN_PR25[name][0]
+                    and now[1] < DRYRUN_PR25[name][1]
+                    and now[2] < DRYRUN_PR25[name][2]):
+                problems.append(f"dryrun (a) {name}: all-reduce bytes, "
+                                f"FLOPs, peak {now} against PR 25's "
+                                f"{DRYRUN_PR25[name]}")
+    if set(moe) != set(DRYRUN_PR25):
+        problems.append(f"dryrun (a): {sorted(moe)} of {sorted(DRYRUN_PR25)}"
+                        " traced")
+    meta_equal = {}
+    for p in preds:
+        m = meta.get(p["arch"])
+        if m is None:
+            continue
+        keys = ("hlo_flops", "hlo_bytes", "per_device_memory")
+        meta_equal[p["arch"]] = (all(m[k] == p[k] for k in keys)
+                                 and m["collectives"]["by_kind"]
+                                 == p["collectives"]["by_kind"])
+        if not meta_equal[p["arch"]]:
+            problems.append(f"dryrun (b) {p['arch']}: the meta trace "
+                            f"{[m[k] for k in keys]} is not the "
+                            f"{p['traced_on']} one {[p[k] for k in keys]}")
+    if set(meta_equal) != set(DRYRUN_BYTES_CELLS):
+        problems.append(f"dryrun (b): meta traces of {sorted(meta_equal)}")
 
     store = tempfile.mkdtemp(prefix="chip_smoke_dry_pg_")
     backend = "nccl" if dev == "cuda" else "gloo"
@@ -4295,7 +4362,125 @@ def dryrun_phase(torch, smi: str, dev="cuda") -> tuple:
     torch.cuda.empty_cache()
     return problems, dict(gpu=smi, mesh_a="16x16", status=status,
                           cells=a_cells, trace_s=trace_s, jobs=jobs,
+                          traced_on=sorted({r["traced_on"] for r in
+                                            a_cells if r["traced_on"]}),
+                          mixtral_vs_pr25=moe, meta_equal=meta_equal,
                           predicted_vs_measured=real, fm_cells_equal=fm_equal,
+                          phase_s=time.perf_counter() - t0)
+
+
+# ----------------------------------------------------- checkpoint phase ----
+CKPT_ARCH = "qwen3-0.6b"
+
+
+def checkpoint_phase(torch, smi: str, dev="cuda") -> tuple:
+    """A sharded checkpoint of the training state (parameters and AdamW
+    moments, f32) of ``CKPT_ARCH`` at full config under "tp_fsdp" over one
+    NCCL rank on a (1, 1) mesh (``dev`` "cpu": one gloo rank, for a
+    rehearsal): one step from seeded parameters, ``CheckpointManager.save``
+    with the specs and the mesh (global arrays, the writer async),
+    ``wait``, ``restore`` into a fresh state of other values, and the
+    next step from the restored state, which must be ``torch.equal`` (loss,
+    parameters, AdamW state) to the next step of the run that never
+    saved. The save's and the restore's seconds and the bytes written."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  lm_param_specs,
+                                                  opt_state_specs, shard_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.steps import make_lm_train_step
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    problems = []
+    cfg = dataclasses.replace(get_arch(CKPT_ARCH).config,
+                              parallelism="tp_fsdp")
+    store = tempfile.mkdtemp(prefix="chip_smoke_ckpt_pg_")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    backend = "nccl" if dev == "cuda" else "gloo"
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=(
+                                torch.device("cuda", 0) if dev == "cuda"
+                                else None))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        opt = AdamW(lr=TP_LR, weight_decay=0.01)
+        step = make_lm_train_step(
+            cfg, opt, remat=True, xent_chunk=TP_XENT,
+            act_constraint=NamedSharding(mesh, tp.residual_spec(cfg, mesh)))
+        stream = TokenStream(cfg.vocab, 1, TP_SEQ, seed=SEED)
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    stream.batch_at(i).items()} for i in range(2)]
+
+        def state(seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            full = T.init_params(cfg, gen, device=dev)
+            specs = lm_param_specs(cfg, mesh, full)
+            params = shard_tree(full, specs, mesh)
+            del full
+            return params, opt.init(params), specs
+
+        params, opt_state, specs = state(SEED)
+        params, opt_state, _ = step(params, opt_state, batches[0])
+        spec_tree = {"params": specs, "opt_state": opt_state_specs(specs)}
+        mgr = CheckpointManager(ckpt_dir, keep=1, async_save=True)
+        (_, save_s) = timed_call(torch, lambda: mgr.save(
+            1, {"params": params, "opt_state": opt_state},
+            spec_tree=spec_tree, mesh=mesh))
+        _, commit_s = timed_call(torch, mgr.wait)
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(ckpt_dir) for f in files)
+        # the run that never saved takes its next step first
+        want_p, want_s, want_m = step(params, opt_state, batches[1])
+        del params, opt_state
+        gc.collect()
+        fresh_p, fresh_s, _ = state(SEED + 1)
+        (restored, manifest), restore_s = timed_call(torch, lambda: (
+            mgr.restore(1, {"params": fresh_p, "opt_state": fresh_s},
+                        spec_tree=spec_tree, mesh=mesh)))
+        del fresh_p, fresh_s
+        gc.collect()
+        got_p, got_s, got_m = step(restored["params"],
+                                   restored["opt_state"], batches[1])
+        del restored
+        equal = dict(loss=bool(torch.equal(got_m["loss"], want_m["loss"])),
+                     params=_bitwise(torch, got_p, want_p),
+                     opt_state=_bitwise(torch, got_s, want_s))
+        n_leaves = len(tree_leaves(want_p)) + len(tree_leaves(want_s))
+        loss = float(want_m["loss"])
+        del got_p, got_s, want_p, want_s
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if not all(equal.values()):
+        problems.append(f"checkpoint: the step after restore differs from "
+                        f"the unsaved run's: {equal}")
+    if len(manifest["keys"]) != n_leaves:
+        problems.append(f"checkpoint: {len(manifest['keys'])} leaves "
+                        f"written, the state has {n_leaves}")
+    return problems, dict(gpu=smi, arch=CKPT_ARCH, strategy="tp_fsdp",
+                          backend=backend, mesh="1x1", leaves=n_leaves,
+                          bytes_written=nbytes, save_s=save_s / 1e3,
+                          commit_s=commit_s / 1e3, restore_s=restore_s / 1e3,
+                          loss=loss, equal_to_unsaved=equal,
                           phase_s=time.perf_counter() - t0)
 
 
@@ -4487,7 +4672,9 @@ def ell_case(torch, case):
     time (cuSPARSE's SpMM time grows with the CSR's row count, even
     where almost every row is empty)."""
     from repro_torch.core.formats import scatter_ell_partials
-    from repro_torch.kernels.ell_spmm import ragged_ell_rows, ragged_ell_spmm
+    from repro_torch.kernels.ell_spmm import (contract_cost,
+                                              ragged_ell_contract,
+                                              ragged_ell_rows, ragged_ell_spmm)
     from repro_torch.kernels.ref import (ragged_ell_rows_ref,
                                          ragged_ell_spmm_ref)
 
@@ -4527,7 +4714,13 @@ def ell_case(torch, case):
     live = np.broadcast_to(np.arange(kmax)[None, None, None, :]
                            < uk.cpu().numpy()[:, :, None, None], cols.shape)
     flops = 2.0 * entries * kmax * f + entries * f + (lengths > 0).sum() * f
-    return dict(
+    cost = contract_cost(ragged_ell_contract(
+        g, u, r, kmax, nct, t, f, n_slots=int(plan.live.shape[1])),
+        cols=cols, tile_col=tcol, plan=plan)
+    counts = dict(contract_cost=[cost["hbm_bytes"], cost["flops"]],
+                  smoke=[float(ell_bytes(cols, tcol, None, t, f, g, u, r,
+                                         plan=plan)), float(flops)])
+    return dict(counts=counts,
         ok=bool(torch.equal(got, want)) and folded_bitwise and per_unit_ok,
         err=max_err(got, want), folded_bitwise=folded_bitwise,
         per_unit_ok=per_unit_ok, entries=entries,
@@ -4548,8 +4741,7 @@ def ell_case(torch, case):
         per_unit_bound_ms=bound(ell_bytes(cols, tcol, live, t, f, g, u, r)
                                 + uk.numel() * 4,
                                 2.0 * int(live.sum()) * f)[0],
-        bound=bound(ell_bytes(cols, tcol, None, t, f, g, u, r, plan=plan),
-                    flops))
+        bound=bound(cost["hbm_bytes"], cost["flops"]))
 
 
 def band_bytes(buckets, bands, t, f) -> tuple:
@@ -4602,7 +4794,8 @@ def fixed_ell_case(torch, case):
     from repro_torch.core.formats import (RaggedEll, bucket_plan,
                                           ell_buckets, scatter_ell_partials)
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ell_spmm import ell_spmm, ell_spmm_rows
+    from repro_torch.kernels.ell_spmm import (contract_cost, ell_contract,
+                                              ell_spmm, ell_spmm_rows)
     from repro_torch.kernels.ref import ell_spmm_rows_ref
 
     part, bt, meta, dense_plan, plan, bands = case
@@ -4662,7 +4855,16 @@ def fixed_ell_case(torch, case):
     b2 = bt.reshape(g * nct * t, f)
     buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
     nbytes, flops = band_bytes(buckets, bands, t, f)
-    return dict(
+    seen, cost = {}, [0.0, 0.0]
+    for bk, band in zip(buckets, bands):
+        c = contract_cost(ell_contract(g, bk.cols.shape[1], r,
+                                       bk.cols.shape[-1], nct, t, f,
+                                       n_slots=int(band.rows.shape[1])),
+                          cols=bk.cols, tile_col=bk.tile_col, plan=band,
+                          seen=seen)
+        cost = [cost[0] + c["hbm_bytes"], cost[1] + c["flops"]]
+    counts = dict(contract_cost=cost, smoke=[float(nbytes), float(flops)])
+    return dict(counts=counts,
         ok=(bool(torch.equal(got, want)) and fused_bitwise and loop_bitwise
             and launches_per_call == len(buckets)),
         err=max_err(got, want), folded_bitwise=fused_bitwise,
@@ -4687,7 +4889,7 @@ def fixed_ell_case(torch, case):
             torch, fused_chain, calls=1)["kernels_per_infer"],
         parent_loop_chain_kernels=profile_calls(
             torch, loop_chain, calls=1)["kernels_per_infer"],
-        bound=bound(nbytes, flops))
+        bound=bound(*cost))
 
 
 def matmul_case(torch, case):
@@ -4766,10 +4968,23 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                           "configs_bitwise", "config_ms", "per_unit_ok",
                           "entries", "live_rows", "parent_chain_ms",
                           "per_unit_ms", "per_unit_bound_ms",
-                          "library_all_rows_ms", "library_all_rows_top"):
+                          "library_all_rows_ms", "library_all_rows_top",
+                          "counts"):
                 if extra in res:
                     row[extra] = res[extra]
             rows.append(row)
+            if "counts" in res:
+                # the bound's bytes and operations by the kernel module's
+                # contract_cost against this script's own count
+                (cb, cf), (sb, sf) = (res["counts"]["contract_cost"],
+                                      res["counts"]["smoke"])
+                print(f"    bound counts: contract_cost {cb:.0f} B "
+                      f"{cf:.0f} ops, smoke {sb:.0f} B {sf:.0f} ops")
+                if (abs(cb - sb) > COST_TOL * sb
+                        or abs(cf - sf) > COST_TOL * sf):
+                    problems.append(f"{kname} {label}: contract_cost "
+                                    f"{[cb, cf]} against the smoke's "
+                                    f"count {[sb, sf]}")
             print(f"  {kname:16s} {json.dumps(label):52s} kernel "
                   f"{res['ms']:.4f} ms (call {res['call_ms']:.4f})  plain "
                   f"{res['plain_ms']:.4f} ms  library "
@@ -5026,15 +5241,35 @@ def main() -> None:
         else:
             print(f"dryrun (a) 16x16 {r['cell']}: {r['status']}")
     print(f"dryrun (a): {dry['status']} in {dry['trace_s']:.1f} s "
-          f"({dry['jobs']} processes, host only)")
+          f"({dry['jobs']} processes, host only), traced on "
+          f"{dry['traced_on']}")
+    for name, r in dry["mixtral_vs_pr25"].items():
+        print(f"dryrun (a) 16x16 {name} a rank, PR 25 -> now: all-reduce "
+              f"{r['all_reduce_bytes'][0]:.4g} -> "
+              f"{r['all_reduce_bytes'][1]:.4g} B, FLOPs "
+              f"{r['flops'][0]:.4g} -> {r['flops'][1]:.4g}, peak "
+              f"{r['peak_bytes'][0] / 2**30:.2f} -> "
+              f"{r['peak_bytes'][1] / 2**30:.2f} GiB")
+    print(f"dryrun (b) meta traces equal to the card's device's: "
+          f"{dry['meta_equal']}")
     for r in dry["predicted_vs_measured"]:
         print(f"dryrun (b) {r['arch']}/{r['cell']} ({smi}): measured "
               f"{r['measured_ms']:.3f} ms, t_bound {r['t_bound_ms']:.3f} ms "
-              f"({r['bottleneck']}); FLOPs traced/run {r['flops']}; peak "
-              f"bytes traced/card {r['peak_bytes']}; collectives "
-              f"{r['collectives'][1]}")
+              f"({r['bottleneck']}); FLOPs traced/run {r['flops']}; bytes "
+              f"traced/run {r['bytes']}; peak bytes traced/card "
+              f"{r['peak_bytes']}; collectives {r['collectives'][1]}; "
+              f"traced on {r['traced_on']}")
     print(f"dryrun (c) fm cells equal to the unsharded steps: "
           f"{dry['fm_cells_equal']}; phase {dry['phase_s']:.1f} s")
+
+    ck_problems, ckpt = checkpoint_phase(torch, smi)
+    problems += ck_problems
+    print(f"checkpoint ({smi}): {ckpt['arch']} {ckpt['strategy']} state, "
+          f"{ckpt['leaves']} leaves, {ckpt['bytes_written']} bytes written;"
+          f" save {ckpt['save_s']:.2f} s (gather; write committed after "
+          f"{ckpt['commit_s']:.2f} s more), restore {ckpt['restore_s']:.2f}"
+          f" s; next step equal to the unsaved run's "
+          f"{ckpt['equal_to_unsaved']}; phase {ckpt['phase_s']:.1f} s")
 
     e2e = []
     for name, g in graphs.items():
@@ -5083,6 +5318,7 @@ def main() -> None:
     print(json.dumps({"sharded": sharded}))
     print(json.dumps({"serving_tp": serving_tp}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"checkpoint": ckpt}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -2,6 +2,7 @@
 
     python -m repro_torch.analysis.static [--passes launch,kernel,concurrency]
                                           [--device cuda|cpu] [-v]
+                                          [--bench-check [ROOT]]
 
 Port of ``scripts/lint_repro.py``. Three passes:
 
@@ -27,6 +28,10 @@ else the CPU, where the kernels' plain versions run and the registers
 rule reports "not checked". Benign races carry inline waivers,
 ``# lint: racy-ok(<reason>)``, listed under ``-v``.
 
+``--bench-check [ROOT]`` validates the ``BENCH_*.json`` trajectory files
+at ROOT (default: the repository's root) against their schema
+(``bench_check``); given without ``--passes`` it runs no other pass.
+
 Exit status is 1 iff any unwaived error finding survives.
 """
 from __future__ import annotations
@@ -42,17 +47,25 @@ def main(argv=None) -> int:
         prog="python -m repro_torch.analysis.static",
         description="static invariant checker (launch / kernel / "
                     "concurrency passes)")
-    ap.add_argument("--passes", default=",".join(ALL_PASSES),
+    ap.add_argument("--passes", default=None,
                     help="comma-separated subset of "
-                         f"{{{','.join(ALL_PASSES)}}}")
+                         f"{{{','.join(ALL_PASSES)}}} (default: all, or "
+                         "none with --bench-check)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="where the launch and kernel passes run (default: "
                          "the card when one is present, else the CPU)")
+    ap.add_argument("--bench-check", nargs="?", const="", default=None,
+                    metavar="ROOT",
+                    help="validate the BENCH_*.json trajectory files at "
+                         "ROOT (default: the repository's root)")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="also print waived findings and warnings")
     args = ap.parse_args(argv)
 
-    requested = [p.strip() for p in args.passes.split(",") if p.strip()]
+    bench = args.bench_check is not None
+    passes = args.passes if args.passes is not None else (
+        "" if bench else ",".join(ALL_PASSES))
+    requested = [p.strip() for p in passes.split(",") if p.strip()]
     unknown = [p for p in requested if p not in ALL_PASSES]
     if unknown:
         ap.error(f"unknown pass(es): {', '.join(unknown)}")
@@ -80,7 +93,12 @@ def main(argv=None) -> int:
             from repro_torch.analysis.static.kernel_pass import (
                 run_kernel_pass)
             report.extend(run_kernel_pass(engine))
-    print(f"repro_torch-lint: passes {','.join(requested)} on {device}")
+    if bench:
+        from repro_torch.analysis.static.bench_check import check_bench_files
+        from repro_torch.analysis.static.concurrency_pass import _repo_root
+        report.extend(check_bench_files(args.bench_check or _repo_root()))
+    print(f"repro_torch-lint: passes {','.join(requested + ['bench'] * bench)}"
+          f" on {device}")
     print(report.render(verbose=args.verbose))
     return 0 if report.ok else 1
 

@@ -12,7 +12,11 @@ loss-spike detector that rolls back to the previous checkpoint.
 
 Port of ``repro.distributed.fault_tolerance``: the same runner over the
 port's ``CheckpointManager``; ``train_step`` is any step of
-``repro_torch.train.steps`` (its loss a tensor or a float).
+``repro_torch.train.steps`` (its loss a tensor or a float). A sharded
+state (``param_specs`` and ``mesh``: params and AdamW state are this
+rank's blocks) is saved as global arrays and restored onto ``mesh``,
+so a run resumes on another mesh; every rank of the mesh runs the
+runner.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.distributed.sharding import P, opt_state_specs
 
 
 @dataclasses.dataclass
@@ -44,8 +49,13 @@ class TrainingRunner:
     """
 
     def __init__(self, cfg: RunnerConfig, train_step: Callable,
-                 batch_at: Callable, inject_failure_at: Optional[int] = None):
+                 batch_at: Callable, inject_failure_at: Optional[int] = None,
+                 *, param_specs=None, mesh=None):
         self.cfg = cfg
+        self._specs = {} if param_specs is None else dict(
+            spec_tree={"params": param_specs,
+                       "opt_state": opt_state_specs(param_specs),
+                       "step": P()}, mesh=mesh)
         self.train_step = train_step
         self.batch_at = batch_at
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
@@ -61,7 +71,7 @@ class TrainingRunner:
         step = start_step
         # resume from latest checkpoint if one exists
         restored, manifest = self.ckpt.restore_latest(
-            self._state_tree(params, opt_state, 0))
+            self._state_tree(params, opt_state, 0), **self._specs)
         if restored is not None:
             params = restored["params"]
             opt_state = restored["opt_state"]
@@ -104,7 +114,8 @@ class TrainingRunner:
                     prev = self.ckpt.latest_step()
                     if prev is not None:
                         restored, _ = self.ckpt.restore(
-                            prev, self._state_tree(params, opt_state, 0))
+                            prev, self._state_tree(params, opt_state, 0),
+                            **self._specs)
                         params = restored["params"]
                         opt_state = restored["opt_state"]
                         step = int(restored["step"])
@@ -116,7 +127,7 @@ class TrainingRunner:
             step += 1
             if step % self.cfg.ckpt_every == 0 or step == self.cfg.max_steps:
                 self.ckpt.save(step, self._state_tree(params, opt_state,
-                                                      step))
+                                                      step), **self._specs)
         self.ckpt.wait()
         return params, opt_state, step
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core.formats import BandPlan, SegmentPlan
@@ -215,6 +216,87 @@ def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
          "b_tiles": (g, nct, t, f)},
         f, aligned, {"unit rows": g * u * r, "grid rows": g * n_slots},
         {"tile_col": nct, "cols": t})
+
+
+def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
+                  seen: dict = None) -> dict:
+    """HBM bytes and FMA FLOPs of one launch of ``c`` (a
+    ``ragged_ell_contract`` or an ``ell_contract``): what the CUDA kernel
+    reads and writes once each, and the operations it executes (the
+    counterpart of the reference's ``contract_cost``, which counts the
+    TPU's blocks; here there are none, each grid row gathers what its
+    sums address).
+
+    Given the launch's data (``cols``, ``tile_col`` and ``plan``: the
+    ``SegmentPlan`` of a ragged launch, the band's ``BandPlan`` of a
+    fixed-K one; read on the host), it counts what this launch's plan
+    sums: for each unit row in the plan, all K lanes of cols and vals
+    (the ragged kernel masks the values, not the loads, so a masked
+    lane is read too) and its 8-byte order entry; tile_col of each unit
+    the plan reaches (and unit_k, ragged); the plan's offsets of the live
+    rows, and their live-table entries (ragged) or their row, offset and
+    carry entries (fixed K); each distinct B row [F] those lanes address;
+    each live output row read and written; the carry buffer's rows a band
+    writes or reads. Operations: K multiply-adds per feature per unit
+    row, one add per unit row and feature onto its row's sum, and one
+    add per live row and feature onto the dense engine's rows.
+
+    ``seen`` (fixed K): a dict shared by a layer's band launches; a B row
+    or an output row that an earlier launch of the layer counted is not
+    counted again, so the launches' costs sum to the layer's (every input
+    read once, every output written once). Without it each launch counts
+    its own.
+
+    Without data, the most the shapes allow: every unit row summed,
+    every grid row live, every B row read."""
+    g, u, r, k = c["shapes"]["cols"]
+    _, nct, t, f = c["shapes"]["b_tiles"]
+    ragged = c["name"] == "ragged_ell_rows"
+    n_slots = c["extents"]["grid rows"] // g
+    if plan is None:
+        e, units, live = g * u * r, g * u, g * n_slots
+        b_rows, out_rows = min(g * nct * t, e * k), live
+        index = (2 * live + 1 if ragged else 3 * live + 1) * 8
+        carried = 0
+    elif ragged:
+        cv = cols.cpu().numpy().reshape(-1, k)
+        tc = tile_col.cpu().numpy().reshape(-1)
+        order = plan.order.cpu().numpy()
+        segs = np.flatnonzero(plan.lengths.cpu().numpy())
+        unit = order // r                              # over the group
+        e, units, live = order.size, np.unique(unit).size, segs.size
+        b_rows = np.unique(((unit // u) * nct + tc[unit])[:, None] * t
+                           + cv[order]).size
+        out_rows = live
+        index = (np.unique(np.concatenate([segs, segs + 1])).size
+                 + live) * 8
+        carried = 0
+    else:
+        rows = plan.rows.cpu().numpy()
+        gi, si = np.nonzero(rows >= 0)
+        lengths = np.diff(plan.offsets.cpu().numpy()).reshape(rows.shape)
+        member = np.repeat(gi, lengths[gi, si])
+        order = plan.order.cpu().numpy()
+        unit = order // r
+        cv = cols.cpu().numpy().reshape(g, u * r, k)[member, order]
+        tc = tile_col.cpu().numpy()[member, unit]
+        e, live = order.size, gi.size
+        units = np.unique(member * u + unit).size
+        brs = set(((member * nct + tc)[:, None] * t + cv).reshape(-1)
+                  .tolist())
+        outs = set((gi * (1 << 32) + rows[gi, si]).tolist())
+        if seen is not None:
+            brs -= seen.setdefault("b_rows", set())
+            outs -= seen.setdefault("out_rows", set())
+            seen["b_rows"] |= brs
+            seen["out_rows"] |= outs
+        b_rows, out_rows = len(brs), len(outs)
+        index = (3 * live + 1) * 8
+        carried = int((plan.carry.cpu().numpy()[gi, si] >= 0).sum())
+    nbytes = (e * k * 8 + units * (8 if ragged else 4) + e * 8 + index
+              + b_rows * f * 4 + out_rows * f * 8 + carried * f * 4)
+    flops = 2.0 * e * k * f + e * f + out_rows * f
+    return {"hbm_bytes": float(nbytes), "flops": float(flops)}
 
 
 def _aligned(*tensors) -> bool:

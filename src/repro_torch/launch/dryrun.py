@@ -6,10 +6,14 @@ devices and reads XLA's cost and memory analyses and the collectives of
 its HLO. Here the program is eager PyTorch, so the dry-run runs it: this
 process is rank 0 of a fake process group (torch's ``fake`` backend,
 whose collectives move nothing) of 256 ranks (512 with ``--multi-pod``),
-the mesh is ``make_production_mesh(device_type="cpu")``, the cell's
-arguments are fake tensors of rank 0's block shapes under
-``prog.in_specs``, and ``prog.fn`` (its backward included, where the
-step has one) runs under ``FakeTensorMode`` and
+the mesh is ``make_production_mesh(device_type="cpu")`` (it holds no
+tensor of the step's), the cell's arguments are fake tensors of rank
+0's block shapes under ``prog.in_specs`` on the card's path
+(``card_device``: fake CUDA tensors where torch has a card, fake meta
+ones elsewhere; either takes ``attention._mm``'s
+``bmm(out_dtype=float32)``; ``device="cpu"`` traces the CPU's path,
+which gloo ranks run), and ``prog.fn`` (its backward included, where
+the step has one) runs under ``FakeTensorMode`` and
 ``analysis.op_trace.OpCounter``. Nothing is allocated: a 16 x 16 cell of
 mixtral traces on a laptop's CPU.
 
@@ -63,6 +67,9 @@ from repro_torch.launch.mesh import (PRODUCTION_SHAPES, make_production_mesh,
 from repro_torch.tree import tree_unflatten
 
 MESH_NAMES = {False: "16x16", True: "2x16x16"}
+# the fake backend for every device a trace's tensors may be on (the meta
+# device included: the halo exchange's batched sends ask for its backend)
+FAKE_BACKEND = "cpu:fake,cuda:fake,meta:fake"
 # one fake mode for every trace of this process: constants the models
 # cache on first use (``so3.cg_tensor``) are its fake tensors
 _FAKE = []
@@ -83,19 +90,19 @@ def fake_world(world_size: int) -> None:
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
-        if dist.get_backend() != "fake":
+        if dist.get_backend() != FAKE_BACKEND:
             raise RuntimeError("the dry-run needs a process of its own: a "
                                f"{dist.get_backend()} group is up")
         if dist.get_world_size() == world_size:
             return
         dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0,
                             world_size=world_size)
 
 
-def place(prog, mesh, mode) -> tuple:
-    """``prog.args`` as fake CPU tensors (made under ``mode``) of rank
-    0's blocks under ``prog.in_specs``."""
+def place(prog, mesh, mode, device: str) -> tuple:
+    """``prog.args`` as fake tensors on ``device`` (made under ``mode``)
+    of rank 0's blocks under ``prog.in_specs``."""
     out = []
     for tree, specs in zip(prog.args, prog.in_specs):
         leaves, sp = _specs_like(tree, specs)
@@ -104,7 +111,7 @@ def place(prog, mesh, mode) -> tuple:
                   for x, spec in zip(leaves, sp)]
         with mode:
             out.append(tree_unflatten(tree, [
-                torch.empty(shape, dtype=x.dtype)
+                torch.empty(shape, dtype=x.dtype, device=device)
                 for x, shape in zip(leaves, shapes)]))
     return tuple(out)
 
@@ -117,15 +124,29 @@ def _nbytes(tree) -> int:
     return int(sum(seen.values()))
 
 
-def trace(prog, mesh, mesh_name: str, *, layers: int = 0) -> dict:
+def card_device() -> str:
+    """The device whose fake tensors trace the card's path: "cuda" where
+    torch has a card, else "meta". A CPU-only torch builds fake CUDA
+    tensors but cannot record autograd on them (it has no CUDA device
+    guard), and the port's only device-dependent branch,
+    ``attention._mm``, takes the card's side on any device but the CPU,
+    so the meta device traces the same ops."""
+    return "cuda" if torch.cuda.is_available() else "meta"
+
+
+def trace(prog, mesh, mesh_name: str, *, layers: int = 0,
+          device: str | None = None) -> dict:
     """The dry-run record of one built cell: ``prog.fn`` on fake tensors
-    of rank 0's blocks, counted, on the fake process group that ``mesh``
-    spans (``layers``: the depth, for ``layers_traced``)."""
+    of rank 0's blocks on ``device``, counted, on the fake process group
+    that ``mesh`` spans (``layers``: the depth, for ``layers_traced``).
+    ``device`` None: ``card_device()``, the card's path; "cpu" traces
+    the path that gloo ranks run."""
+    device = device or card_device()
     chips = int(np.prod(list(mesh_shape(mesh).values())))
     stand_ins = STAND_IN["plans"]
     t0 = time.perf_counter()
     mode = fake_mode()
-    args = place(prog, mesh, mode)
+    args = place(prog, mesh, mode, device)
     counter = OpCounter()
     counter.track(args)
     t1 = time.perf_counter()
@@ -149,7 +170,7 @@ def trace(prog, mesh, mesh_name: str, *, layers: int = 0) -> dict:
         "layers_traced": int(layers), "ops": counts["n_ops"],
         "tiles_replayed": counts["replayed"],
         "plan_stand_ins": STAND_IN["plans"] - stand_ins,
-        "traced_on": "fake cpu tensors, rank 0"})
+        "traced_on": f"fake {device} tensors, rank 0"})
     return rec
 
 

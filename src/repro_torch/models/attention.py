@@ -48,10 +48,13 @@ def _mask(qpos_i, kpos_j, kval_j, causal, window):
 
 def _mm(a, b):
     """f32 ``a @ b`` of [B, KV, m, k] and [B, KV, k, n] tiles, f32
-    accumulation whatever the operands' dtype."""
+    accumulation whatever the operands' dtype: ``bmm(out_dtype=f32)`` off
+    the CPU (the card; the meta device, where the dry-run traces the
+    card's path without one), f32 copies on the CPU, which has no such
+    ``bmm``."""
     bb, kv = a.shape[:2]
     a3, b3 = a.flatten(0, 1), b.flatten(0, 1)
-    if a3.is_cuda and a3.dtype == b3.dtype != torch.float32:
+    if a3.device.type != "cpu" and a3.dtype == b3.dtype != torch.float32:
         out = torch.bmm(a3, b3, out_dtype=torch.float32)
     else:
         out = torch.bmm(a3.float(), b3.float())

@@ -157,6 +157,20 @@ def moe_route(x, router, k: int):
     return topv / topv.sum(dim=-1, keepdim=True), topi
 
 
+def _ranks(e_flat, e_first: int, e_local: int):
+    """(one-hot [T*k, e_local + 1] of each assignment's expert among
+    ``[e_first, e_first + e_local)``, the last column for any other
+    expert; each assignment's rank: the count of earlier ones to its
+    expert)."""
+    local_e = e_flat - e_first
+    mine = (local_e >= 0) & (local_e < e_local)
+    onehot = one_hot(torch.where(mine, local_e,
+                                 torch.full_like(local_e, e_local)),
+                     e_local + 1)                           # [T*k, E+1]
+    rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
+    return onehot, torch.sum(rank * onehot, dim=-1)         # [T*k]
+
+
 def _slot_dest(e_flat, c: int, e_first: int, e_local: int):
     """Each assignment's slot among experts ``[e_first, e_first +
     e_local)`` (``e_local * c``: the dump slot). An assignment's rank is
@@ -164,14 +178,34 @@ def _slot_dest(e_flat, c: int, e_first: int, e_local: int):
     those to other experts, go to the dump slot."""
     local_e = e_flat - e_first
     mine = (local_e >= 0) & (local_e < e_local)
-    onehot = one_hot(torch.where(mine, local_e,
-                                 torch.full_like(local_e, e_local)),
-                     e_local + 1)                           # [T*k, E+1]
-    rank = torch.cumsum(onehot, dim=0) - 1                  # rank in expert
-    rank = torch.sum(rank * onehot, dim=-1)                 # [T*k]
+    _, rank = _ranks(e_flat, e_first, e_local)
     keep = mine & (rank < c)
     return torch.where(keep, local_e * c + rank,
                        torch.full_like(rank, e_local * c))  # dump slot
+
+
+def _window_dest(e_flat, c: int, w: int, e: int, dg=None):
+    """Each of this rank's assignments' slot in windows of ``w`` slots an
+    expert (``e * w``: the dump slot), for a capacity of ``c`` ranked
+    over the assignments of every rank of the data group ``dg`` in rank
+    order (None: this rank's only). An assignment's global rank is its
+    rank here plus the assignments to its expert on the data ranks
+    before this one (one all-gather of the counts); those at global rank
+    >= c are dropped, a kept one takes the slot of its rank here. A
+    token's k experts are distinct, so that rank is below the token
+    count, and ``w = min(c, T)`` slots hold every kept one."""
+    from repro_torch.distributed import tp
+
+    onehot, rank = _ranks(e_flat, 0, e)
+    room = torch.full((e + 1,), c, dtype=rank.dtype, device=rank.device)
+    room[e] = 0                                             # no expert
+    if dg is not None:
+        counts = tp._all_gather(onehot[None, :, :e].sum(dim=1), 0, dg)
+        before = counts[:torch.distributed.get_rank(dg)].sum(dim=0)  # [E]
+        room[:e] = (c - before).clamp(min=0)
+    keep = rank < torch.sum(onehot * room, dim=-1)
+    return torch.where(keep, e_flat * w + rank,
+                       torch.full_like(rank, e * w))        # dump slot
 
 
 def moe_slots(topv, topi, c: int, e_first: int, e_local: int, dest=None):
@@ -262,7 +296,9 @@ def moe_ffn(x, p, cfg: TransformerConfig, capacity: Optional[int] = None,
     d_ff is split over `model` (``"h"``). The expert ids of every data
     rank are gathered and ranked together, so capacity and drops are
     the global batch's (the reference's global view, capacity from the
-    global token count); each rank fills the slots of its own tokens.
+    global token count); each rank holds and computes only the slots of
+    its own tokens, a window of ``min(c, T)`` an expert
+    (``_window_dest``), and sums ``[E, min(c, T), D]`` over `model`.
     """
     from repro_torch.distributed import tp
 
@@ -278,14 +314,9 @@ def moe_ffn(x, p, cfg: TransformerConfig, capacity: Optional[int] = None,
     if capacity is None:
         capacity = int(np.ceil(t * n_dp * k / e * cfg.capacity_factor))
     c = max(capacity, 1)
-    e_flat = topi.reshape(-1)
-    if dg is not None:
-        e_flat = tp._all_gather(e_flat, 0, dg)
-        me = torch.distributed.get_rank(dg)
-        dest = _slot_dest(e_flat, c, 0, e)[me * t * k:(me + 1) * t * k]
-    else:
-        dest = _slot_dest(e_flat, c, 0, e)
-    slot_tok, slot_w = moe_slots(topv, topi, c, 0, e, dest=dest)
+    w = min(c, t)
+    dest = _window_dest(topi.reshape(-1), c, w, e, dg)
+    slot_tok, slot_w = moe_slots(topv, topi, w, 0, e, dest=dest)
     return moe_experts(x, p, slot_tok, slot_w, tp_group=mg)
 
 

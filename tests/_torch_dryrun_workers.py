@@ -41,10 +41,67 @@ def _counts(c: OpCounter) -> dict:
     return json.loads(json.dumps(out))
 
 
+# one small cell of every assigned arch, at its smoke config
+FAMILY_CELLS = {
+    "train": SMOKE_CELL,
+    "graph_full": ShapeCell("g", "graph_full", n_nodes=64, n_edges=256,
+                            d_feat=8),
+    "graph_batched": ShapeCell("m", "graph_batched", n_nodes=8, n_edges=16,
+                               global_batch=8),
+    "rec_train": ShapeCell("r", "rec_train", global_batch=8),
+}
+
+
+def family_progs(mesh) -> list:
+    """[(arch, cell, program)]: each assigned arch at its smoke config on
+    a small cell of its family's first kind (the geometric GNNs on their
+    molecule cell)."""
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.configs.base import GNNConfig, TransformerConfig
+    from repro_torch.launch import specs
+
+    out = []
+    for name in ASSIGNED:
+        arch = get_arch(name)
+        arch = dataclasses.replace(arch, config=arch.smoke)
+        cfg = arch.config
+        if isinstance(cfg, TransformerConfig):
+            cell, build = FAMILY_CELLS["train"], specs.build_lm_cell
+        elif isinstance(cfg, GNNConfig):
+            kind = ("graph_batched" if name in ("dimenet", "nequip")
+                    else "graph_full")
+            cell, build = FAMILY_CELLS[kind], specs.build_gnn_cell
+        else:
+            cell, build = FAMILY_CELLS["rec_train"], specs.build_fm_cell
+        out.append((name, cell.name, build(arch, cell, mesh)))
+    return out
+
+
+class _Counted:
+    """``torch.bmm`` counting its calls with an ``out_dtype``."""
+
+    def __init__(self):
+        self.bmm, self.with_out_dtype = torch.bmm, 0
+
+    def __call__(self, *args, **kwargs):
+        if kwargs.get("out_dtype") is not None:
+            self.with_out_dtype += 1
+        return self.bmm(*args, **kwargs)
+
+
+def _no_kernel(*args, **kwargs):
+    raise RuntimeError("the dry-run reached a hand kernel's loader")
+
+
 def fake_main() -> None:
     """Prints one JSON line: the three full-config cells' records on 4x2
-    (a fake group of 8), and the smoke cell's record on (2, 2) (a fake
-    group of 4) with its raw counts."""
+    (a fake group of 8); on (2, 2) (a fake group of 4) the smoke cell's
+    record on fake CPU tensors (the path gloo ranks run) and on the
+    card's path (``dryrun.card_device``), each with the ``bmm`` calls
+    given an ``out_dtype``; and one cell of every assigned arch traced
+    with the kernels' loader made to raise, with the kernel wrappers'
+    calls."""
+    from repro_torch.kernels import _build, ops
     from repro_torch.launch.specs import build_cell
 
     out = {"full": []}
@@ -55,7 +112,22 @@ def fake_main() -> None:
                                         "4x2"))
     dryrun.fake_world(4)
     mesh = make_mesh((2, 2), AXES, "cpu")
-    out["smoke"] = dryrun.trace(smoke_prog(mesh), mesh, "2x2")
+    bmm = torch.bmm = _Counted()
+    try:
+        for key, dev in (("smoke", "cpu"), ("smoke_card", None)):
+            before = bmm.with_out_dtype
+            out[key] = dryrun.trace(smoke_prog(mesh), mesh, "2x2",
+                                    device=dev)
+            out[key]["bmm_out_dtype"] = bmm.with_out_dtype - before
+    finally:
+        torch.bmm = bmm.bmm
+    _build.library = _build.build_all = _build._nvcc = _no_kernel
+    calls = ops.entry_counts()
+    out["families"] = [
+        dict(arch=arch, cell=cell, status=dryrun.trace(
+            prog, mesh, "2x2")["status"])
+        for arch, cell, prog in family_progs(mesh)]
+    out["kernel_calls"] = [calls, ops.entry_counts()]
     print("RESULT " + json.dumps(out, default=str))
     sys.stdout.flush()
 

@@ -11,7 +11,7 @@ from repro_torch.convert import tree_from_numpy
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tp
 from repro_torch.launch.mesh import all_axes, data_axes, make_mesh
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 AXES = ("data", "model")
 LM_KW = dict(q_chunk=8, k_chunk=8, xent_chunk=8, compute_dtype=None)
@@ -220,4 +220,126 @@ def ep_fsdp_worker(rank, world, cfg, x, layer, ct):
                 g = g[:, d * n:(d + 1) * n]
             grads[k] = _np(g)
         out[name] = {"y": _np(y), "grads": grads}
+    return out
+
+
+def moe_window_worker(rank, world, shape, cfg, layer, x, ct):
+    """``transformer.moe_ffn``'s tensor-parallel branch on a ``shape``
+    mesh, the tokens ``x`` split over `data`, the experts' d_ff over
+    `model`: this rank's outputs; the gradient of sum(out * ct) for its
+    tokens and, summed over `data`, for the router and its block of the
+    expert stacks; the shape of the slot weights the experts ran over
+    ([E, window]); the capacity; and which of its (token, k)
+    assignments kept a slot."""
+    import math
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+
+    mesh = make_mesh(shape, AXES, "cpu")
+    ms = shd.tp_expert_shardings(mesh)
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    t, f = x.shape[0] // shape[0], cfg.d_ff // shape[1]
+    p = {}
+    for k, v in layer.items():
+        v = (v[:, :, m * f:(m + 1) * f] if k in ("w_gate", "w_up")
+             else v[:, m * f:(m + 1) * f] if k == "w_down" else v)
+        p[k] = torch.from_numpy(np.ascontiguousarray(v)).requires_grad_(True)
+    xl = torch.from_numpy(x[d * t:(d + 1) * t].copy()).requires_grad_(True)
+    windows, experts = [], T.moe_experts
+
+    def spy(*args, **kwargs):
+        windows.append(tuple(args[3].shape))
+        return experts(*args, **kwargs)
+    T.moe_experts = spy
+    try:
+        y = T.moe_ffn(xl, p, cfg, shardings=ms)
+    finally:
+        T.moe_experts = experts
+    (y * torch.from_numpy(ct[d * t:(d + 1) * t])).sum().backward()
+    grads = {}
+    for k, v in p.items():
+        g = v.grad.clone()
+        dist.all_reduce(g, group=mesh.get_group("data"))
+        grads[k] = _np(g)
+    dg, n_dp, _ = T._tp_experts(ms, cfg, f)
+    e, k = cfg.n_experts, cfg.top_k
+    c = math.ceil(t * n_dp * k / e * cfg.capacity_factor)
+    w = min(c, t)
+    with torch.no_grad():
+        _, topi = T.moe_route(xl, p["router"], k)
+        dest = T._window_dest(topi.reshape(-1), c, w, e, dg)
+    return {"y": _np(y), "dx": _np(xl.grad), "grads": grads,
+            "window": windows, "capacity": c,
+            "keep": _np(dest != e * w).reshape(t, k)}
+
+
+CKPT_MESHES = ((2, 2), (1, 4), (4, 1))
+
+
+def ckpt_worker(rank, world, cfg, params, batches, ckpt_dir):
+    """A sharded checkpoint of a "tp_fsdp" train state (parameters and
+    AdamW state, f32): on (2, 2) one step from ``params``, a save with
+    the specs (global arrays), and the next step in memory; then on each
+    of ``CKPT_MESHES`` a restore into a state of other values, whose
+    blocks must equal ``shard_tree`` of the saved state bitwise, and the
+    next step from the restored blocks, which must equal the next step
+    from ``shard_tree`` of the in-memory state on that mesh (on (2, 2):
+    the unsaved run's own next step). Returns the saved state gathered
+    (numpy leaves), each next step gathered, and the equalities."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.steps import make_lm_train_step
+
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    full = tree_from_numpy(params, "cpu")
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+
+    def on(shape):
+        mesh = make_mesh(shape, AXES, "cpu")
+        specs = shd.lm_param_specs(cfg, mesh, full)
+        step = make_lm_train_step(cfg, opt, act_constraint=residual(mesh, cfg),
+                                  **LM_KW)
+        spec_tree = {"params": specs, "opt_state": shd.opt_state_specs(specs)}
+        blocks = [shd.shard_tree(b, lm_batch_specs(mesh, cfg), mesh)
+                  for b in tb]
+        return mesh, spec_tree, step, blocks
+
+    def equal(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(map(torch.equal, la, lb))
+
+    mesh, spec_tree, step, blocks = on((2, 2))
+    p = shd.shard_tree(full, spec_tree["params"], mesh)
+    p1, s1, _ = step(p, opt.init(p), blocks[0])
+    state1 = {"params": p1, "opt_state": s1}
+    mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+    mgr.save(1, state1, spec_tree=spec_tree, mesh=mesh)
+    mgr.wait()
+    saved = shd.gather_tree(state1, spec_tree, mesh)
+    p2, s2, m2 = step(p1, s1, blocks[1])
+    unsaved = shd.gather_tree({"params": p2, "opt_state": s2}, spec_tree,
+                              mesh)
+    out = {"saved": [_np(x) for x in tree_leaves(saved)],
+           "unsaved_next": [_np(x) for x in tree_leaves(unsaved)],
+           "unsaved_loss": float(m2["loss"]), "meshes": {}}
+    for shape in CKPT_MESHES:
+        mesh, spec_tree, step, blocks = on(shape)
+        like_p = shd.shard_tree(tree_map(torch.zeros_like, full),
+                                spec_tree["params"], mesh)
+        like = {"params": like_p, "opt_state": opt.init(like_p)}
+        restored, _ = mgr.restore(1, like, spec_tree=spec_tree, mesh=mesh)
+        want = shd.shard_tree(saved, spec_tree, mesh)
+        rp, rs, rm = step(restored["params"], restored["opt_state"],
+                          blocks[1])
+        wp, ws, wm = step(want["params"], want["opt_state"], blocks[1])
+        nxt = shd.gather_tree({"params": rp, "opt_state": rs}, spec_tree,
+                              mesh)
+        out["meshes"][shape] = {
+            "restored_equal": equal(restored, want),
+            "next_equal": equal((rp, rs, rm["loss"]), (wp, ws, wm["loss"])),
+            "next": [_np(x) for x in tree_leaves(nxt)],
+            "loss": float(rm["loss"])}
     return out

@@ -28,7 +28,15 @@ counts are held against runs of the same programs on real tensors:
 - the stand-in plan (``core.formats.plan_index``) is built for fake
   tensors only: real steps through every host plan (the FM lookup and
   its row-sharded gradient, the GNN's segment sums and halo plans, the
-  MoE combine) build none.
+  MoE combine) build none;
+- by default the trace takes the card's path (``dryrun.card_device``:
+  fake CUDA tensors where torch has a card, else fake meta ones): the
+  smoke cell's attention products are ``bmm(out_dtype=float32)`` on
+  bf16 tiles, with the CPU trace's FLOPs and collectives and fewer
+  bytes (no f32 copies of the tiles);
+- with the kernels' loader made to raise, a cell of every assigned arch
+  still traces, and no kernel wrapper is entered: the dry-run's path
+  holds no hand kernel.
 """
 import concurrent.futures
 import contextlib
@@ -112,6 +120,30 @@ def test_fake_trace_equals_the_real_run(results):
     assert got["peak_bytes"] <= rec["per_device_memory"] <= \
         1.01 * got["peak_bytes"]
     assert rec["plan_stand_ins"] == 1
+
+
+def test_trace_takes_the_cards_branch_by_default(results):
+    cpu, card = results[0]["smoke"], results[0]["smoke_card"]
+    assert cpu["traced_on"] == "fake cpu tensors, rank 0"
+    assert card["traced_on"] in ("fake cuda tensors, rank 0",
+                                 "fake meta tensors, rank 0")
+    assert cpu["bmm_out_dtype"] == 0 and card["bmm_out_dtype"] > 0
+    assert card["hlo_flops"] == cpu["hlo_flops"] > 0
+    assert card["collectives"] == cpu["collectives"]
+    assert card["hlo_bytes"] < cpu["hlo_bytes"]
+    # the products count in their operands' dtype: bf16 tiles, not copies
+    assert card["flops_by_dtype"]["bfloat16"] > \
+        cpu["flops_by_dtype"]["bfloat16"]
+
+
+def test_every_arch_traces_without_a_kernel(results):
+    from repro_torch.configs import ASSIGNED
+
+    fams = results[0]["families"]
+    assert [f["arch"] for f in fams] == list(ASSIGNED)
+    assert all(f["status"] == "ok" for f in fams), fams
+    before, after = results[0]["kernel_calls"]
+    assert before == after
 
 
 def test_real_ranks_build_no_stand_in(results):

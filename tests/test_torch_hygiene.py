@@ -50,6 +50,7 @@ def test_port_files_found():
             "src/repro_torch/analysis/static/kernel_pass.py",
             "src/repro_torch/analysis/static/launch_pass.py",
             "src/repro_torch/analysis/static/concurrency_pass.py",
+            "src/repro_torch/analysis/static/bench_check.py",
             "src/repro_torch/analysis/static/__main__.py"} <= names
     assert {"src/repro_torch/models/common.py",
             "src/repro_torch/models/gnn.py",

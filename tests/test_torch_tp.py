@@ -14,12 +14,13 @@ held against the port's unsharded ones and against the reference's
 (whole heads), smollm-smoke on (1, 2) (3 heads: columns split
 mid-head, gathered before attention), granite-smoke under "fsdp" on
 (2, 2), qwen3-0.6b-smoke with a tied head on (2, 2), mixtral-smoke
-with tensor parallelism inside the experts on (1, 3) (4 experts) and
-on (2, 2) (3 experts, capacity ranked over both data ranks), at a
-capacity factor that drops tokens, qwen3-moe-smoke's expert
-parallelism with ZeRO-3 expert stacks on (2, 2); a clipped AdamW step
-(its loss, norm and first moment); the DimeNet and NequIP energy steps
-on 4 ranks. Each case runs under its config's ``parallelism``, given
+with tensor parallelism inside the experts on (1, 3) (4 experts), on
+(2, 2) (3 experts, capacity ranked over both data ranks) and on (4, 1)
+(a global capacity above a rank's token count, each expert's slots a
+window of that count), at capacity factors that drop tokens,
+qwen3-moe-smoke's expert parallelism with ZeRO-3 expert stacks on
+(2, 2); a clipped AdamW step (its loss, norm and first moment); the
+DimeNet and NequIP energy steps on 4 ranks. Each case runs under its config's ``parallelism``, given
 the reference's ``act_constraint`` for it. At world size 1 every
 strategy is ``torch.equal`` to the unsharded step.
 """
@@ -74,6 +75,10 @@ LM_CASES = {
     "mixtral_tp_experts_2x2": ((2, 2), "mixtral-8x7b", "tp",
                                dict(n_experts=3, d_ff=96,
                                     capacity_factor=0.5)),
+    # 4 data ranks of 24 tokens: the global capacity (36) exceeds a
+    # rank's tokens, so each expert's window is the 24 tokens; drops
+    "mixtral_tp_experts_4x1": ((4, 1), "mixtral-8x7b", "tp",
+                               dict(capacity_factor=0.75)),
     # E / k = 4: no drop, so the per-rank capacity of the reference's
     # expert-parallel layer and the global one agree
     "qwen3moe_ep_fsdp_2x2": ((2, 2), "qwen3-moe-235b-a22b", None,
@@ -86,6 +91,7 @@ PLANS = {   # (attention, ffn, moe, head) each case must run
     "qwen3_tied_2x2": ("heads", "split", None, "seq"),
     "mixtral_tp_experts_1x3": ("replicated", "split", "tp", "seq"),
     "mixtral_tp_experts_2x2": ("heads", "split", "tp", "vocab"),
+    "mixtral_tp_experts_4x1": ("heads", "split", "tp", "vocab"),
     "qwen3moe_ep_fsdp_2x2": ("heads", "replicated", "ep", "vocab"),
 }
 # the gradient's global norm is above clip_norm, so the step clips
