@@ -221,7 +221,22 @@ repository's ``src/`` next to this file. It
      the measured time. (c) the FM train, serve and retrieval cells'
      ``fn`` (tables' rows split over the one rank) ``torch.equal`` to
      the unsharded steps at full config. One ``{"dryrun": ...}`` line;
- 19. holds each of the four kernels against its plain PyTorch version at
+ 19. bfloat16 (the reference's kernels' other type): the paper's GCN
+     with bfloat16 features and weights on cora, citeseer and pubmed
+     through ``gcn_forward(backend="cuda")`` on the "ragged", "fused" and
+     "loop" dispatches over the engine's class-padded partitions, the
+     launch counters set to 0 just before each dispatch's run over the
+     three graphs and read just after (the kernels it runs must launch
+     their bfloat16 instances, and no float32 one), and layer 1's X·W
+     through ``ops.matmul`` (``tile_matmul``; ``gcn_forward``'s X·W is
+     ``torch.matmul``) in a window of its own. Gates: logits bfloat16, finite, bitwise across the
+     dispatches and a repeat, and bitwise the composition of the layers;
+     each layer within ``bf16_close`` of the "torch" backend on the same
+     input (``|got - ref| <= ulp_bf16(|ref|) + 2e-6 |A| @ |B|``, plus
+     ``ulp_bf16`` of the dense rows, which the reference rounds on the
+     way); X·W within ``bf16_close`` of its plain version. One
+     ``{"bf16_gcn": ...}`` line;
+ 20. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
      (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
@@ -234,10 +249,22 @@ repository's ``src/`` next to this file. It
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
- 20. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
+     and, at bfloat16 (the cora class, F = 128 and 7; ``tile_matmul`` at
+     cora's layer 1): each ELL row kernel bitwise its float32 instance on
+     ``b.float()`` in every launch shape the autotuner may pick, and
+     bitwise its plain version; ``bsr_spmm_rows`` (tensor cores) and
+     ``tile_matmul`` within ``bf16_close`` of their plain versions,
+     bitwise across repeats, configurations and a G = 4 group; library
+     calls ``torch.sparse.mm`` on B upcast to float32 (ELL),
+     ``torch.bmm(out_dtype=float32)`` + ``segment_sum`` (dense engine)
+     and ``torch.matmul`` on bfloat16 (``tile_matmul``); bounds at 3.35
+     TB/s and 67 TFLOP/s FFMA (ELL) or 989 TFLOP/s bf16 (tensor cores);
+ 21. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
-     class, and each kernel's launches and device ms in the training
-     backward) and, last, the ``{"ok": true, "device": ...}`` line.
+     class, each kernel's launches and device ms in the training
+     backward, and one ``<kernel>_bf16`` entry per kernel: its bfloat16
+     instances' ptxas lines, their launches on the bfloat16 path and
+     their times) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository's sources, it exits non-zero and prints no result.
@@ -256,10 +283,13 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): device memory rate and
-# float32 outside the tensor cores (the kernels run FFMA, no TF32).
+# H100 SXM published peaks (NVIDIA data sheet): device memory rate,
+# float32 outside the tensor cores (the float32 kernels and the ELL
+# kernels at every type run FFMA, no TF32) and bfloat16 on the tensor
+# cores (the bfloat16 instances of bsr_spmm and tile_matmul).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # The paper's model, as in src/repro/configs/gcn_paper.py CONFIG:
 # 2-layer GCN, hidden 128; the output width is the dataset's n_classes.
@@ -385,9 +415,10 @@ def wall_ms(torch, fn) -> float:
 COST_TOL = 0.01
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS_PER_S
+          ) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / F32_FLOPS_PER_S * 1e3
+    t_flops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flops else (t_flops,
                                                           "operations")
 
@@ -4644,15 +4675,16 @@ def rows_csr(torch, cols, vals, tcol, uk, rows, meta, nct, t):
 
 
 def dense_rows(part, bt, dense_plan, p):
-    """The dense engine's rows [G, P, F] as the main path makes them:
-    one ``bsr_spmm_rows`` launch, or +0 rows and no launch for a class
-    without dense tiles (``ops.dense_tiles_matmul``)."""
+    """The dense engine's rows [G, P, F] (float32) as the main path makes
+    them: one ``bsr_spmm_rows`` launch on the tiles in B's type, or +0
+    rows and no launch for a class without dense tiles
+    (``ops.dense_tiles_matmul``)."""
     from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
 
     g, f = bt.shape[0], bt.shape[-1]
     if part[0].shape[1] == 0:
-        return bt.new_zeros((g, p, f))
-    return bsr_spmm_rows(part[0], part[1], bt, dense_plan,
+        return bt.new_zeros((g, p, f)).float()
+    return bsr_spmm_rows(part[0].to(bt.dtype), part[1], bt, dense_plan,
                          device=bt.device).reshape(g, p, f)
 
 
@@ -4919,6 +4951,418 @@ def matmul_case(torch, case):
         plain_ms=device_ms(torch, lambda: tile_matmul_ref(a, b)),
         library_ms=device_ms(torch, lambda: torch.matmul(a, b)),
         bound=bound(4.0 * (m * k + k * n + m * n), 2.0 * m * k * n))
+
+
+# ------------------------------------------------------------ bfloat16 ----
+BF16_DISPATCHES = ("ragged", "fused", "loop")
+
+
+def bf16_close(torch, got, want, mag, rounded=None) -> bool:
+    """``|got - want| <= ulp_bf16(|want|) + 2e-6 * mag`` (``mag`` = |A| @
+    |B|), plus ``ulp_bf16(rounded)`` where a partial result of that
+    magnitude is rounded to bfloat16 on the way (``ref.bf16_tolerance``)."""
+    from repro_torch.kernels.ref import bf16_tolerance
+
+    return bool(((got.double() - want.double()).abs()
+                 <= bf16_tolerance(want, mag, rounded=rounded)).all().item())
+
+
+def abs_partition(part):
+    """A partition with the absolute values of its entries: the hybrid
+    product of it with |B| is |A| @ |B|."""
+    return part._replace(
+        dense=part.dense._replace(tiles=part.dense.tiles.abs()),
+        ell=part.ell._replace(vals=part.ell.vals.abs()),
+        coo=part.coo._replace(vals=part.coo.vals.abs()))
+
+
+def bf16_phase(torch, engine, graphs) -> tuple:
+    """The paper's GCN (2 layers, hidden 128: each graph's registered
+    weights) in bfloat16 on cora, citeseer and pubmed through
+    ``gcn_forward(backend="cuda")`` over the engine's class-padded
+    partitions and plans. For each ELL dispatch the launch counters are
+    set to 0 just before one ``gcn_forward`` over the three graphs and
+    read just after; layer 1's X·W runs through ``ops.matmul``
+    (``tile_matmul``, which ``gcn_forward`` does not call: its X·W is
+    ``torch.matmul``, as the reference's ``x @ w``) in a window of its
+    own. The repeat and the per-layer checks run after those windows.
+
+    Gates: logits bfloat16, finite, of the class's shape; bitwise equal
+    across "ragged" / "fused" / "loop" and a repeat; each layer's
+    aggregation (on the same B) within ``bf16_close`` of the "torch"
+    backend on the card, with the dense rows' rounding (``rounded``) as
+    the reference rounds them; ``gcn_forward`` bitwise the composition of
+    its layers; X·W within ``bf16_close`` of its plain version; in each
+    window the bfloat16 instances of the kernels it runs launched, and no
+    float32 one. Returns (problems, records, the bfloat16 launches by
+    kernel: the "ragged" window's for ragged_ell_spmm and bsr_spmm,
+    {"fused", "loop"} for ell_spmm, the ``ops.matmul`` window's for
+    tile_matmul; each window's counts by type)."""
+    from repro_torch.core import gcn_forward, gcn_layer, hybrid_spmm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import tile_matmul_ref
+
+    bf16 = torch.bfloat16
+    problems, records = [], []
+    inputs = {}
+    for name, g in graphs.items():
+        h = engine.handle(name)
+        kw = dict(meta=h.sclass.to_meta(), plan=h.plan, device=engine.device)
+        inputs[name] = (h, kw, engine.prepare_x(name, g["xs"][0]).to(bf16),
+                        [w.to(bf16) for w in h.weights])
+    torch.cuda.synchronize()
+    outs, windows = {}, {}
+    for d in BF16_DISPATCHES:
+        ops.reset_launch_counts()
+        outs[d] = {name: gcn_forward(h.part, x, ws, ell_dispatch=d, **kw)
+                   for name, (h, kw, x, ws) in inputs.items()}
+        torch.cuda.synchronize()
+        windows[d] = ops.launch_counts_by_dtype()
+    ops.reset_launch_counts()
+    xws = {name: ops.matmul(x, ws[0])
+           for name, (h, kw, x, ws) in inputs.items()}
+    torch.cuda.synchronize()
+    windows["ops.matmul"] = ops.launch_counts_by_dtype()
+    for name, (h, kw, x, ws) in inputs.items():
+        y = outs["ragged"][name]
+        again = gcn_forward(h.part, x, ws, **kw)
+        plain = gcn_forward(h.part, x, ws, backend="torch", **kw)
+        xw = xws[name]
+        torch.cuda.synchronize()
+        rec = dict(graph=name, shape=list(y.shape), dtype=str(y.dtype),
+                   finite=bool(torch.isfinite(y).all().item()),
+                   dispatches_bitwise=all(torch.equal(o[name], y)
+                                          for o in outs.values()),
+                   repeat_bitwise=torch.equal(again, y),
+                   e2e_max_abs_err_vs_torch=max_err(y.float(), plain.float()),
+                   e2e_elements_differing=int((y != plain).sum().item()),
+                   elements=y.numel())
+        # each layer against the plain backend, on the same input
+        hin, layers, ok_layers = x, [], True
+        for i, w in enumerate(ws):
+            got = gcn_layer(h.part, hin, w, **kw)
+            want = gcn_layer(h.part, hin, w, backend="torch", **kw)
+            b = torch.matmul(hin, w)
+            mag = hybrid_spmm(abs_partition(h.part), b.abs().float(),
+                              backend="torch", **kw)
+            ok = (got.dtype == bf16
+                  and bf16_close(torch, got, want, mag, rounded=mag))
+            ok_layers &= ok
+            layers.append(dict(layer=i + 1, within_bound=ok,
+                               max_abs_err=max_err(got.float(),
+                                                   want.float()),
+                               differing=int((got != want).sum().item())))
+            hin = torch.relu(got) if i < len(ws) - 1 else got
+        rec.update(layers=layers, composed_bitwise=torch.equal(hin, y))
+        mag = torch.matmul(x.abs().float(), ws[0].abs().float())
+        rec["xw"] = dict(shape=[*x.shape, ws[0].shape[1]],
+                         dtype=str(xw.dtype),
+                         within_bound=(xw.dtype == bf16 and bf16_close(
+                             torch, xw, tile_matmul_ref(x, ws[0]), mag)))
+        records.append(rec)
+        if not (rec["finite"] and y.dtype == bf16 and ok_layers
+                and rec["dispatches_bitwise"] and rec["repeat_bitwise"]
+                and rec["composed_bitwise"] and rec["xw"]["within_bound"]):
+            problems.append(f"bf16 GCN {name}: {rec}")
+    runs = {"ragged": ("ragged_ell_spmm", "bsr_spmm"),
+            "fused": ("ell_spmm", "bsr_spmm"),
+            "loop": ("ell_spmm", "bsr_spmm"),
+            "ops.matmul": ("tile_matmul",)}
+    for w, kernels in runs.items():
+        counts = windows[w]
+        if (any(counts[k]["bfloat16"] == 0 for k in kernels)
+                or any(c["float32"] for c in counts.values())):
+            problems.append(f"bf16 path, {w}: not every bfloat16 instance "
+                            f"of {kernels} launched, or a float32 one did "
+                            f"({counts})")
+    launches = {
+        "ragged_ell_spmm": windows["ragged"]["ragged_ell_spmm"]["bfloat16"],
+        "bsr_spmm": windows["ragged"]["bsr_spmm"]["bfloat16"],
+        "ell_spmm": {d: windows[d]["ell_spmm"]["bfloat16"]
+                     for d in ("fused", "loop")},
+        "tile_matmul": windows["ops.matmul"]["tile_matmul"]["bfloat16"]}
+    return problems, records, launches, windows
+
+
+def bf16_bsr_case(torch, case, case4):
+    """The dense engine at bfloat16 (tiles cast to B's type, as the main
+    path's ``ops.dense_tiles_matmul``): the tensor-core rows kernel
+    within ``bf16_close`` of its plain version, bitwise across repeats,
+    equal to the per-tile kernel's products summed by ``segment_sum`` and
+    rounded, and the same bits for each member of ``case4`` (the G = 4
+    stack of ``case``). Library: ``torch.bmm(..., out_dtype=float32)`` on
+    the gathered B tiles, ``segment_sum`` and the rounding."""
+    from repro_torch.core.formats import segment_sum
+    from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_rows
+    from repro_torch.kernels.ref import _gather_b_tiles, bsr_spmm_rows_ref
+
+    bf16 = torch.bfloat16
+    part, bt, _, plan = case[:4]
+    tiles, tcol, dev = part[0].to(bf16), part[1], bt.device
+    b16 = bt.to(bf16)
+    g, n_t, t, _ = tiles.shape
+    f = bt.shape[-1]
+    got = bsr_spmm_rows(tiles, tcol, b16, plan, device=dev)
+    want = bsr_spmm_rows_ref(tiles, tcol, b16, plan)
+    mag = bsr_spmm_rows_ref(tiles.abs().float(), tcol, b16.abs().float(),
+                            plan)
+    repeat = torch.equal(bsr_spmm_rows(tiles, tcol, b16, plan, device=dev),
+                         got)
+    per_tile = bsr_spmm(tiles, tcol, b16, device=dev)
+    folded = torch.equal(got, segment_sum(
+        per_tile.reshape(g * n_t, t * f), plan).reshape(got.shape).to(
+            bf16).float())
+    part4, bt4, _, plan4 = case4[:4]
+    got4 = bsr_spmm_rows(part4[0].to(bf16), part4[1], bt4.to(bf16), plan4,
+                         device=dev)
+    mates = all(torch.equal(got4[i], got[0]) for i in range(got4.shape[0]))
+    a3 = tiles.reshape(g * n_t, t, t)
+    b3 = _gather_b_tiles(b16, tcol).reshape(g * n_t, t, f)
+
+    def library():
+        return segment_sum(torch.bmm(a3, b3, out_dtype=torch.float32)
+                           .reshape(g * n_t, t * f), plan).to(bf16).float()
+
+    order = plan.order.cpu().numpy()
+    used = order.shape[0]
+    used_b = len(np.unique((order // n_t) * (1 << 32)
+                           + tcol.reshape(-1).cpu().numpy()[order]))
+    n_rt = plan.lengths.shape[0] // g
+    nbytes = (used * (t * t * 2 + 4 + 8) + used_b * t * f * 2
+              + g * n_rt * t * f * 4 + (g * n_rt + 1) * 8)
+    return dict(
+        ok=bf16_close(torch, got, want, mag) and repeat and folded and mates,
+        err=max_err(got, want), repeat_bitwise=repeat, folded_bitwise=folded,
+        group_bitwise=mates,
+        ms=device_ms(torch, lambda: bsr_spmm_rows(tiles, tcol, b16, plan,
+                                                  device=dev)),
+        call_ms=call_ms(torch, lambda: bsr_spmm_rows(tiles, tcol, b16, plan,
+                                                     device=dev)),
+        plain_ms=device_ms(torch, lambda: bsr_spmm_rows_ref(tiles, tcol, b16,
+                                                            plan)),
+        library_ms=device_ms(torch, library),
+        bound=bound(nbytes, 2.0 * used * t * t * f, BF16_FLOPS_PER_S))
+
+
+def bf16_ell_case(torch, case):
+    """The ragged ELL rows at bfloat16 B (the partition's float32 vals, as
+    the main path's bfloat16 GCN gives them), onto the bfloat16 dense
+    engine's rows: for every launch shape the kernel is built with,
+    bitwise the float32 instance on ``b.float()``, and bitwise its plain
+    version; the per-unit kernel likewise. Library: ``torch.sparse.mm``
+    over the live rows' CSR on B upcast to float32, then ``index_add_``."""
+    from repro_torch.kernels.autotune import candidates
+    from repro_torch.kernels.ell_spmm import (contract_cost,
+                                              ragged_ell_contract,
+                                              ragged_ell_rows, ragged_ell_spmm)
+    from repro_torch.kernels.ref import ragged_ell_rows_ref
+
+    bf16 = torch.bfloat16
+    part, bt, meta, dense_plan, plan = case[:5]
+    cols, vals, tcol, uk, rows = part[2:7]
+    dev = bt.device
+    g, u, r, kmax = cols.shape
+    nct, t, f = bt.shape[1:]
+    p = meta.n_padded_rows
+    b16 = bt.to(bf16)
+    b32 = b16.float()
+    yd = dense_rows(part, b16, dense_plan, p)
+    tunes = candidates(f)
+    equal = all(torch.equal(
+        ragged_ell_rows(cols, vals, tcol, uk, b16, plan, yd.clone(),
+                        tune=tn, device=dev),
+        ragged_ell_rows(cols, vals, tcol, uk, b32, plan, yd.clone(),
+                        tune=tn, device=dev)) for tn in tunes)
+    got = ragged_ell_rows(cols, vals, tcol, uk, b16, plan, yd.clone(),
+                          device=dev)
+    want = ragged_ell_rows_ref(cols, vals, tcol, uk, b16, plan, yd.clone())
+    per_unit = torch.equal(
+        ragged_ell_spmm(cols, vals, tcol, uk, b16, device=dev),
+        ragged_ell_spmm(cols, vals, tcol, uk, b32, device=dev))
+    _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
+                                     meta, nct, t)
+    b2 = b16.reshape(g * nct * t, f)
+    buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
+    cost = contract_cost(ragged_ell_contract(
+        g, u, r, kmax, nct, t, f, n_slots=int(plan.live.shape[1]),
+        b_dtype=bf16), cols=cols, tile_col=tcol, plan=plan)
+    return dict(
+        ok=equal and per_unit and torch.equal(got, want),
+        err=max_err(got, want), shapes_bitwise_f32=equal,
+        launch_shapes=len(tunes), per_unit_bitwise_f32=per_unit,
+        ms=device_ms(torch, lambda: ragged_ell_rows(
+            cols, vals, tcol, uk, b16, plan, buf, device=dev)),
+        call_ms=call_ms(torch, lambda: ragged_ell_rows(
+            cols, vals, tcol, uk, b16, plan, buf, device=dev)),
+        plain_ms=device_ms(torch, lambda: ragged_ell_rows_ref(
+            cols, vals, tcol, uk, b16, plan, plain_buf)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_ids, torch.sparse.mm(live_csr, b2.float()))),
+        bound=bound(cost["hbm_bytes"], cost["flops"]))
+
+
+def bf16_fixed_ell_case(torch, case):
+    """The fixed-K band rows at bfloat16 B, band after band onto the
+    bfloat16 dense engine's rows: bitwise the float32 instances on
+    ``b.float()`` and bitwise the plain version. Library as for the
+    ragged kernel."""
+    from repro_torch.core.formats import RaggedEll, ell_buckets
+    from repro_torch.kernels.ell_spmm import (contract_cost, ell_contract,
+                                              ell_spmm_rows)
+    from repro_torch.kernels.ref import ell_spmm_rows_ref
+
+    bf16 = torch.bfloat16
+    part, bt, meta, dense_plan, plan, bands = case
+    cols, vals, tcol, uk, rows = part[2:7]
+    dev = bt.device
+    g, u, r, kmax = cols.shape
+    nct, t, f = bt.shape[1:]
+    p = meta.n_padded_rows
+    b16 = bt.to(bf16)
+    buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
+                          meta.ell_segments)
+    carry = torch.zeros((g, bands[0].n_carry, f), device=dev)
+    yd = dense_rows(part, b16, dense_plan, p)
+
+    def folded(out, b, rows_fn=ell_spmm_rows, **kw):
+        for bk, band in zip(buckets, bands):
+            rows_fn(bk.cols, bk.vals, bk.tile_col, b, band, out, carry, **kw)
+        return out
+
+    got = folded(yd.clone(), b16, device=dev)
+    equal = torch.equal(got, folded(yd.clone(), b16.float(), device=dev))
+    want = folded(yd.clone(), b16, ell_spmm_rows_ref)
+    _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
+                                     meta, nct, t)
+    b2 = b16.reshape(g * nct * t, f)
+    buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
+    seen, cost = {}, [0.0, 0.0]
+    for bk, band in zip(buckets, bands):
+        c = contract_cost(ell_contract(g, bk.cols.shape[1], r,
+                                       bk.cols.shape[-1], nct, t, f,
+                                       n_slots=int(band.rows.shape[1]),
+                                       b_dtype=bf16),
+                          cols=bk.cols, tile_col=bk.tile_col, plan=band,
+                          seen=seen)
+        cost = [cost[0] + c["hbm_bytes"], cost[1] + c["flops"]]
+    return dict(
+        ok=equal and torch.equal(got, want), err=max_err(got, want),
+        bitwise_f32=equal, bands=len(buckets),
+        ms=device_ms(torch, lambda: folded(buf, b16, device=dev)),
+        call_ms=call_ms(torch, lambda: folded(buf, b16, device=dev)),
+        plain_ms=call_ms(torch, lambda: folded(plain_buf, b16,
+                                               ell_spmm_rows_ref)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_ids, torch.sparse.mm(live_csr, b2.float()))),
+        bound=bound(*cost))
+
+
+def bf16_matmul_case(torch, a, b):
+    """``tile_matmul`` at bfloat16 (tensor cores, C rounded once) within
+    ``bf16_close`` of its plain version; every configuration timed and
+    bitwise the picked one. Library: ``torch.matmul`` on bfloat16."""
+    from repro_torch.kernels.ref import tile_matmul_ref
+    from repro_torch.kernels.tile_matmul import CONFIGS, tile_matmul
+
+    bf16 = torch.bfloat16
+    a, b = a.to(bf16).contiguous(), b.to(bf16).contiguous()
+    m, k = a.shape
+    n = b.shape[1]
+    got = tile_matmul(a, b, device=a.device)
+    want = tile_matmul_ref(a, b)
+    mag = torch.matmul(a.abs().float(), b.abs().float())
+    configs = all(torch.equal(tile_matmul(a, b, config=c, device=a.device),
+                              got) for c in CONFIGS)
+    return dict(
+        ok=got.dtype == bf16 and bf16_close(torch, got, want, mag)
+        and configs and torch.equal(tile_matmul(a, b, device=a.device), got),
+        err=max_err(got.float(), want.float()), configs_bitwise=configs,
+        config_ms={c: device_ms(torch, lambda c=c: tile_matmul(
+            a, b, config=c, device=a.device)) for c in CONFIGS},
+        ms=device_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
+        call_ms=call_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
+        plain_ms=device_ms(torch, lambda: tile_matmul_ref(a, b)),
+        library_ms=device_ms(torch, lambda: torch.matmul(a, b)),
+        bound=bound(2.0 * (m * k + k * n + m * n), 2.0 * m * k * n,
+                    BF16_FLOPS_PER_S))
+
+
+# name, source of the bfloat16 instances, the float32 kernel's entry name,
+# and which of a source's ptxas lines are bfloat16 instances
+BF16_KERNELS = (
+    ("ragged_ell_spmm",
+     "src/repro_torch/kernels/csrc/ragged_ell_spmm_f32_bf16.cu", ""),
+    ("bsr_spmm", "src/repro_torch/kernels/csrc/bsr_spmm.cu", "mma_kernel"),
+    ("ell_spmm", "src/repro_torch/kernels/csrc/ell_spmm.cu",
+     "13__nv_bfloat16"),
+    ("tile_matmul", "src/repro_torch/kernels/csrc/tile_matmul.cu",
+     "mma_matmul_kernel"),
+)
+
+
+def bf16_kernel_entries(torch, engine, graphs, launches, build_log) -> tuple:
+    """The four kernels' bfloat16 instances at PERF.md §6's shapes: the
+    cora class at F = 128 (and 7, the output width), G = 1 (the dense
+    engine also G = 4), ``tile_matmul`` at cora's layer 1. ``launches``:
+    the bfloat16 path's launches by kernel (``bf16_phase``). Returns
+    (problems, one {"kernels"} entry per kernel)."""
+    problems, entries = [], []
+    cases = {(lab["F"], lab["G"]): case
+             for lab, case in kernel_cases(torch, engine,
+                                           {"cora": graphs["cora"]})}
+    h = engine.handle("cora")
+    a = engine.prepare_x("cora", graphs["cora"]["xs"][0])
+    rows = {k: [] for k, _, _ in BF16_KERNELS}
+    for f in sorted({f for f, _ in cases}, reverse=True):
+        label = dict(graph="cora", F=f, G=1, dtype="bfloat16")
+        rows["bsr_spmm"].append((label, bf16_bsr_case(
+            torch, cases[(f, 1)], cases[(f, GROUP)])))
+        rows["ragged_ell_spmm"].append((label, bf16_ell_case(
+            torch, cases[(f, 1)])))
+        rows["ell_spmm"].append((label, bf16_fixed_ell_case(
+            torch, cases[(f, 1)])))
+    rows["tile_matmul"].append((dict(
+        graph="cora", layer=1, shape=[*a.shape, h.weights[0].shape[1]],
+        dtype="bfloat16"), bf16_matmul_case(torch, a, h.weights[0])))
+    for kname, source, mark in BF16_KERNELS:
+        rs = []
+        for label, res in rows[kname]:
+            row = dict(label, ms=res["ms"], call_ms=res["call_ms"],
+                       plain_ms=res["plain_ms"], library_ms=res["library_ms"],
+                       bound_ms=res["bound"][0], bound_by=res["bound"][1],
+                       max_abs_err=res["err"],
+                       **{k: v for k, v in res.items() if k not in (
+                           "ms", "call_ms", "plain_ms", "library_ms",
+                           "bound", "err", "ok")})
+            rs.append(row)
+            print(f"  {kname + ' bf16':16s} {json.dumps(label):52s} kernel "
+                  f"{res['ms']:.4f} ms (call {res['call_ms']:.4f})  plain "
+                  f"{res['plain_ms']:.4f} ms  library "
+                  f"{res['library_ms']:.4f} ms  bound "
+                  f"{res['bound'][0]:.5f} ms ({res['bound'][1]})  "
+                  f"max_abs_err {res['err']:.3g}")
+            if not res["ok"]:
+                problems.append(f"{kname} bf16 {label}: disagrees ({row})")
+        head = rs[0]
+        log = build_log[os.path.basename(source)[:-3]]["log"]
+        n, by_path = launches[kname], {}
+        if isinstance(n, dict):     # ell_spmm: {"fused": .., "loop": ..}
+            by_path, n = dict(launches_by_path=n), next(iter(n.values()))
+        elif kname == "tile_matmul":
+            by_path = dict(launches_from="ops.matmul")
+        entries.append(dict(
+            name=f"{kname}_bf16", route="cuda", source=source,
+            replaces=dict((k, r) for k, _, r, _, _ in KERNELS)[kname],
+            launches=n, **by_path, max_abs_err=max(
+                r["max_abs_err"] for r in rs),
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"],
+            shape=", ".join(f"{k}={v}" for k, v in head.items()
+                            if k in ("graph", "F", "G", "layer", "shape")),
+            ptxas=[ln for ln in ptxas_summary(log) if mark in ln],
+            cases=rs))
+    return problems, entries
 
 
 KERNELS = (
@@ -5284,9 +5728,17 @@ def main() -> None:
                    shape_class=h.sclass.summary(), profile=prof)
         e2e.append(row)
         print(f"  {name}: " + json.dumps(row))
+    b16_problems, bf16_gcn, bf16_launches, bf16_windows = bf16_phase(
+        torch, engine, graphs)
+    problems += b16_problems
+    print("bf16 path launches by type, one window a dispatch (and "
+          f"ops.matmul's): {json.dumps(bf16_windows)}")
+    for rec in bf16_gcn:
+        print(f"  bf16 GCN ({smi}): " + json.dumps(rec))
     print(f"kernels (device ms per call: CUDA graphs of {GRAPH_CALLS} calls, "
           f"median of {TIMING_REPS} replays; call = one call from Python; "
-          "bound at 3.35 TB/s, 67 TFLOP/s f32):")
+          "bound at 3.35 TB/s, 67 TFLOP/s f32 FFMA, 989 TFLOP/s bf16 "
+          "tensor cores):")
     launches = {"ragged_ell_spmm": counts["ragged_ell_spmm"],
                 "bsr_spmm": counts["bsr_spmm"],
                 "ell_spmm": {d: c["ell_spmm"] for d, c in ab_counts.items()},
@@ -5305,6 +5757,10 @@ def main() -> None:
                                    config=r["winner"], ms=r["winner_ms"],
                                    default_ms=r["default_ms"])
                               for r in autotune]
+    b16k_problems, bf16_entries = bf16_kernel_entries(
+        torch, engine, graphs, bf16_launches, log)
+    problems += b16k_problems
+    entries += bf16_entries
     print(json.dumps({"e2e": e2e, "reordered": reordered,
                       "dispatch_ab": ab_rows, "lifecycle": lifecycle,
                       "xw": xw, "autotune": autotune,
@@ -5319,6 +5775,7 @@ def main() -> None:
     print(json.dumps({"serving_tp": serving_tp}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"checkpoint": ckpt}))
+    print(json.dumps({"bf16_gcn": bf16_gcn}))
     print(json.dumps({"kernels": entries}))
     if problems:
         for p in problems:

@@ -22,11 +22,13 @@ Port of ``scripts/lint_repro.py``. Three passes:
                from the public API without the owning lock, plus
                lock-order inversions against the declared hierarchy.
 
-``--device`` is where the launch and kernel passes run: the card when
-one is present (the kernels are built, and their ptxas logs audited),
-else the CPU, where the kernels' plain versions run and the registers
-rule reports "not checked". Benign races carry inline waivers,
-``# lint: racy-ok(<reason>)``, listed under ``-v``.
+``--device`` is where the launch and kernel passes run: the card by
+default (the kernels are built, and their ptxas logs audited); without
+one those passes raise unless ``--device cpu`` is given, where the
+kernels' plain versions run and the registers rule reports "not
+checked". The concurrency pass and ``--bench-check`` need no device.
+Benign races carry inline waivers, ``# lint: racy-ok(<reason>)``, listed
+under ``-v``.
 
 ``--bench-check [ROOT]`` validates the ``BENCH_*.json`` trajectory files
 at ROOT (default: the repository's root) against their schema
@@ -51,9 +53,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of "
                          f"{{{','.join(ALL_PASSES)}}} (default: all, or "
                          "none with --bench-check)")
-    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the launch and kernel passes run (default: "
-                         "the card when one is present, else the CPU)")
+                         "the card; without one, pass --device cpu)")
     ap.add_argument("--bench-check", nargs="?", const="", default=None,
                     metavar="ROOT",
                     help="validate the BENCH_*.json trajectory files at "
@@ -70,10 +72,12 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown pass(es): {', '.join(unknown)}")
 
-    import torch
-
     from repro_torch.analysis.static.report import Report
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    from repro_torch.device import resolve_device
+    on_device = bool({"launch", "kernel"} & set(requested))
+    device = args.device
+    if on_device:
+        resolve_device(device)     # no card: raises, naming device='cpu'
     report = Report()
     engine = None
     for pass_name in requested:
@@ -98,7 +102,7 @@ def main(argv=None) -> int:
         from repro_torch.analysis.static.concurrency_pass import _repo_root
         report.extend(check_bench_files(args.bench_check or _repo_root()))
     print(f"repro_torch-lint: passes {','.join(requested + ['bench'] * bench)}"
-          f" on {device}")
+          f" on {device if on_device else 'the host'}")
     print(report.render(verbose=args.verbose))
     return 0 if report.ok else 1
 

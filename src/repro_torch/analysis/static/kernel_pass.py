@@ -14,7 +14,10 @@ anything:
   ``w`` (32, a warp, for kernels without lanes per row); ``kc <= w``
   (a chunk's cols/vals are spread over the row's lanes).
 - **instance**: the launch shape is one of the kernel instances the
-  source is built with (a candidate outside them would fail to launch).
+  source is built with (a candidate outside them would fail to launch);
+  the ELL kernels' instances end with their (vals, B) types, and the
+  pass audits every pair (float32 or bfloat16 each) and both matmul
+  types, so the bfloat16 instances' registers and spills are read too.
 - **index-extent**: what the kernel numbers in 32 bits (entries, units,
   plan positions, M/N/K) stays below 2^31.
 - **shared-memory**: dynamic plus static shared memory at most 227 KiB
@@ -40,6 +43,7 @@ import itertools
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.analysis.static.report import Finding
 from repro_torch.engine.shape_class import (ClassNeed, ShapeClass,
@@ -48,7 +52,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
                                           ragged_ell_contract)
-from repro_torch.kernels.tile_matmul import CONFIGS, TILES, matmul_contract
+from repro_torch.kernels.tile_matmul import (CONFIGS, MMA_TILES, TILES,
+                                             matmul_contract)
 
 # sm_90 per-block limits (NVIDIA's Hopper tuning guide).
 MAX_THREADS = 1024
@@ -62,12 +67,20 @@ CLUSTER_MAX = 8                # portable thread-block cluster size
 # that a tuned vec = 4 is seen clamped to 1.
 CLAMP_F = 7
 
-# The kernel instances each source is built with.
+# The (vals, B) type pairs the ELL kernels are built for, and the
+# operand types of the dense matmul.
+ELL_DTYPES = tuple(itertools.product(("float32", "bfloat16"), repeat=2))
+MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The kernel instances each source is built with (the ELL kernels' launch
+# shapes followed by their (vals, B) type names).
 BUILT = {
-    "ell_rows_kernel": set(itertools.product(TUNE_W, TUNE_VEC, TUNE_KC,
-                                             TUNE_THREADS)),
-    "ell_band_kernel": set(itertools.product(TUNE_W, TUNE_VEC)),
+    "ell_rows_kernel": {shape + types for shape in itertools.product(
+        TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS) for types in ELL_DTYPES},
+    "ell_band_kernel": {shape + types for shape in itertools.product(
+        TUNE_W, TUNE_VEC) for types in ELL_DTYPES},
     "matmul_kernel": set(TILES.values()),
+    "mma_matmul_kernel": set(MMA_TILES.values()),
 }
 
 
@@ -250,20 +263,23 @@ def contracts_for_class(sc: ShapeClass, f_widths: Sequence[int],
     unit on the LAST column tile at its band slot's FULL K): the ragged
     kernel in the launch shape ``tune`` (clamped at each width; None =
     the defaults), which is how the autotuner audits its candidates, and
-    the fixed-K kernel on each class band."""
+    the fixed-K kernel on each class band; for each (vals, B) type pair
+    of ``ELL_DTYPES``."""
     from repro_torch.kernels.autotune import class_stand_ins
     out = []
     if not (sc.ell_units and sc.ell_kmax):
         return out
     tile_col, cols, unit_k = class_stand_ins(sc)
-    for f in f_widths:
+    for f, (vt, bt) in itertools.product(f_widths, ELL_DTYPES):
+        types = dict(vals_dtype=getattr(torch, vt),
+                     b_dtype=getattr(torch, bt))
         out.append((ragged_ell_contract(
             1, sc.ell_units, sc.r_block, sc.ell_kmax, sc.n_col_tiles,
-            sc.tile, f, tune=tune), (tile_col, cols, unit_k)))
+            sc.tile, f, tune=tune, **types), (tile_col, cols, unit_k)))
         at = 0
         for k, n in sc.bands:
             out.append((ell_contract(1, n, sc.r_block, k, sc.n_col_tiles,
-                                     sc.tile, f),
+                                     sc.tile, f, **types),
                         (tile_col[:, at:at + n], cols[:, at:at + n, :, :k])))
             at += n
     return out
@@ -275,8 +291,10 @@ def run_kernel_pass(engine=None, *, device="cuda",
                     ) -> List[Finding]:
     """Repo-level entry: audit every contract the engine's registered
     classes imply at each of ``f_widths`` (ragged kernel in each class's
-    applied tuning at that width, fixed-K kernel per band), the dense matmul contract
-    in every configuration, and every (member, class) fit in the engine.
+    applied tuning at that width, fixed-K kernel per band; each for
+    every (vals, B) type pair of ``ELL_DTYPES``), the dense matmul
+    contract in every configuration and operand type, and every
+    (member, class) fit in the engine.
     ``engine`` None builds the fixture engine on ``device``; on a card
     the kernels are built first, so the registers rule reads the real
     ptxas logs. ``f_widths`` None: the fixture's widths, 128 and
@@ -300,16 +318,16 @@ def run_kernel_pass(engine=None, *, device="cuda",
             seen.add(h.sclass)
             for f in f_widths:
                 tune = engine.executors.tuned_for(h.sclass, f) or None
-                for contract, scalars in contracts_for_class(h.sclass, (f,),
-                                                             tune):
+                for contract, scalars in contracts_for_class(
+                        h.sclass, (f,), tune):
                     findings.extend(check_contract(contract,
                                                    scalar_args=scalars))
         if h.need is not None:
             findings.extend(check_class_fit(h.need, h.sclass, policy))
     # the dense matmul contract in every configuration, at the
     # reference's two audit sizes
-    for (m, k, n), config in itertools.product(
-            ((512, 512, 512), (2048, 1024, 256)), CONFIGS):
-        findings.extend(check_contract(matmul_contract(m, k, n,
-                                                       config=config)))
+    for (m, k, n), config, dtype in itertools.product(
+            ((512, 512, 512), (2048, 1024, 256)), CONFIGS, MATMUL_DTYPES):
+        findings.extend(check_contract(matmul_contract(
+            m, k, n, config=config, dtype=dtype)))
     return findings

@@ -16,6 +16,15 @@ TriPartition, dispatching each component to its engine:
 The three partial products add as ``(dense + ell) + coo`` on both
 backends.
 
+Types, as in the reference: B is float32 or bfloat16 (anything else is
+taken as float32). With a bfloat16 B the dense tiles are rounded to
+bfloat16, their products summed in float32 and the dense engine's rows
+rounded to bfloat16; the ELL and COO products are taken in float32 from
+the upcast operands; the three rows are added in float32 and the result
+is rounded to bfloat16. A float32 B runs in float32 throughout. The GCN
+layers multiply X·W in the type of X and W promoted, as the reference's
+``x @ w``.
+
 Two backends:
   * ``torch`` — plain PyTorch (mirrors the reference's ``xla``).
   * ``cuda``  — dense tiles and ELL units through the hand-written CUDA
@@ -65,13 +74,15 @@ BACKENDS = ("cuda", "torch")
 def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
                        meta: PartitionMeta, plan: ReductionPlan
                        ) -> torch.Tensor:
-    """Dense-engine partial product, B [G, N, F] -> [G, nrt*T, F]."""
+    """Dense-engine partial product, B [G, N, F] -> [G, nrt*T, F] float32
+    (rounded to bfloat16 where B is: ``bsr_spmm_rows_ref``)."""
     g, _, f = b.shape
     T, nrt = meta.tile, meta.n_row_tiles
     if part.dense.tiles.shape[-3] == 0:
-        return b.new_zeros((g, nrt * T, f))
-    out = bsr_spmm_rows_ref(part.dense.tiles, part.dense.tile_col,
-                            b_tiles_of(b, meta), plan.dense)  # [G,nrt,T,F]
+        return b.new_zeros((g, nrt * T, f), dtype=torch.float32)
+    out = bsr_spmm_rows_ref(kops.dense_tiles_of(part, b),
+                            part.dense.tile_col, b_tiles_of(b, meta),
+                            plan.dense)                       # [G,nrt,T,F]
     return out.reshape(g, nrt * T, f)
 
 
@@ -92,7 +103,7 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     kops.check_ell_dispatch(dispatch)
     g, _, f = b.shape
     if part.ell.cols.shape[-3] == 0:
-        return b.new_zeros((g, meta.n_padded_rows, f))
+        return b.new_zeros((g, meta.n_padded_rows, f), dtype=torch.float32)
     bt = b_tiles_of(b, meta)
     if dispatch == "ragged":
         prod = ragged_ell_spmm_ref(part.ell.cols, part.ell.vals,
@@ -118,14 +129,15 @@ def _scatter_all(part, prod, meta, plan):
 def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
                plan: ReductionPlan) -> torch.Tensor:
     """Flexible-engine partial product (row-wise product SpMM),
-    [G, nrt*T, F]."""
+    [G, nrt*T, F] float32 (products of the upcast operands)."""
     g, _, f = b.shape
     nnz = part.coo.vals.shape[-1]
     if nnz == 0:
-        return b.new_zeros((g, meta.n_padded_rows, f))
+        return b.new_zeros((g, meta.n_padded_rows, f), dtype=torch.float32)
     bp = pad_b_to_tiles(b, meta)
     idx = part.coo.cols.long()[..., None].expand(g, nnz, f)
-    msgs = part.coo.vals[..., None] * torch.gather(bp, 1, idx)  # [G,nnz,F]
+    msgs = (part.coo.vals[..., None].float()
+            * torch.gather(bp, 1, idx).float())             # [G,nnz,F]
     out = segment_sum(msgs.reshape(g * nnz, f), plan.coo)
     return out.reshape(g, meta.n_padded_rows, f)
 
@@ -137,7 +149,7 @@ def _grouped(part: TriPartition, b, plan, meta, dev):
     one unstacked graph, whose result drops the group axis again.
     """
     part = partition_to(part, dev)
-    b = torch.as_tensor(b, dtype=torch.float32).to(dev)
+    b = as_operand(b).to(dev)
     if plan is None:
         plan = reduction_plan(part, meta)
     plan = plan_to(plan, dev)
@@ -146,6 +158,13 @@ def _grouped(part: TriPartition, b, plan, meta, dev):
         part = TriPartition(*(type(c)(*(a[None] for a in c)) for c in part))
         b = b[None]
     return part, b, plan, squeeze
+
+
+def as_operand(x) -> torch.Tensor:
+    """``x`` as a tensor of one of the types the executor computes in:
+    bfloat16 stays bfloat16, anything else becomes float32."""
+    x = torch.as_tensor(x)
+    return x if x.dtype == torch.bfloat16 else x.float()
 
 
 # The width key of a tuning table entry that applies at every width.
@@ -299,9 +318,14 @@ def _product(source, part, b, meta, plan, backend, ell_dispatch,
     """``_hybrid`` through ``HybridSpmmFn`` when B needs a gradient;
     ``source`` is the caller's partition. A grouped one runs each
     member alone (its own group axis of 1 and plan) and stacks the
-    results: the bits of each member's own call."""
+    results: the bits of each member's own call. The gradient is float32
+    only: a bfloat16 B that needs one raises (training runs in float32)."""
     if not (torch.is_grad_enabled() and b.requires_grad):
         return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
+    if b.dtype != torch.float32:
+        raise NotImplementedError(
+            f"hybrid_spmm differentiates a float32 B only, not {b.dtype}: "
+            "train in float32 (bfloat16 runs without gradients)")
     if not _stacked(source):
         return HybridSpmmFn.apply(b, source, None, part, meta, plan, backend,
                                   ell_dispatch, ell_tune)
@@ -344,7 +368,7 @@ def _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune=None):
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")
     y = y + coo_matmul(part, b, meta, plan)
-    return y[:, : meta.n_rows]
+    return y[:, : meta.n_rows].to(b.dtype)
 
 
 def hybrid_spmm_ref(a_dense, b):
@@ -381,8 +405,11 @@ def member_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _layer(source, part, x, w, meta, plan, backend, block_cols, activation,
            ell_dispatch, ell_tune=None):
-    """One GCN layer on grouped tensors: x [G, N, F_in], w [G, F_in, H]."""
+    """One GCN layer on grouped tensors: x [G, N, F_in], w [G, F_in, H];
+    X·W in the promoted type of the two."""
     h = w.shape[-1]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
     if block_cols and block_cols < h:
         nblk = -(-h // block_cols)
         wp = torch.nn.functional.pad(w, (0, nblk * block_cols - h))
@@ -412,7 +439,7 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
     dev = resolve_device(device)
     source = part
     part, x, plan, squeeze = _grouped(part, x, plan, meta, dev)
-    w = torch.as_tensor(w, dtype=torch.float32).to(dev)
+    w = as_operand(w).to(dev)
     y = _layer(source, part, x, w if w.dim() == 3 else w[None], meta, plan,
                backend, block_cols, activation, ell_dispatch, ell_tune)
     return y[0] if squeeze else y
@@ -433,13 +460,14 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     Differentiable in ``x`` and ``weights`` (``HybridSpmmFn``): the
     reference's ``jax.value_and_grad`` of this forward; a group's
     members one by one, each with the bits of its own G = 1 call. X·W's
-    gradients are ``torch.matmul``'s own.
+    gradients are ``torch.matmul``'s own. In float32 only: bfloat16
+    inputs that need a gradient raise ``NotImplementedError``.
     """
     dev = resolve_device(device)
     source = part
     part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
     for i, w in enumerate(weights):
-        w = torch.as_tensor(w, dtype=torch.float32).to(dev)
+        w = as_operand(w).to(dev)
         act = torch.relu if i < len(weights) - 1 else None
         h = _layer(source, part, h, w if w.dim() == 3 else w[None], meta,
                    plan, backend, block_cols, act, ell_dispatch, ell_tune)

@@ -29,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -119,6 +121,19 @@ def build_all() -> dict:
         return BUILD_LOG
 
 
+# The operand types the kernels take (the TPU kernels' MXU types), and
+# each one's name in C++ mangling.
+DTYPES = (torch.float32, torch.bfloat16)
+MANGLED_TYPES = {"float32": "f", "bfloat16": "13__nv_bfloat16"}
+
+
+def dtype_name(dtype) -> str:
+    """"float32" or "bfloat16"; ValueError for any other type."""
+    if dtype not in DTYPES:
+        raise ValueError(f"the kernels take float32 or bfloat16, not {dtype}")
+    return str(dtype).removeprefix("torch.")
+
+
 def tick(name: str) -> None:
     """One call of the kernel wrapper ``name`` (``entry_calls``)."""
     with count_lock:
@@ -126,9 +141,25 @@ def tick(name: str) -> None:
 
 
 def mangled_args(values) -> str:
-    """Itanium-mangled integer template arguments, as ptxas names a
-    kernel instance: (32, 4) -> "ILi32ELi4EE"."""
-    return "I" + "".join(f"Li{int(v)}E" for v in values) + "E"
+    """Itanium-mangled template arguments, as ptxas names a kernel
+    instance: integers, and type names of ``MANGLED_TYPES``: (32, 4) ->
+    "ILi32ELi4EE", (32, "float32") -> "ILi32EfE". A class type named
+    again is a substitution: S1_ for the first one of a kernel template
+    inside one namespace, where S_ and S0_ are the namespace and the
+    template (every kernel of csrc/): ("bfloat16", "bfloat16") ->
+    "I13__nv_bfloat16S1_E"."""
+    out, subs = [], {}
+    for v in values:
+        if not isinstance(v, str):
+            out.append(f"Li{int(v)}E")
+        elif len(MANGLED_TYPES[v]) == 1:        # a builtin type: no subs
+            out.append(MANGLED_TYPES[v])
+        elif v in subs:
+            out.append(subs[v])
+        else:
+            subs[v] = f"S{len(subs) + 1}_"
+            out.append(MANGLED_TYPES[v])
+    return "I" + "".join(out) + "E"
 
 
 def ptxas_entries(log: str) -> list:

@@ -13,6 +13,12 @@ dimension) and run their plain versions from
     dense ``SegmentPlan``;
   * ``bsr_spmm`` — the reference's per-tile products, the same kernel
     with every tile its own segment.
+
+Types, as the reference's kernel takes them: float32 tiles and B (IEEE
+float32 FFMA), or bfloat16 tiles and B (the tensor cores, a float32
+accumulator); the products and rows come out in float32. With bfloat16
+operands ``bsr_spmm_rows`` rounds each row sum to bfloat16 (kept in
+float32): the reference's dense engine rounds its rows to B's type.
 """
 from __future__ import annotations
 
@@ -26,22 +32,29 @@ from repro_torch.device import resolve_device
 from . import _build
 from .ref import bsr_spmm_ref, bsr_spmm_rows_ref
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
-launches = 0
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
+# by the operands' type.
+launches = {"float32": 0, "bfloat16": 0}
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(dtype: torch.dtype):
+    """(library, C entry) of the kernel instances for ``dtype``."""
+    name = _build.dtype_name(dtype)
+    if name not in _fns:
         lib = _build.library("bsr_spmm")
-        fn = lib.bsr_spmm_rows_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        if name == "float32":
+            fn = lib.bsr_spmm_rows_f32
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+        else:
+            fn = lib.bsr_spmm_rows_bf16
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+        _fns[name] = (lib, fn)
+    return _fns[name]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -64,9 +77,10 @@ def _checked(tiles, tile_col, b_tiles, dev) -> tuple:
     _check(g == g2 and tuple(tile_col.shape) == (g, n_t),
            f"group/tile counts differ: {tuple(tiles.shape)}, "
            f"{tuple(tile_col.shape)}, {tuple(b_tiles.shape)}")
-    _check(tiles.dtype == torch.float32 and b_tiles.dtype == torch.float32
-           and tile_col.dtype == torch.int32, "expected float32 tiles/B and "
-           "int32 tile_col")
+    _check(tiles.dtype == b_tiles.dtype and tiles.dtype in _build.DTYPES
+           and tile_col.dtype == torch.int32, "expected float32 or bfloat16 "
+           f"tiles and B of one type (got {tiles.dtype}, {b_tiles.dtype}) "
+           "and int32 tile_col")
     for x in (tiles, tile_col, b_tiles):
         _check(x.device == dev, f"tensor on {x.device}, device={dev}")
         _check(dev.type == "cpu" or x.is_contiguous(),
@@ -75,32 +89,37 @@ def _checked(tiles, tile_col, b_tiles, dev) -> tuple:
 
 
 def _launch(tiles, tile_col, b_tiles, order, offsets, n_rt, dev):
-    """One kernel launch; ``order``/``offsets`` None = per-tile."""
+    """One kernel launch; ``order``/``offsets`` None = per-tile (and, in
+    bfloat16, unrounded products; with a plan, rows rounded to
+    bfloat16)."""
     g, _, t, _ = tiles.shape
     nct, f = b_tiles.shape[1], b_tiles.shape[3]
     out = torch.empty((g, n_rt, t, f), dtype=torch.float32, device=dev)
     if g and n_rt and f:
-        lib, fn = _kernel()
+        lib, fn = _kernel(tiles.dtype)
         ptr = (lambda x: None if x is None else x.data_ptr())  # noqa: E731
+        rounding = () if tiles.dtype == torch.float32 else (
+            int(order is not None),)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(tiles.data_ptr(), tile_col.data_ptr(),
                      b_tiles.data_ptr(), ptr(order), ptr(offsets),
-                     out.data_ptr(), g, n_rt, nct, t, f, stream)
+                     out.data_ptr(), g, n_rt, nct, t, f, *rounding, stream)
         _build.check(lib, err, "bsr_spmm launch")
-        global launches
         with _build.count_lock:
-            launches += 1
+            launches[_build.dtype_name(tiles.dtype)] += 1
     return out
 
 
 def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
                   b_tiles: torch.Tensor, plan: SegmentPlan, *,
                   device="cuda") -> torch.Tensor:
-    """tiles [G, n_t, T, T] f32, tile_col [G, n_t] int32, b_tiles
-    [G, nct, T, F] f32 and the dense ``plan`` (entries ``g*n_t + i``
-    onto segments ``g*n_rt + tile_row``) -> [G, n_rt, T, F] f32: each
-    row tile's products summed in plan order, zeros where it has none.
+    """tiles [G, n_t, T, T] f32 or bf16, tile_col [G, n_t] int32,
+    b_tiles [G, nct, T, F] of the tiles' type and the dense ``plan``
+    (entries ``g*n_t + i`` onto segments ``g*n_rt + tile_row``) ->
+    [G, n_rt, T, F] f32: each row tile's products summed in plan order,
+    zeros where it has none; in bfloat16 each sum is then rounded to
+    bfloat16 (the reference's dense rows, in B's type).
 
     Every tensor must lie on ``device``. CPU tensors take the plain version
     (``bsr_spmm_ref`` then ``segment_sum``); CUDA tensors launch the
@@ -134,8 +153,9 @@ def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
 
 def bsr_spmm(tiles: torch.Tensor, tile_col: torch.Tensor,
              b_tiles: torch.Tensor, *, device="cuda") -> torch.Tensor:
-    """tiles [(G,) n_t, T, T] f32, tile_col [(G,) n_t] int32,
-    b_tiles [(G,) nct, T, F] f32 -> [(G,) n_t, T, F] f32 per-tile products.
+    """tiles [(G,) n_t, T, T] f32 or bf16, tile_col [(G,) n_t] int32,
+    b_tiles [(G,) nct, T, F] of the tiles' type -> [(G,) n_t, T, F] f32
+    per-tile products.
 
     Every tensor must lie on ``device``. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise.

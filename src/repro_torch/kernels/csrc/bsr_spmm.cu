@@ -43,8 +43,25 @@
 //
 // B rows of F = 3, 7 or 130 floats are not 16-byte aligned and are copied
 // 4 bytes at a time; tiles (T = 64) and F = 128 rows 16 bytes at a time.
-// No tensor cores: the port holds float32 parity with the reference.
+// No tensor cores on float32: the port holds float32 parity with the
+// reference.
+//
+// bfloat16 (bsr_spmm_rows_bf16): tiles and B in bfloat16, as the
+// reference's dense engine takes them (its caller casts the tiles to B's
+// type), multiplied on the tensor cores (the m16n8k16 mainloop of
+// mma_tile.cuh) with a float32 accumulator. Each tile's product is one
+// accumulator per element from +0 over the k16 steps, then added onto the
+// row accumulator in plan order, as above, so the rows equal the per-tile
+// products (this kernel without a plan) summed by `segment_sum`, bit for
+// bit. With `round_out` (the dense engine's rows) each sum is rounded to
+// bfloat16 in the epilogue and stored as float into the float32 output, the
+// buffer the ELL kernel then adds onto: the reference rounds its dense rows
+// to B's type before the ELL add. Without it (per-tile products) the
+// float32 products are stored as they are, as the reference's kernel
+// returns them. Shapes: 64 x 64 blocks of four 32 x 32 warps for F > 16,
+// 64 x 8 blocks of four 16 x 8 warps for F <= 16.
 #include "ffma_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -163,6 +180,148 @@ int launch(const float* tiles, const int* tile_col, const float* b,
                                  n_rt, nct, T, F, stream);
 }
 
+using MmaWide = mma_tile::Tile<64, 64, 32, 32, 32, 3>;
+using MmaNarrow = mma_tile::Tile<64, 8, 32, 16, 8, 3>;
+
+// The bfloat16 rows kernel: grid and plan as bsr_rows_kernel. A16/B16: tile
+// rows / B rows copied 16 bytes at a time (else one element); ROUND: each
+// row sum rounded to bfloat16 before it is stored.
+// A minimum of one block per SM: with the block size alone ptxas held the
+// narrow instances that copy tiles one element at a time at 64 registers
+// and spilled 4 bytes to get there.
+template <class C, bool A16, bool B16, bool ROUND>
+__global__ void __launch_bounds__(C::THREADS, 1)
+bsr_rows_mma_kernel(const __nv_bfloat16* __restrict__ tiles,
+                    const int* __restrict__ tile_col,
+                    const __nv_bfloat16* __restrict__ b,
+                    const long long* __restrict__ order,
+                    const long long* __restrict__ offsets,
+                    float* __restrict__ out, int n_rt, int nct, int T,
+                    int F) {
+  using mma_tile::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  __shared__ long long s_tile[kIndexBatch];  // tile entry e
+  __shared__ long long s_b[kIndexBatch];     // B tile (member, col)
+  const int row_blocks = (T + C::BM - 1) / C::BM;
+  const int r = blockIdx.x / row_blocks;
+  const int m0 = (blockIdx.x % row_blocks) * C::BM;
+  const int f0 = blockIdx.y * C::BN;
+  const long long g = blockIdx.z;
+  const long long s = g * n_rt + r;
+  const long long begin = offsets ? offsets[s] : s;
+  const long long end = offsets ? offsets[s + 1] : s + 1;
+  const int wm = mma_tile::warp_m<C>(), wn = mma_tile::warp_n<C>();
+  const int rows = min(C::BM, T - m0);
+  const int cols = min(C::BN, F - f0);
+  const int k_chunks = (T + C::BK - 1) / C::BK;
+  const long long tt = static_cast<long long>(T) * T;
+  const long long tf = static_cast<long long>(T) * F;
+  const mma_tile::Copier<C::BM, C::BK, C::ALD, C::THREADS, A16> copy_a(T);
+  const mma_tile::Copier<C::BK, C::BN, C::BLD, C::THREADS, B16> copy_b(F);
+  mma_tile::Acc<C> prod = {};
+  mma_tile::Acc<C> row = {};
+
+  for (long long b0 = begin; b0 < end; b0 += kIndexBatch) {
+    const int nb = static_cast<int>(min(end - b0, (long long)kIndexBatch));
+    __syncthreads();  // the previous batch's indices are no longer read
+    for (int i = threadIdx.x; i < nb; i += C::THREADS) {
+      const long long e = order ? order[b0 + i] : b0 + i;
+      s_tile[i] = e;
+      s_b[i] = g * nct + tile_col[e];
+    }
+    __syncthreads();
+    mma_tile::pipeline<C>(
+        smem, nb * k_chunks,
+        [&](int q, bf16* as, bf16* bs) {
+          const int j = q / k_chunks;
+          const int k0 = (q % k_chunks) * C::BK;
+          copy_a.copy(as,
+                      tiles + s_tile[j] * tt + static_cast<long long>(m0) * T
+                          + k0,
+                      rows, T - k0);
+          copy_b.copy(bs, b + s_b[j] * tf + static_cast<long long>(k0) * F
+                              + f0,
+                      T - k0, cols);
+        },
+        [&](int q, const bf16* as, const bf16* bs) {
+          const int kq = q % k_chunks;
+          mma_tile::mma_chunk<C>(prod, as, bs, wm, wn,
+                                 min(C::BK, T - kq * C::BK));
+          if (kq == k_chunks - 1) {  // the tile's product is complete
+#pragma unroll
+            for (int i = 0; i < C::MI; ++i)
+#pragma unroll
+              for (int jj = 0; jj < C::NI; ++jj)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  row[i][jj][e] += prod[i][jj][e];
+                  prod[i][jj][e] = 0.f;
+                }
+          }
+        });
+  }
+  float* o = out + (s * T + m0) * F + f0;
+  mma_tile::for_each<C>(row, wm, wn, rows, cols, [&](int rr, int n, float v) {
+    o[static_cast<long long>(rr) * F + n] =
+        ROUND ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+  });
+}
+
+template <class C, bool A16, bool B16, bool ROUND>
+int launch_mma(const __nv_bfloat16* tiles, const int* tile_col,
+               const __nv_bfloat16* b, const long long* order,
+               const long long* offsets, float* out, int G, int n_rt, int nct,
+               int T, int F, cudaStream_t stream) {
+  static bool smem_allowed[64] = {};
+  const int err = ffma_tile::allow_smem(
+      bsr_rows_mma_kernel<C, A16, B16, ROUND>, C::SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const dim3 grid(n_rt * ((T + C::BM - 1) / C::BM), (F + C::BN - 1) / C::BN,
+                  G);
+  bsr_rows_mma_kernel<C, A16, B16, ROUND>
+      <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(tiles, tile_col, b, order,
+                                                    offsets, out, n_rt, nct,
+                                                    T, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C, bool ROUND>
+int launch_mma(const __nv_bfloat16* tiles, const int* tile_col,
+               const __nv_bfloat16* b, const long long* order,
+               const long long* offsets, float* out, int G, int n_rt, int nct,
+               int T, int F, cudaStream_t stream) {
+  const bool a16 = T % 8 == 0 && mma_tile::aligned16(tiles);
+  const bool b16 = F % 8 == 0 && mma_tile::aligned16(b);
+  if (a16 && b16)
+    return launch_mma<C, true, true, ROUND>(tiles, tile_col, b, order,
+                                            offsets, out, G, n_rt, nct, T, F,
+                                            stream);
+  if (a16)
+    return launch_mma<C, true, false, ROUND>(tiles, tile_col, b, order,
+                                             offsets, out, G, n_rt, nct, T,
+                                             F, stream);
+  if (b16)
+    return launch_mma<C, false, true, ROUND>(tiles, tile_col, b, order,
+                                             offsets, out, G, n_rt, nct, T,
+                                             F, stream);
+  return launch_mma<C, false, false, ROUND>(tiles, tile_col, b, order,
+                                            offsets, out, G, n_rt, nct, T, F,
+                                            stream);
+}
+
+template <class C>
+int launch_mma(const __nv_bfloat16* tiles, const int* tile_col,
+               const __nv_bfloat16* b, const long long* order,
+               const long long* offsets, float* out, int G, int n_rt, int nct,
+               int T, int F, bool round_out, cudaStream_t stream) {
+  if (round_out)
+    return launch_mma<C, true>(tiles, tile_col, b, order, offsets, out, G,
+                               n_rt, nct, T, F, stream);
+  return launch_mma<C, false>(tiles, tile_col, b, order, offsets, out, G,
+                              n_rt, nct, T, F, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +347,28 @@ int bsr_spmm_rows_f32(const void* tiles, const void* tile_col, const void* b,
   if (F <= kNarrowMaxF)
     return launch<Narrow>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
   return launch<Wide>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
+}
+
+// bsr_spmm_rows_f32's arguments with tiles and b bfloat16 and out float32;
+// round_out != 0 rounds each output element to bfloat16 (kept as float).
+int bsr_spmm_rows_bf16(const void* tiles, const void* tile_col,
+                       const void* b, const void* order, const void* offsets,
+                       void* out, int G, int n_rt, int nct, int T, int F,
+                       int round_out, void* stream) {
+  const auto* pt = static_cast<const __nv_bfloat16*>(tiles);
+  const auto* pc = static_cast<const int*>(tile_col);
+  const auto* pb = static_cast<const __nv_bfloat16*>(b);
+  const auto* po = static_cast<const long long*>(order);
+  const auto* ps = static_cast<const long long*>(offsets);
+  auto* pout = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if ((order == nullptr) != (offsets == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (F <= kNarrowMaxF)
+    return launch_mma<MmaNarrow>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T,
+                                 F, round_out != 0, st);
+  return launch_mma<MmaWide>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F,
+                             round_out != 0, st);
 }
 
 const char* cuda_error_string(int err) {

@@ -30,8 +30,9 @@
 // the launch floor, so the design reads only what the sums need.
 //
 // Design. A group of W lanes owns one padded row; lanes run over features,
-// VEC contiguous floats each (one 16-byte load when the row stride allows,
-// else 4 bytes). For each unit row the group reads its tile_col (and
+// VEC contiguous elements each (one 16-byte load of 4 floats, or one
+// 8-byte load of 4 bfloat16, when the row stride allows; else one
+// element). For each unit row the group reads its tile_col (and
 // unit_k), then, in chunks of KC lanes of the K axis, lane i loads cols/vals
 // of lane k0+i (coalesced) and passes them round with shuffles; every lane
 // then issues the chunk's KC independent B-row loads before its
@@ -50,6 +51,14 @@
 // threads. The ragged kernel takes all four as launch knobs (its
 // autotuner sweeps them); the fixed-K kernel runs the defaults.
 //
+// Types. vals (VT) and B (BT) are float or __nv_bfloat16, template
+// arguments of the row loop. A bfloat16 value is widened to float where it
+// is loaded (exactly: bfloat16 is the upper half of a float32), and the
+// chain above runs on the widened values, so an instance that reads
+// bfloat16 gives, bit for bit, what the float instance gives on the same
+// values stored as float: the reference's kernels upcast both operands
+// before they multiply. The sums and the output rows are float.
+//
 // Registers. Both kernels declare __launch_bounds__(threads, 1). With the
 // block size alone, ptxas held some instances at an occupancy step (64,
 // 48 or 40 registers) and spilled 4-36 bytes to get there, the defaults
@@ -60,6 +69,7 @@
 // did. The contract audit rejects any instance that spills.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -100,10 +110,45 @@ struct Vec<4> {
   }
 };
 
-// The unit array as a kernel reads it.
+// VEC elements of a B row of type BT, loaded at once and read as floats.
+template <class BT, int VEC>
+struct BLoad;
+template <int VEC>
+struct BLoad<float, VEC> {
+  using T = typename Vec<VEC>::T;
+  __device__ static T load(const float* p) { return Vec<VEC>::load(p); }
+  __device__ static float get(const T& v, int i) {
+    return Vec<VEC>::get(v, i);
+  }
+};
+template <>
+struct BLoad<__nv_bfloat16, 1> {
+  using T = __nv_bfloat16;
+  __device__ static T load(const __nv_bfloat16* p) { return *p; }
+  __device__ static float get(const T& v, int) { return __bfloat162float(v); }
+};
+template <>
+struct BLoad<__nv_bfloat16, 4> {
+  using T = uint2;  // 4 bfloat16, the first in the low half of x
+  __device__ static T load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  __device__ static float get(const T& v, int i) {
+    const unsigned w = i < 2 ? v.x : v.y;
+    return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
+  }
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The unit array as a kernel reads it; VT is the type of vals.
+template <class VT>
 struct Units {
   const int* cols;      // [G, U, R, K...] tile-local columns
-  const float* vals;    // same layout as cols
+  const VT* vals;       // same layout as cols
   const int* tile_col;  // [G, U]
   const int* unit_k;    // [G, U] live K per unit (ragged); null (fixed K)
   long long s_g;        // fixed K: member stride of cols/vals (elements)
@@ -149,22 +194,23 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
 // row stride s_r. ADD is a template argument, not a flag, so that no
 // register holds it through the loop: a caller with both epilogues
 // instantiates both.
-template <int W, int VEC, int KC, bool RAGGED, bool ADD>
-__device__ __forceinline__ void row(const Units& a, const float* b,
+template <int W, int VEC, int KC, bool RAGGED, bool ADD, class VT,
+          class BT>
+__device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
                                     const long long* __restrict__ order,
                                     int begin, int end, long long g, int nct,
                                     int T, int F, const float* init,
                                     float* dst) {
   static_assert(KC <= W, "a chunk's cols/vals are spread over the group");
-  using V = Vec<VEC>;
+  using V = BLoad<BT, VEC>;
   const int lane = threadIdx.x % W;
   const unsigned mask =
       W == 32 ? 0xffffffffu
               : ((1u << W) - 1u) << ((threadIdx.x % 32) / W * W);
-  const float* bg = b + g * nct * static_cast<long long>(T) * F;
+  const BT* bg = b + g * nct * static_cast<long long>(T) * F;
   // the member's unit array: entry e's lanes start at e * stride
   const int* cb = RAGGED ? a.cols : a.cols + g * a.s_g;
-  const float* vb = RAGGED ? a.vals : a.vals + g * a.s_g;
+  const VT* vb = RAGGED ? a.vals : a.vals + g * a.s_g;
   const int* tb = RAGGED ? a.tile_col : a.tile_col + g * a.tc_sg;
   const int stride = RAGGED ? a.K : a.s_r;
 
@@ -184,9 +230,9 @@ __device__ __forceinline__ void row(const Units& a, const float* b,
       const int e = order ? static_cast<int>(order[j]) : j;
       const int unit = e / a.R;
       const int ku = RAGGED ? a.unit_k[unit] : a.K;
-      const float* bt = bg + static_cast<long long>(tb[unit]) * T * F + f;
+      const BT* bt = bg + static_cast<long long>(tb[unit]) * T * F + f;
       const int* ce = cb + static_cast<long long>(e) * stride;
-      const float* ve = vb + static_cast<long long>(e) * stride;
+      const VT* ve = vb + static_cast<long long>(e) * stride;
       float p[VEC];
 #pragma unroll
       for (int q = 0; q < VEC; ++q) p[q] = 0.f;
@@ -195,7 +241,7 @@ __device__ __forceinline__ void row(const Units& a, const float* b,
         float v = 0.f;
         if (lane < KC && k0 + lane < a.K) {
           c = ce[k0 + lane];
-          v = k0 + lane < ku ? ve[k0 + lane] : 0.f;  // the mask, on values
+          v = k0 + lane < ku ? widen(ve[k0 + lane]) : 0.f;  // mask values
         }
         typename V::T x[KC];
 #pragma unroll
@@ -225,9 +271,9 @@ __device__ __forceinline__ void row(const Units& a, const float* b,
   }
 }
 
-// Lanes per row (W) and floats per lane (VEC) for a row of F features
-// whose pointers are `aligned` to 16 bytes, the defaults: returns
-// launch(W, VEC), the two passed as std::integral_constant.
+// Lanes per row (W) and elements per lane (VEC) for a row of F features
+// whose pointers are `aligned` for VEC = 4 (vec_aligned), the defaults:
+// returns launch(W, VEC), the two passed as std::integral_constant.
 template <class Launch>
 cudaError_t pick(int F, bool aligned, Launch launch) {
   using W8 = std::integral_constant<int, 8>;
@@ -254,6 +300,37 @@ cudaError_t select(int x, F&& f) {
 
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// VEC = 4 reads 4 elements of B (16 bytes of float, 8 of bfloat16) and
+// writes 4 floats of the output at once.
+template <class BT>
+inline bool vec_aligned(const void* b, const void* out) {
+  return reinterpret_cast<uintptr_t>(b) % (4 * sizeof(BT)) == 0 &&
+         aligned16(out);
+}
+
+// f(std::integral_constant<int, ...>) for the launch shape (w, vec, kc,
+// threads), each one of the built values (0 takes the default; vec 4
+// needs F % 4 == 0 and `aligned`); cudaErrorInvalidValue without a call
+// where one is not.
+template <class Launch>
+cudaError_t select_shape(int F, bool aligned, int w, int vec, int kc,
+                         int threads, Launch launch) {
+  if (w == 0) w = F <= 8 ? 8 : F <= 16 ? 16 : 32;
+  if (vec == 0) vec = w == 32 && F % 4 == 0 && aligned ? 4 : 1;
+  if (kc == 0) kc = kDefaultKC;
+  if (threads == 0) threads = kDefaultThreads;
+  if (vec == 4 && (F % 4 != 0 || !aligned)) return cudaErrorInvalidValue;
+  return select<8, 16, 32>(w, [&](auto w_) {
+    return select<1, 4>(vec, [&](auto vec_) {
+      return select<2, 4, 8>(kc, [&](auto kc_) {
+        return select<128, 256, 512>(threads, [&](auto threads_) {
+          return launch(w_, vec_, kc_, threads_);
+        });
+      });
+    });
+  });
 }
 
 }  // namespace ell_rows

@@ -52,6 +52,12 @@
 // the entries address read, no shared memory): ell_rows.cuh. Grid: (live
 // rows of the band / rows per block, G), so padding units and sentinel rows
 // cost nothing and one launch covers the group.
+//
+// Types: vals and B each float or bfloat16, one C entry a pair
+// (ell_spmm_rows_<vals>_<B>; ell_spmm_rows_f32 where both are float). A
+// bfloat16 operand is widened where it is loaded, so each instance gives,
+// bit for bit, the float instance's result on the same values stored as
+// float (ell_rows.cuh).
 #include "ell_rows.cuh"
 
 namespace {
@@ -59,10 +65,11 @@ namespace {
 constexpr int kThreads = ell_rows::kDefaultThreads;
 constexpr int KC = ell_rows::kDefaultKC;
 
-// W lanes per row, VEC features per lane. `rows` null = unit mode.
-template <int W, int VEC>
+// W lanes per row, VEC features per lane, VT / BT the types of vals / B.
+// `rows` null = unit mode.
+template <int W, int VEC, class VT, class BT>
 __global__ void __launch_bounds__(kThreads, 1)  // no spill: ell_rows.cuh
-ell_band_kernel(ell_rows::Units a, const float* __restrict__ b,
+ell_band_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
                 const long long* __restrict__ order,
                 const long long* __restrict__ offsets,
                 const long long* __restrict__ rows,
@@ -95,6 +102,42 @@ ell_band_kernel(ell_rows::Units a, const float* __restrict__ b,
                                        init, out + (g * P + p) * F);
 }
 
+// One launch (ell_spmm_rows_f32's arguments).
+template <class VT, class BT>
+cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
+                   const void* b, const void* order, const void* offsets,
+                   const void* rows, const void* carry_code, void* carry,
+                   void* out, int G, int n_slots, int U, int R, int K,
+                   int nct, int T, int F, int P, int n_carry, long long s_g,
+                   int s_r, long long tc_sg, long long out_sg,
+                   void* stream) {
+  ell_rows::Units<VT> a{static_cast<const int*>(cols),
+                        static_cast<const VT*>(vals),
+                        static_cast<const int*>(tile_col),
+                        nullptr, s_g, tc_sg, s_r, U, R, K};
+  const auto* bb = static_cast<const BT*>(b);
+  const auto* od = static_cast<const long long*>(order);
+  const auto* of = static_cast<const long long*>(offsets);
+  const auto* rw = static_cast<const long long*>(rows);
+  const auto* cc = static_cast<const long long*>(carry_code);
+  auto* cy = static_cast<float*>(carry);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool aligned = ell_rows::vec_aligned<BT>(b, out) &&
+                       ell_rows::aligned16(carry) && out_sg % 4 == 0;
+  return ell_rows::pick(F, aligned, [&](auto w, auto vec) {
+    constexpr int W = decltype(w)::value;
+    constexpr int VEC = decltype(vec)::value;
+    constexpr int per_block = kThreads / W;
+    const dim3 grid(n_slots > 0 ? (n_slots + per_block - 1) / per_block : 1,
+                    G);
+    ell_band_kernel<W, VEC, VT, BT><<<grid, kThreads, 0, st>>>(
+        a, bb, od, of, rw, cc, cy, o, out_sg, n_slots, n_carry, P, nct, T,
+        F);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -112,39 +155,25 @@ extern "C" {
 //     per-unit products.
 // A band that reaches no row (n_slots = 0) still launches one block per
 // member, which does nothing: the dispatches launch once per band.
-int ell_spmm_rows_f32(const void* cols, const void* vals,
-                      const void* tile_col, const void* b, const void* order,
-                      const void* offsets, const void* rows,
-                      const void* carry_code, void* carry, void* out, int G,
-                      int n_slots, int U, int R, int K, int nct, int T, int F,
-                      int P, int n_carry, long long s_g, int s_r,
-                      long long tc_sg, long long out_sg, void* stream) {
-  ell_rows::Units a{static_cast<const int*>(cols),
-                    static_cast<const float*>(vals),
-                    static_cast<const int*>(tile_col),
-                    nullptr, s_g, tc_sg, s_r, U, R, K};
-  const auto* bb = static_cast<const float*>(b);
-  const auto* od = static_cast<const long long*>(order);
-  const auto* of = static_cast<const long long*>(offsets);
-  const auto* rw = static_cast<const long long*>(rows);
-  const auto* cc = static_cast<const long long*>(carry_code);
-  auto* cy = static_cast<float*>(carry);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const bool aligned = ell_rows::aligned16(b) && ell_rows::aligned16(out) &&
-                       ell_rows::aligned16(carry) && out_sg % 4 == 0;
-  return static_cast<int>(ell_rows::pick(F, aligned, [&](auto w, auto vec) {
-    constexpr int W = decltype(w)::value;
-    constexpr int VEC = decltype(vec)::value;
-    constexpr int per_block = kThreads / W;
-    const dim3 grid(n_slots > 0 ? (n_slots + per_block - 1) / per_block : 1,
-                    G);
-    ell_band_kernel<W, VEC><<<grid, kThreads, 0, st>>>(
-        a, bb, od, of, rw, cc, cy, o, out_sg, n_slots, n_carry, P, nct, T,
-        F);
-    return cudaGetLastError();
-  }));
-}
+#define ELL_SPMM_ROWS(SUFFIX, VT, BT)                                        \
+  int ell_spmm_rows_##SUFFIX(                                                \
+      const void* cols, const void* vals, const void* tile_col,              \
+      const void* b, const void* order, const void* offsets,                 \
+      const void* rows, const void* carry_code, void* carry, void* out,      \
+      int G, int n_slots, int U, int R, int K, int nct, int T, int F, int P, \
+      int n_carry, long long s_g, int s_r, long long tc_sg, long long out_sg,\
+      void* stream) {                                                        \
+    return static_cast<int>(launch<VT, BT>(                                  \
+        cols, vals, tile_col, b, order, offsets, rows, carry_code, carry,    \
+        out, G, n_slots, U, R, K, nct, T, F, P, n_carry, s_g, s_r, tc_sg,    \
+        out_sg, stream));                                                    \
+  }
+
+ELL_SPMM_ROWS(f32, float, float)
+// The same arguments with vals, B or both bfloat16.
+ELL_SPMM_ROWS(f32_bf16, float, __nv_bfloat16)
+ELL_SPMM_ROWS(bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+ELL_SPMM_ROWS(bf16_f32, __nv_bfloat16, float)
 
 const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

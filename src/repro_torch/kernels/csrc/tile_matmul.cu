@@ -34,12 +34,25 @@
 // A is read in place: rows of K = 1433 or 3703 floats are not 16-byte
 // aligned, so they are copied 4 bytes at a time (16 when K % 4 == 0);
 // B rows of N = 3..7 floats likewise. Rows, columns and k past M, N or K
-// are zero-filled by the copies and never stored. No tensor cores: the
-// port holds float32 parity with the reference, and TF32 keeps about
-// three decimal digits.
+// are zero-filled by the copies and never stored. No tensor cores on
+// float32: the port holds float32 parity with the reference, and TF32
+// keeps about three decimal digits.
+//
+// bfloat16 (tile_matmul_bf16): A, B and C in bfloat16 with a float32
+// accumulator, as the reference's kernel takes them, on the tensor cores
+// (the m16n8k16 mainloop of mma_tile.cuh), C rounded once in the epilogue.
+// K is zero-padded to a multiple of 16 by the copies, and edges are
+// masked. Three block configurations of four warps, as above: "wide"
+// 64 x 128 (warps of 32 x 64), "fill" 32 x 128 (16 x 64) and "narrow"
+// 64 x 8 (16 x 8). No split-K: every output element is one accumulator over
+// the k16 steps in ascending k, so every configuration gives the same
+// bits (mma_tile.cuh). At the GCN's layer-1 shapes the bfloat16 product is
+// bound by the bytes of A (about 128 operations per byte of A against the
+// ~295 where the tensor cores' 989 TFLOP/s overtake 3.35 TB/s).
 #include <cooperative_groups.h>
 
 #include "ffma_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -171,6 +184,71 @@ int launch(const float* a, const float* b, float* c, int M, int N, int K,
   return launch<C, false, false>(a, b, c, M, N, K, stream);
 }
 
+using MmaWide = mma_tile::Tile<64, 128, 32, 32, 64, 3>;
+using MmaFill = mma_tile::Tile<32, 128, 32, 16, 64, 3>;
+using MmaNarrow = mma_tile::Tile<64, 8, 32, 16, 8, 3>;
+
+// A16/B16: rows of A/B are copied 16 bytes at a time (else one element).
+template <class C, bool A16, bool B16>
+__global__ void __launch_bounds__(C::THREADS)
+mma_matmul_kernel(const __nv_bfloat16* __restrict__ a,
+                  const __nv_bfloat16* __restrict__ b,
+                  __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+  using mma_tile::bf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int m0 = blockIdx.x * C::BM;
+  const int n0 = blockIdx.y * C::BN;
+  const int wm = mma_tile::warp_m<C>(), wn = mma_tile::warp_n<C>();
+  const int rows = min(C::BM, M - m0);
+  const int cols = min(C::BN, N - n0);
+  const bf16* a0 = a + static_cast<long long>(m0) * K;
+  const mma_tile::Copier<C::BM, C::BK, C::ALD, C::THREADS, A16> copy_a(K);
+  const mma_tile::Copier<C::BK, C::BN, C::BLD, C::THREADS, B16> copy_b(N);
+  mma_tile::Acc<C> acc = {};
+
+  mma_tile::pipeline<C>(
+      smem, (K + C::BK - 1) / C::BK,
+      [&](int q, bf16* as, bf16* bs) {
+        const int k0 = q * C::BK;
+        copy_a.copy(as, a0 + k0, rows, K - k0);
+        copy_b.copy(bs, b + static_cast<long long>(k0) * N + n0, K - k0,
+                    cols);
+      },
+      [&](int q, const bf16* as, const bf16* bs) {
+        mma_tile::mma_chunk<C>(acc, as, bs, wm, wn,
+                               min(C::BK, K - q * C::BK));
+      });
+  bf16* o = c + static_cast<long long>(m0) * N + n0;
+  mma_tile::for_each<C>(acc, wm, wn, rows, cols, [&](int r, int n, float v) {
+    o[static_cast<long long>(r) * N + n] = __float2bfloat16_rn(v);
+  });
+}
+
+template <class C, bool A16, bool B16>
+int launch_mma(const __nv_bfloat16* a, const __nv_bfloat16* b,
+               __nv_bfloat16* c, int M, int N, int K, cudaStream_t stream) {
+  static bool smem_allowed[64] = {};
+  const int err = ffma_tile::allow_smem(mma_matmul_kernel<C, A16, B16>,
+                                        C::SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN);
+  mma_matmul_kernel<C, A16, B16><<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+      a, b, c, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class C>
+int launch_mma(const __nv_bfloat16* a, const __nv_bfloat16* b,
+               __nv_bfloat16* c, int M, int N, int K, cudaStream_t stream) {
+  const bool a16 = K % 8 == 0 && mma_tile::aligned16(a);
+  const bool b16 = N % 8 == 0 && mma_tile::aligned16(b);
+  if (a16 && b16) return launch_mma<C, true, true>(a, b, c, M, N, K, stream);
+  if (a16) return launch_mma<C, true, false>(a, b, c, M, N, K, stream);
+  if (b16) return launch_mma<C, false, true>(a, b, c, M, N, K, stream);
+  return launch_mma<C, false, false>(a, b, c, M, N, K, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -187,6 +265,23 @@ int tile_matmul_f32(const void* a, const void* b, void* c, int M, int N,
     case 0: return launch<Wide>(pa, pb, pc, M, N, K, s);
     case 1: return launch<Fill>(pa, pb, pc, M, N, K, s);
     case 2: return launch<Narrow>(pa, pb, pc, M, N, K, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// a [M,K], b [K,N] -> c [M,N], all bfloat16 and contiguous (float32
+// accumulator). config: 0 wide, 1 fill, 2 narrow; cudaErrorInvalidValue
+// else.
+int tile_matmul_bf16(const void* a, const void* b, void* c, int M, int N,
+                     int K, int config, void* stream) {
+  const auto* pa = static_cast<const __nv_bfloat16*>(a);
+  const auto* pb = static_cast<const __nv_bfloat16*>(b);
+  auto* pc = static_cast<__nv_bfloat16*>(c);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (config) {
+    case 0: return launch_mma<MmaWide>(pa, pb, pc, M, N, K, s);
+    case 1: return launch_mma<MmaFill>(pa, pb, pc, M, N, K, s);
+    case 2: return launch_mma<MmaNarrow>(pa, pb, pc, M, N, K, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

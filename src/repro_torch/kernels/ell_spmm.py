@@ -26,6 +26,16 @@ Both CUDA sources share their row loop (``csrc/ell_rows.cuh``). On CPU
 tensors each function runs its plain version in
 ``repro_torch.kernels.ref``.
 
+Types, as the reference's kernels take them: ``vals`` and B each float32
+or bfloat16, upcast to float32 before they multiply; products, sums and
+the output rows are float32. On the card a bfloat16 operand is widened
+where the kernel loads it, so each bfloat16 instance gives, bit for bit,
+the float32 instance's result on ``vals.float()`` and ``b.float()``. The
+float32 instances are built from ``csrc/ragged_ell_spmm.cu``, the ragged
+ones of each pair with a bfloat16 operand from
+``csrc/ragged_ell_spmm_<vals>_<B>.cu`` (``ragged_source``; the four
+compile in parallel), the fixed-K ones all from ``csrc/ell_spmm.cu``.
+
 The ragged kernel's launch shape is a knob (``tune``: lanes per row
 ``w``, floats per lane ``vec``, K lanes in flight ``kc``, ``threads``
 per block), swept by ``repro_torch.kernels.autotune``; every value gives
@@ -73,12 +83,12 @@ INDEX_LIMIT = 2 ** 31           # what the kernels number in 32 bits
 # Launches of the CUDA kernels since the last reset
 # (ops.reset_launch_counts): ``launches`` counts the ragged kernel
 # (ragged_ell_rows and ragged_ell_spmm), ``fixed_k_launches`` the fixed-K
-# one (ell_spmm_rows and ell_spmm).
-launches = 0
-fixed_k_launches = 0
+# one (ell_spmm_rows and ell_spmm), each split into float32 instances and
+# bfloat16 ones (vals, B or both bfloat16).
+launches = {"float32": 0, "bfloat16": 0}
+fixed_k_launches = {"float32": 0, "bfloat16": 0}
 
-_fn = None
-_fixed_fn = None
+_fns: dict = {}
 
 
 def merge_bands(runs, max_bands: int) -> tuple:
@@ -164,13 +174,42 @@ def resolve_tune(f: int, tune: dict = None, *, aligned: bool = True
             "threads": int(tune.get("threads") or DEFAULT_THREADS)}
 
 
+def instance_dtypes(vals_dtype, b_dtype) -> tuple:
+    """The (vals, B) type names of an ELL kernel instance; ValueError for
+    a type the kernels do not take."""
+    return _build.dtype_name(vals_dtype), _build.dtype_name(b_dtype)
+
+
+_SHORT = {"float32": "f32", "bfloat16": "bf16"}
+
+
+def type_suffix(dtypes: tuple) -> str:
+    """The suffix of both ELL kernels' C entries (and of the ragged
+    kernel's sources) for the (vals, B) type names ``dtypes``: "f32"
+    where both are float32, else "<vals>_<B>" ("f32_bf16", ...)."""
+    if dtypes == ("float32", "float32"):
+        return "f32"
+    return "_".join(_SHORT[d] for d in dtypes)
+
+
+def ragged_source(dtypes: tuple) -> tuple:
+    """(source, C entry) of the ragged kernel's instances for the (vals,
+    B) type names ``dtypes``: the float32 instances are in
+    ``ragged_ell_spmm.cu``, each other pair in a source of its own."""
+    suffix = type_suffix(dtypes)
+    source = "ragged_ell_spmm" + ("" if suffix == "f32" else "_" + suffix)
+    return source, f"ragged_ell_rows_{suffix}"
+
+
 def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
-                   aligned, extents, bounds) -> dict:
+                   aligned, extents, bounds, dtypes) -> dict:
     per_block = max(knobs["threads"] // knobs["w"], 1)
+    source = ("ell_spmm" if kernel == "ell_band_kernel"
+              else ragged_source(dtypes)[0])
     return dict(
-        name=name, source="ragged_ell_spmm" if kernel == "ell_rows_kernel"
-        else "ell_spmm", kernel=kernel, **knobs, instance=instance,
-        ptxas_name=kernel + _build.mangled_args(instance),
+        name=name, source=source, kernel=kernel, **knobs,
+        instance=instance + dtypes, dtypes=dtypes,
+        ptxas_name=kernel + _build.mangled_args(instance + dtypes),
         grid=(max(-(-n_slots // per_block), 1), g, 1), f=f,
         aligned16=aligned, dyn_smem=0, static_smem=0, smem_optin=False,
         shapes=shapes, extents=extents, index_bounds=bounds)
@@ -178,17 +217,20 @@ def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
 
 def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
                         f: int, *, tune: dict = None, n_slots: int = None,
-                        aligned: bool = True) -> dict:
+                        aligned: bool = True, vals_dtype=torch.float32,
+                        b_dtype=torch.float32) -> dict:
     """The launch contract of one ``ragged_ell_rows`` launch, for the
     contract audit and the autotuner (its launch shape is the wrapper's:
     both come from ``resolve_tune``): grid (x, y = G, 1), ``threads``, ``w``,
     ``vec``, ``kc``, the ``instance`` (w, vec, kc, threads), F,
-    ``aligned16`` (B and the output 16-byte aligned; ``vec`` 4 needs it),
-    shared memory (none), the operand ``shapes``, the ``extents`` the
-    kernel numbers in 32 bits, and ``index_bounds`` {operand: exclusive
-    bound of its values}. ``n_slots`` is the grid's rows per member: the
-    plan's live rows, at most (and by default) every unit row ``u*r``.
-    ``tune`` is clamped at this F (``resolve_tune``)."""
+    ``aligned16`` (B aligned to 4 of its elements and the output to 16
+    bytes; ``vec`` 4 needs it), shared memory (none), the operand
+    ``shapes``, the ``extents`` the kernel numbers in 32 bits, and
+    ``index_bounds`` {operand: exclusive bound of its values}. ``n_slots``
+    is the grid's rows per member: the plan's live rows, at most (and by
+    default) every unit row ``u*r``. ``tune`` is clamped at this F
+    (``resolve_tune``). ``vals_dtype``/``b_dtype`` pick the instance
+    (``instance`` ends with their names, ``dtypes``) and its source."""
     knobs = resolve_tune(f, tune, aligned=aligned)
     n_slots = u * r if n_slots is None else n_slots
     return _rows_contract(
@@ -198,15 +240,18 @@ def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
          "tile_col": (g, u), "unit_k": (g, u), "b_tiles": (g, nct, t, f)},
         f, aligned, {"unit rows": g * u * r, "plan entries": g * u * r,
                      "grid rows": g * n_slots},
-        {"tile_col": nct, "cols": t, "unit_k": kmax + 1})
+        {"tile_col": nct, "cols": t, "unit_k": kmax + 1},
+        instance_dtypes(vals_dtype, b_dtype))
 
 
 def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
-                 *, n_slots: int = None, aligned: bool = True) -> dict:
+                 *, n_slots: int = None, aligned: bool = True,
+                 vals_dtype=torch.float32, b_dtype=torch.float32) -> dict:
     """The launch contract of one fixed-K ``ell_spmm_rows`` launch over a
     band [G, U_b, R, K] (the ragged contract's keys; the kernel runs the
     default launch shape, no knob). ``n_slots``: the band's live rows per
-    member, at most (and by default) ``u*r``."""
+    member, at most (and by default) ``u*r``; the types as for
+    ``ragged_ell_contract``."""
     knobs = resolve_tune(f, aligned=aligned)
     n_slots = u * r if n_slots is None else n_slots
     return _rows_contract(
@@ -215,7 +260,7 @@ def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
         {"cols": (g, u, r, k), "vals": (g, u, r, k), "tile_col": (g, u),
          "b_tiles": (g, nct, t, f)},
         f, aligned, {"unit rows": g * u * r, "grid rows": g * n_slots},
-        {"tile_col": nct, "cols": t})
+        {"tile_col": nct, "cols": t}, instance_dtypes(vals_dtype, b_dtype))
 
 
 def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
@@ -239,7 +284,9 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
     each live output row read and written; the carry buffer's rows a band
     writes or reads. Operations: K multiply-adds per feature per unit
     row, one add per unit row and feature onto its row's sum, and one
-    add per live row and feature onto the dense engine's rows.
+    add per live row and feature onto the dense engine's rows. vals and
+    B count the bytes of their types (the contract's ``dtypes``); indices,
+    the output rows and the carry are 4-byte int32 / float32.
 
     ``seen`` (fixed K): a dict shared by a layer's band launches; a B row
     or an output row that an earlier launch of the layer counted is not
@@ -293,26 +340,37 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
         b_rows, out_rows = len(brs), len(outs)
         index = (3 * live + 1) * 8
         carried = int((plan.carry.cpu().numpy()[gi, si] >= 0).sum())
-    nbytes = (e * k * 8 + units * (8 if ragged else 4) + e * 8 + index
-              + b_rows * f * 4 + out_rows * f * 8 + carried * f * 4)
+    vb, bb = (torch.empty((), dtype=getattr(torch, d)).element_size()
+              for d in c["dtypes"])
+    nbytes = (e * k * (4 + vb) + units * (8 if ragged else 4) + e * 8 + index
+              + b_rows * f * bb + out_rows * f * 8 + carried * f * 4)
     flops = 2.0 * e * k * f + e * f + out_rows * f
     return {"hbm_bytes": float(nbytes), "flops": float(flops)}
 
 
-def _aligned(*tensors) -> bool:
-    return all(x.data_ptr() % 16 == 0 for x in tensors)
+def _aligned(b: torch.Tensor, *outs) -> bool:
+    """``vec`` 4 may run: B aligned to 4 of its elements, each float32
+    output to 16 bytes."""
+    return (b.data_ptr() % (4 * b.element_size()) == 0
+            and all(x.data_ptr() % 16 == 0 for x in outs))
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.library("ragged_ell_spmm")
-        fn = lib.ragged_ell_rows_f32
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [
-            ctypes.c_void_p]
+def _entry(source: str, entry: str, argtypes: list):
+    """(library, C entry) ``entry`` of ``csrc/<source>.cu``, loaded once."""
+    if entry not in _fns:
+        lib = _build.library(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+        _fns[entry] = (lib, fn)
+    return _fns[entry]
+
+
+def _kernel(vals_dtype, b_dtype):
+    """The ragged kernel's C entry for these types."""
+    return _entry(*ragged_source(instance_dtypes(vals_dtype, b_dtype)),
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                  + [ctypes.c_void_p])
 
 
 def _check(cond: bool, msg: str, what: str = "ragged_ell_spmm") -> None:
@@ -338,9 +396,10 @@ def _checked(cols, vals, tile_col, unit_k, b_tiles, dev, what) -> tuple:
            f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, unit_k "
            f"{tuple(unit_k.shape)}, b_tiles {tuple(b_tiles.shape)}", what)
     _check(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
-           and unit_k.dtype == torch.int32 and vals.dtype == torch.float32
-           and b_tiles.dtype == torch.float32,
-           "expected int32 cols/tile_col/unit_k and float32 vals/B", what)
+           and unit_k.dtype == torch.int32
+           and vals.dtype in _build.DTYPES and b_tiles.dtype in _build.DTYPES,
+           "expected int32 cols/tile_col/unit_k and float32 or bfloat16 "
+           f"vals/B (got {vals.dtype}, {b_tiles.dtype})", what)
     for x in (cols, vals, tile_col, unit_k, b_tiles):
         _check(x.device == dev, f"tensor on {x.device}, device={dev}", what)
         _check(dev.type == "cpu" or x.is_contiguous(),
@@ -359,7 +418,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
     if not (g and n_slots and f):
         return
     knobs = resolve_tune(f, tune, aligned=_aligned(b_tiles, out))
-    lib, fn = _kernel()
+    lib, fn = _kernel(vals.dtype, b_tiles.dtype)
+    f32 = instance_dtypes(vals.dtype, b_tiles.dtype) == ("float32",) * 2
     idx = ((None,) * 3 if plan is None else
            (plan.order.data_ptr(), plan.offsets.data_ptr(),
             plan.live.data_ptr()))
@@ -370,9 +430,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
                  g, n_slots, u, r, kmax, nct, t, f,
                  *(knobs[k] for k in TUNE_KEYS), stream)
     _build.check(lib, err, "ragged_ell_spmm launch")
-    global launches
     with _build.count_lock:
-        launches += 1
+        launches["float32" if f32 else "bfloat16"] += 1
 
 
 def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
@@ -382,8 +441,9 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
                     device="cuda") -> torch.Tensor:
     """The sparse engine's rows, added onto ``out`` in place.
 
-    cols/vals [G, U, R, Kmax] (int32 tile-local / f32), tile_col/unit_k
-    [G, U] int32, b_tiles [G, nct, T, F] f32, ``plan`` the ELL
+    cols/vals [G, U, R, Kmax] (int32 tile-local / f32 or bf16),
+    tile_col/unit_k [G, U] int32, b_tiles [G, nct, T, F] f32 or bf16,
+    ``plan`` the ELL
     ``SegmentPlan`` (entries ``g*U*R + u*R + r`` onto segments
     ``g*P + row``, the sentinel dropped, with its ``live`` table) and
     ``out`` [G, P, F] f32, which holds the dense engine's rows. Each row
@@ -438,14 +498,14 @@ def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                     device="cuda") -> torch.Tensor:
     """Per-unit ELL products over the concatenated ragged unit array.
 
-    cols [(G,) U, R, Kmax] int32 (tile-local), vals [(G,) U, R, Kmax] f32,
-    tile_col [(G,) U] int32, unit_k [(G,) U] int32, b_tiles
-    [(G,) nct, T, F] f32  ->  [(G,) U, R, F] f32. ONE launch covers every
-    K width. Every tensor must lie on ``device``; CPU tensors take the
-    plain version, CUDA tensors launch the kernel or raise. Indices must
-    be in range (``cols < T``, ``tile_col < nct``): partitions guarantee
-    it and ``Engine.register`` checks it on the host. ``tune`` as for
-    ``ragged_ell_rows``.
+    cols [(G,) U, R, Kmax] int32 (tile-local), vals [(G,) U, R, Kmax] f32
+    or bf16, tile_col [(G,) U] int32, unit_k [(G,) U] int32, b_tiles
+    [(G,) nct, T, F] f32 or bf16  ->  [(G,) U, R, F] f32. ONE launch
+    covers every K width. Every tensor must lie on ``device``; CPU
+    tensors take the plain version, CUDA tensors launch the kernel or
+    raise. Indices must be in range (``cols < T``, ``tile_col < nct``):
+    partitions guarantee it and ``Engine.register`` checks it on the
+    host. ``tune`` as for ``ragged_ell_rows``.
     """
     _build.tick("ragged_ell_spmm")
     dev = resolve_device(device)
@@ -463,17 +523,13 @@ def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
     return out if grouped else out[0]
 
 
-def _fixed_kernel():
-    global _fixed_fn
-    if _fixed_fn is None:
-        lib = _build.library("ell_spmm")
-        fn = lib.ell_spmm_rows_f32
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                       + [ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fixed_fn = (lib, fn)
-    return _fixed_fn
+def _fixed_kernel(vals_dtype, b_dtype):
+    """The fixed-K kernel's C entry for these types."""
+    suffix = type_suffix(instance_dtypes(vals_dtype, b_dtype))
+    return _entry("ell_spmm", f"ell_spmm_rows_{suffix}",
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                  + [ctypes.c_longlong, ctypes.c_int]
+                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 
 
 def _packed(x: torch.Tensor, first: int) -> bool:
@@ -503,9 +559,9 @@ def _fixed_checked(cols, vals, tile_col, b_tiles, dev, what) -> tuple:
            f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, "
            f"b_tiles {tuple(b_tiles.shape)}", what)
     _check(cols.dtype == torch.int32 and tile_col.dtype == torch.int32
-           and vals.dtype == torch.float32
-           and b_tiles.dtype == torch.float32,
-           "expected int32 cols/tile_col and float32 vals/B", what)
+           and vals.dtype in _build.DTYPES and b_tiles.dtype in _build.DTYPES,
+           "expected int32 cols/tile_col and float32 or bfloat16 vals/B "
+           f"(got {vals.dtype}, {b_tiles.dtype})", what)
     for x in (cols, vals, tile_col, b_tiles):
         _check(x.device == dev, f"tensor on {x.device}, device={dev}", what)
     _check(dev.type == "cpu" or (
@@ -533,7 +589,8 @@ def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
     """One launch of the fixed-K kernel; ``band`` None = unit mode."""
     g, u, r, k = cols.shape
     _, nct, t, f = b_tiles.shape
-    lib, fn = _fixed_kernel()
+    lib, fn = _fixed_kernel(vals.dtype, b_tiles.dtype)
+    f32 = instance_dtypes(vals.dtype, b_tiles.dtype) == ("float32",) * 2
     plan = ((None,) * 4 if band is None else
             (band.order.data_ptr(), band.offsets.data_ptr(),
              band.rows.data_ptr(), band.carry.data_ptr()))
@@ -547,9 +604,8 @@ def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
                  cols.stride(0), _row_stride(cols), tile_col.stride(0),
                  out_sg, stream)
     _build.check(lib, err, "ell_spmm launch")
-    global fixed_k_launches
     with _build.count_lock:
-        fixed_k_launches += 1
+        fixed_k_launches["float32" if f32 else "bfloat16"] += 1
 
 
 def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
@@ -559,9 +615,9 @@ def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
                   ) -> torch.Tensor:
     """One class band's ELL rows, added onto ``out`` in place.
 
-    cols/vals [G, U_b, R, K] (int32 tile-local / f32; views of the
-    ragged slab, ``ell_buckets``, read in place), tile_col
-    [G, U_b] int32, b_tiles [G, nct, T, F] f32, ``band`` the band's
+    cols/vals [G, U_b, R, K] (int32 tile-local / f32 or bf16; views of
+    the ragged slab, ``ell_buckets``, read in place), tile_col
+    [G, U_b] int32, b_tiles [G, nct, T, F] f32 or bf16, ``band`` the band's
     ``BandPlan`` (``ReductionPlan.ell_bands``), ``out`` [G, P, F] f32,
     which holds the dense engine's rows, and ``carry`` [G, band.n_carry,
     F] f32 (needed when ``band.n_carry`` > 0), one buffer shared by all
@@ -622,10 +678,11 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, tile_col: torch.Tensor,
              device="cuda") -> torch.Tensor:
     """Per-unit ELL products of one fixed-K bucket.
 
-    cols [(G,) U, R, K] int32 (tile-local), vals [(G,) U, R, K] f32,
-    tile_col [(G,) U] int32, b_tiles [(G,) nct, T, F] f32 -> [(G,) U, R,
-    F] f32; one launch for the whole group, of ``ell_spmm_rows``'s kernel
-    with every unit row its own row and nothing to add onto.
+    cols [(G,) U, R, K] int32 (tile-local), vals [(G,) U, R, K] f32 or
+    bf16, tile_col [(G,) U] int32, b_tiles [(G,) nct, T, F] f32 or bf16
+    -> [(G,) U, R, F] f32; one launch for the whole group, of
+    ``ell_spmm_rows``'s kernel with every unit row its own row and
+    nothing to add onto.
     ``cols``/``vals`` may be views of the ragged [.., Kmax] slab
     (``ell_buckets``): the kernel reads them in place, as long as both
     share one layout with a contiguous K axis and packed unit and row

@@ -32,18 +32,26 @@ ELL_DISPATCHES = ("ragged", "fused", "loop")
 
 def launch_counts() -> dict:
     """CUDA kernel launches since the last ``reset_launch_counts``."""
+    return {k: sum(c.values()) for k, c in launch_counts_by_dtype().items()}
+
+
+def launch_counts_by_dtype() -> dict:
+    """``launch_counts`` split by the instance's operand types:
+    {kernel: {"float32": n, "bfloat16": m}}, "bfloat16" counting every
+    instance that reads a bfloat16 operand."""
     with _build.count_lock:
-        return {"bsr_spmm": _bsr.launches, "ragged_ell_spmm": _ell.launches,
-                "ell_spmm": _ell.fixed_k_launches,
-                "tile_matmul": _mm.launches}
+        return {"bsr_spmm": dict(_bsr.launches),
+                "ragged_ell_spmm": dict(_ell.launches),
+                "ell_spmm": dict(_ell.fixed_k_launches),
+                "tile_matmul": dict(_mm.launches)}
 
 
 def reset_launch_counts() -> None:
     with _build.count_lock:
-        _bsr.launches = 0
-        _ell.launches = 0
-        _ell.fixed_k_launches = 0
-        _mm.launches = 0
+        for counts in (_bsr.launches, _ell.launches, _ell.fixed_k_launches,
+                       _mm.launches):
+            for k in counts:
+                counts[k] = 0
 
 
 def entry_counts() -> dict:
@@ -72,16 +80,24 @@ def matmul(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
     return _mm.tile_matmul(a, b, device=a.device, **kw)
 
 
+def dense_tiles_of(part: TriPartition, b: torch.Tensor) -> torch.Tensor:
+    """The dense tiles in B's type, as the reference's dense engine casts
+    them before its product (``tiles.astype(b.dtype)``): the tiles
+    themselves where both are float32."""
+    return part.dense.tiles.to(b.dtype)
+
+
 def dense_tiles_matmul(part: TriPartition, b: torch.Tensor,
                        meta: PartitionMeta, plan: ReductionPlan
                        ) -> torch.Tensor:
-    """Dense-engine partial product, [G, n_padded_rows, F]: one BSR
-    kernel launch that also sums the products over ``tile_row``, in the
-    order of ``plan.dense`` (+0 rows and no launch for a class without
-    dense tiles)."""
+    """Dense-engine partial product, [G, n_padded_rows, F] float32: one
+    BSR kernel launch that also sums the products over ``tile_row``, in
+    the order of ``plan.dense`` (+0 rows and no launch for a class
+    without dense tiles), on the tiles in B's type; with a bfloat16 B
+    the rows come out rounded to bfloat16 (``bsr_spmm_rows``)."""
     g, _, f = b.shape
     T, nrt = meta.tile, meta.n_row_tiles
-    out = _bsr.bsr_spmm_rows(part.dense.tiles, part.dense.tile_col,
+    out = _bsr.bsr_spmm_rows(dense_tiles_of(part, b), part.dense.tile_col,
                              b_tiles_of(b, meta), plan.dense,
                              device=b.device)
     return out.reshape(g, nrt * T, f)

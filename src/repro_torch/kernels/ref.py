@@ -7,6 +7,13 @@ kernels are held against on the card.
 
 The sparse ones accept an optional leading group axis ``G`` on every
 argument; ``tile_matmul_ref`` is two-dimensional, as in the reference.
+
+Types, as the reference's kernels take them: float32 or bfloat16
+operands, upcast to float32 before they are multiplied (a product of two
+bfloat16 values is exact in float32), float32 sums. The products come
+out in float32, except ``tile_matmul_ref`` (A's type) and the dense
+engine's rows (``bsr_spmm_rows_ref``), which the reference rounds to
+B's type before anything is added onto them.
 """
 from __future__ import annotations
 
@@ -24,6 +31,34 @@ def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at ``|x|``, in float64: 2^(e - 7)
+    where 2^e <= |x| < 2^(e + 1); 0 at 0."""
+    x = x.double().abs()
+    _, e = torch.frexp(x)                   # |x| = m * 2^e, 1/2 <= m < 1
+    return torch.where(x > 0, torch.ldexp(torch.ones_like(x), e - 8),
+                       torch.zeros_like(x))
+
+
+# The relative term of ``bf16_tolerance``, times |A| @ |B|.
+BF16_REL = 2e-6
+
+
+def bf16_tolerance(want: torch.Tensor, mag: torch.Tensor,
+                   rounded: torch.Tensor = None) -> torch.Tensor:
+    """The elementwise bound a bfloat16 result is held to against another
+    computation of it, in float64: ``ulp_bf16(|want|) + BF16_REL * mag``,
+    where ``mag`` is the product of the operands' absolute values (|A| @
+    |B|): one bfloat16 rounding of the result apart, plus float32 sums of the
+    same products taken in another order (the tensor cores sum each k16
+    step in their own order). ``rounded``: the magnitude of a partial
+    result that is rounded to bfloat16 on the way (the dense engine's rows
+    in ``hybrid_spmm``), whose rounding may fall on either side as well:
+    ``ulp_bf16(rounded)`` more."""
+    bound = bf16_ulp(want) + BF16_REL * mag.double()
+    return bound if rounded is None else bound + bf16_ulp(rounded)
+
+
 def _gather_b_tiles(b_tiles: torch.Tensor, tile_col: torch.Tensor):
     """b_tiles [G, nct, T, F], tile_col [G, n] -> [G, n, T, F]."""
     g = torch.arange(b_tiles.shape[0], device=b_tiles.device)[:, None]
@@ -35,12 +70,16 @@ def bsr_spmm_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
     """Per-tile products of a BSR stack against tile-sliced B.
 
     tiles [(G,) n_t, T, T], tile_col [(G,) n_t], b_tiles [(G,) nct, T, F]
-    returns [(G,) n_t, T, F] float32 (the caller sums over tile_row).
+    returns [(G,) n_t, T, F] float32 (the caller sums over tile_row): the
+    upcast operands multiplied in IEEE float32, as the reference's
+    ``preferred_element_type=float32`` product.
     """
     grouped = tiles.dim() == 4
     if not grouped:
         tiles, tile_col, b_tiles = tiles[None], tile_col[None], b_tiles[None]
-    out = torch.matmul(tiles, _gather_b_tiles(b_tiles, tile_col))
+    pin_ieee_f32()
+    out = torch.matmul(tiles.float(),
+                       _gather_b_tiles(b_tiles, tile_col).float())
     return out if grouped else out[0]
 
 
@@ -53,13 +92,21 @@ def bsr_spmm_rows_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
     ``plan`` (a ``SegmentPlan`` over the G * n_t tiles onto G * n_rt row
     tiles) -> [G, n_rt, T, F] float32: ``bsr_spmm_ref`` followed by
     ``segment_sum`` over the plan, in its order. Row tiles without a tile
-    are 0.
+    are 0. With a bfloat16 B each sum is then rounded to bfloat16 (and
+    kept in float32): the reference's dense engine rounds its rows to B's
+    type before the other engines' rows are added.
     """
     g, n_t, t, _ = tiles.shape
     f = b_tiles.shape[-1]
     prod = bsr_spmm_ref(tiles, tile_col, b_tiles)
     out = segment_sum(prod.reshape(g * n_t, t * f), plan)
-    return out.reshape(g, -1, t, f)
+    return rounded_to(out.reshape(g, -1, t, f), b_tiles.dtype)
+
+
+def rounded_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float32 ``x`` rounded to ``dtype`` (to nearest even) and kept in
+    float32; ``x`` itself where ``dtype`` is float32."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
@@ -85,7 +132,7 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
     for kk in range(k):
         idx = cols[..., kk].long()[..., None].expand(g, u, r, f)
         rows = torch.gather(bt, 2, idx)                      # [G, U, R, F]
-        acc = acc + vals[..., kk, None].float() * rows
+        acc = acc + vals[..., kk, None].float() * rows.float()
     return acc if grouped else acc[0]
 
 
@@ -97,7 +144,8 @@ def ragged_ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
     cols [(G,) U, R, Kmax] tile-local, vals [(G,) U, R, Kmax],
     tile_col [(G,) U], unit_k [(G,) U], b_tiles [(G,) nct, T, F];
     returns [(G,) U, R, F] float32. As in the reference the mask sits on
-    the values, so a masked lane still multiplies 0 by its B row.
+    the values, so a masked lane still multiplies 0 by its B row, and
+    both factors are upcast to float32 before they are multiplied.
     """
     grouped = cols.dim() == 4
     if not grouped:
@@ -114,7 +162,7 @@ def ragged_ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
         rows = torch.gather(bt, 2, idx)                      # [G, U, R, F]
         v = torch.where((kk < unit_k)[..., None], vals[..., kk],
                         torch.zeros((), dtype=vals.dtype, device=vals.device))
-        acc = acc + v[..., None] * rows
+        acc = acc + v[..., None].float() * rows.float()
     return acc if grouped else acc[0]
 
 

@@ -15,6 +15,12 @@ N <= 16). Long K is split across a thread-block cluster at points that
 depend on K alone, and the partial sums are added in a fixed order, so
 every configuration gives the same bits. ``config=None`` picks by shape
 (``pick_config``).
+
+bfloat16 A and B (the reference's other type) run the tensor-core
+instances (``csrc/mma_tile.cuh``: m16n8k16 products with a float32
+accumulator, C rounded to bfloat16 once) in the same three
+configurations (``MMA_TILES``), without split-K; every configuration
+gives the same bits.
 """
 from __future__ import annotations
 
@@ -33,24 +39,32 @@ WIDE_BM, WIDE_BN = 64, 128     # the "wide" configuration's output block
 # csrc/tile_matmul.cu instantiates it (for ``matmul_contract``).
 TILES = {"wide": (64, 128, 16, 8, 8, 4), "fill": (32, 128, 32, 8, 4, 3),
          "narrow": (64, 8, 32, 1, 4, 4)}
+# Each configuration's mma_tile::Tile<BM, BN, BK, WM, WN, STAGES>, the
+# bfloat16 instances of csrc/tile_matmul.cu.
+MMA_TILES = {"wide": (64, 128, 32, 32, 64, 3),
+             "fill": (32, 128, 32, 16, 64, 3),
+             "narrow": (64, 8, 32, 16, 8, 3)}
 MAX_SPLITS, SPLIT_ALIGN = 4, 32
 
-# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts).
-launches = 0
+# Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
+# by the operands' type.
+launches = {"float32": 0, "bfloat16": 0}
 
-_fn = None
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(dtype: torch.dtype):
+    """(library, C entry) of the kernel instances for ``dtype``."""
+    name = _build.dtype_name(dtype)
+    if name not in _fns:
         lib = _build.library("tile_matmul")
-        fn = lib.tile_matmul_f32
+        fn = (lib.tile_matmul_f32 if name == "float32"
+              else lib.tile_matmul_bf16)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = (lib, fn)
-    return _fn
+        _fns[name] = (lib, fn)
+    return _fns[name]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -75,27 +89,44 @@ def split_k(k: int) -> int:
 
 
 def matmul_contract(m: int, k: int, n: int, *, config: str = None,
-                    n_sms: int = 132) -> dict:
+                    n_sms: int = 132, dtype=torch.float32) -> dict:
     """The launch contract of one ``tile_matmul`` launch: grid (M blocks,
     N blocks, K splits), the cluster (the splits of one output block),
     ``threads``, dynamic shared memory (the cp.async ring, above 48 KiB
     only with the opt-in attribute, which the launch sets), the extents
     passed as 32-bit ints, and the kernel instance's ptxas name prefix.
     ``config`` None picks as the wrapper does on a card of ``n_sms``
-    SMs (132: the H100 SXM)."""
+    SMs (132: the H100 SXM). ``dtype`` (float32 or bfloat16) is A's and
+    B's: bfloat16 runs the tensor-core instances (``MMA_TILES``, no
+    split-K)."""
     config = config or pick_config(m, n, n_sms)
+    shapes = {"a": (m, k), "b": (k, n), "c": (m, n)}
+    if _build.dtype_name(dtype) == "bfloat16":
+        bm, bn, bk, wm, wn, stages = MMA_TILES[config]
+        return dict(
+            name="tile_matmul", source="tile_matmul",
+            kernel="mma_matmul_kernel", config=config,
+            instance=MMA_TILES[config], dtype="bfloat16",
+            ptxas_name="mma_matmul_kernelIN8mma_tile4Tile"
+            + _build.mangled_args(MMA_TILES[config]) + "E",
+            threads=32 * (bm // wm) * (bn // wn),
+            grid=(max(-(-m // bm), 1), max(-(-n // bn), 1), 1),
+            cluster=(1, 1, 1),
+            dyn_smem=stages * (bm * (bk + 8) + bk * (bn + 8)) * 2,
+            static_smem=0, smem_optin=True, shapes=shapes,
+            extents={"M": m, "N": n, "K": k}, index_bounds={})
     bm, bn, bk, tm, tn, stages = TILES[config]
     splits = -(-k // split_k(k)) if k > 0 else 1
     return dict(
         name="tile_matmul", source="tile_matmul", kernel="matmul_kernel",
-        config=config, instance=TILES[config],
+        config=config, instance=TILES[config], dtype="float32",
         ptxas_name="matmul_kernelIN9ffma_tile4Tile"
         + _build.mangled_args(TILES[config]) + "E",
         threads=(bm // tm) * (bn // tn),
         grid=(max(-(-m // bm), 1), max(-(-n // bn), 1), splits),
         cluster=(1, 1, splits),
         dyn_smem=stages * (bm * (bk + 4) + bk * bn) * 4, static_smem=0,
-        smem_optin=True, shapes={"a": (m, k), "b": (k, n), "c": (m, n)},
+        smem_optin=True, shapes=shapes,
         extents={"M": m, "N": n, "K": k}, index_bounds={})
 
 
@@ -105,8 +136,8 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
 
     ``config`` is the kernel's block configuration (one of ``CONFIGS``;
     ``None`` picks by shape). Both tensors must lie on ``device``. CPU
-    tensors take the plain version; CUDA tensors must be contiguous
-    float32 and launch the kernel or raise.
+    tensors take the plain version; CUDA tensors must be contiguous and
+    both float32 or both bfloat16, and launch the kernel or raise.
     """
     _build.tick("tile_matmul")
     dev = resolve_device(device)
@@ -122,22 +153,22 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
     if dev.type == "cpu":
         return tile_matmul_ref(a, b)
 
-    _check(a.dtype == torch.float32 and b.dtype == torch.float32,
-           "the CUDA kernel takes float32 A and B")
+    _check(a.dtype == b.dtype and a.dtype in _build.DTYPES,
+           "the CUDA kernel takes float32 or bfloat16 A and B of one type, "
+           f"got {a.dtype} and {b.dtype}")
     _check(a.is_contiguous() and b.is_contiguous(),
            "CUDA kernel needs contiguous tensors")
     if config is None:
         config = pick_config(m, n, torch.cuda.get_device_properties(
             dev).multi_processor_count)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if m and n:
-        lib, fn = _kernel()
+        lib, fn = _kernel(a.dtype)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
                      CONFIGS.index(config), stream)
         _build.check(lib, err, "tile_matmul launch")
-        global launches
         with _build.count_lock:
-            launches += 1
+            launches[_build.dtype_name(a.dtype)] += 1
     return out

@@ -72,9 +72,9 @@ def _ptxas_log(spills=lambda inst: 0) -> str:
     format; ``spills(instance)`` gives each one's spill-store bytes."""
     lines = []
     for inst in itertools.product(TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS):
-        name = ("_ZN12_GLOBAL__N_115ell_rows_kernel"
-                + "I" + "".join(f"Li{v}E" for v in inst) + "E"
-                + "EvN8ell_rows5UnitsEPKfPKxS6_S6_Pfiiii")
+        name = ("_ZN10ragged_ell15ell_rows_kernel"
+                + "I" + "".join(f"Li{v}E" for v in inst) + "ffE"
+                + "EvN8ell_rows5UnitsIT3_EEPKT4_PKxSB_SB_Pfiiii")
         sp = spills(inst)
         lines += [f"ptxas info    : Compiling entry function '{name}' for "
                   "'sm_90a'",

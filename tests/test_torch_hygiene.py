@@ -10,9 +10,11 @@ result line.
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
+import zipfile
 
 import pytest
 
@@ -104,13 +106,33 @@ def test_importing_the_port_builds_nothing():
     assert res.stdout.strip() == "ok"
 
 
-def test_cuda_sources_ship_with_the_package():
+def test_cuda_sources_ship_with_the_package(tmp_path):
+    """A wheel of the package holds every CUDA source and every header
+    the sources include: an installed port builds its kernels from them.
+    The wheel is built offline (no isolation, no dependencies) from a
+    copy of the package, so the checkout gets no build directory."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {
+    sources = sorted(csrc.glob("*.cu"))
+    assert {p.name for p in sources} >= {
         "bsr_spmm.cu", "ragged_ell_spmm.cu", "ell_spmm.cu",
         "tile_matmul.cu"}
-    pyproject = (ROOT / "pyproject.toml").read_text()
-    assert 'repro_torch = ["kernels/csrc/*.cu"]' in pyproject
+    wanted = {p.name for p in sources}
+    for p in sources + sorted(csrc.glob("*.cuh")):
+        wanted |= set(re.findall(r'#include "([^"]+)"', p.read_text()))
+    tree = tmp_path / "tree"
+    shutil.copy(ROOT / "pyproject.toml", tmp_path)
+    shutil.copytree(ROOT / "src", tmp_path / "src", ignore=(
+        shutil.ignore_patterns("__pycache__", "build", "*.so", "*.egg-info")))
+    res = subprocess.run(
+        [sys.executable, "-m", "pip", "wheel", "--no-deps",
+         "--no-build-isolation", "--no-index", "-q", "-w", str(tree),
+         str(tmp_path)], capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    (wheel,) = tree.glob("*.whl")
+    with zipfile.ZipFile(wheel) as z:
+        shipped = {pathlib.PurePosixPath(n).name for n in z.namelist()
+                   if n.startswith("repro_torch/kernels/csrc/")}
+    assert wanted <= shipped, sorted(wanted - shipped)
 
 
 def _run_smoke(cwd, env_extra=None):

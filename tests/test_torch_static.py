@@ -44,7 +44,7 @@ from repro_torch.analysis.static.concurrency_pass import (LOCK_ORDER,
 from repro_torch.analysis.static.fixtures import (FIXTURE_F_HID,
                                                   FIXTURE_F_IN,
                                                   fixture_engine)
-from repro_torch.analysis.static.kernel_pass import (CLAMP_F,
+from repro_torch.analysis.static.kernel_pass import (CLAMP_F, ELL_DTYPES,
                                                      check_class_fit,
                                                      check_contract,
                                                      contracts_for_class,
@@ -207,8 +207,10 @@ class TestKernelPass:
         tune = {"w": 32, "vec": 4, "kc": 8, "threads": 512}
         pairs = contracts_for_class(sc, (FIXTURE_F_IN, CLAMP_F), tune)
         ragged = [c for c, _ in pairs if c["name"] == "ragged_ell_rows"]
-        assert [c["vec"] for c in ragged] == [4, 1]
-        assert len(pairs) == 2 * (1 + len(sc.bands))
+        n_types = len(ELL_DTYPES)
+        assert [c["vec"] for c in ragged] == [4] * n_types + [1] * n_types
+        assert [c["dtypes"] for c in ragged] == list(ELL_DTYPES) * 2
+        assert len(pairs) == 2 * n_types * (1 + len(sc.bands))
         for c, scalars in pairs:
             assert _errors(check_contract(c, scalar_args=scalars,
                                           ptxas_log=_log_for(c, 0))) == []
@@ -452,6 +454,21 @@ class TestCLIs:
                         "--passes", "kernel,concurrency")
         assert res.returncode == 0, res.stdout + res.stderr
         assert "0 error(s)" in res.stdout
+
+    def test_lint_cli_asks_for_the_card_by_default(self):
+        """Without ``--device`` the launch and kernel passes run on the
+        card, and without one they raise rather than fall back to the
+        CPU; the concurrency pass and ``--bench-check`` need no device."""
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present")
+        res = self._run("repro_torch.analysis.static", "--passes", "kernel")
+        assert res.returncode != 0
+        assert "CUDA device requested" in res.stderr
+        assert "repro_torch-lint" not in res.stdout
+        for args in (("--passes", "concurrency"), ("--bench-check",)):
+            res = self._run("repro_torch.analysis.static", *args)
+            assert res.returncode == 0, res.stdout + res.stderr
+            assert "on the host" in res.stdout
 
     def test_lint_cli_rejects_an_unknown_pass(self):
         assert self._run("repro_torch.analysis.static",
