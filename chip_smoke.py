@@ -250,7 +250,9 @@ repository's ``src/`` next to this file. It
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
      for the bands also the "loop" chain of per-bucket sums) bit for bit;
      and, at bfloat16 (the cora class, F = 128 and 7; ``tile_matmul`` at
-     cora's layer 1): each ELL row kernel bitwise its float32 instance on
+     every graph's layer 1 and layer 2, each time's share of its bound
+     printed, and a spill of any of its wgmma instances failing the
+     smoke): each ELL row kernel bitwise its float32 instance on
      ``b.float()`` in every launch shape the autotuner may pick, and
      bitwise its plain version; ``bsr_spmm_rows`` (tensor cores) and
      ``tile_matmul`` within ``bf16_close`` of their plain versions,
@@ -261,8 +263,9 @@ repository's ``src/`` next to this file. It
      TB/s and 67 TFLOP/s FFMA (ELL) or 989 TFLOP/s bf16 (tensor cores);
  21. prints one ``{"kernels": [...]}`` line (with each kernel's ptxas
      registers and spills, the ragged kernel's tuned config at each
-     class, each kernel's launches and device ms in the training
-     backward, and one ``<kernel>_bf16`` entry per kernel: its bfloat16
+     class, each kernel's launches, device ms, bound and library call
+     (the forward's, on Aᵀ's partition) in the training backward, and
+     one ``<kernel>_bf16`` entry per kernel: its bfloat16
      instances' ptxas lines, their launches on the bfloat16 path and
      their times) and, last, the ``{"ok": true, "device": ...}`` line.
 
@@ -1785,11 +1788,16 @@ def backward_kernels(torch, data, adj) -> dict:
     (``max_abs_err``; gates: the ELL rows bitwise, as their forward is,
     the dense rows within ``KERNEL_TOL`` of the sum of |tile|·|B|) and
     timed (device ms, CUDA graphs). ``transposed``: the partition is
-    Aᵀ's own (A not symmetric). Reads no launch counter of a path's
-    run."""
+    Aᵀ's own (A not symmetric). Each record also has the forward
+    cases' bound and library call on these inputs (``bsr_case``,
+    ``ell_case``, ``fixed_ell_case``): ``bound_ms`` / ``bound_by`` (the
+    folded function's bytes for ``bsr_spmm``, ``contract_cost`` for the
+    ELL kernels) and ``library_ms`` (``torch.bmm`` + ``segment_sum``;
+    ``torch.sparse.mm`` over Aᵀ's live rows, then ``index_add_``).
+    Reads no launch counter of a path's run."""
     import importlib
 
-    from repro_torch.core.formats import pad_b_to_tiles
+    from repro_torch.core.formats import b_tiles_of, pad_b_to_tiles
     from repro_torch.kernels import ops
 
     hs = importlib.import_module("repro_torch.core.hybrid_spmm")
@@ -1806,6 +1814,16 @@ def backward_kernels(torch, data, adj) -> dict:
     b = pad_b_to_tiles(dy, meta).contiguous()
     p = meta.n_padded_rows
     out = {}
+    case = ([part.dense.tiles, part.dense.tile_col, part.ell.cols,
+             part.ell.vals, part.ell.tile_col, part.ell.unit_k,
+             part.ell.rows], b_tiles_of(b, meta).contiguous(), meta,
+            plan.dense, plan.ell, plan.ell_bands)
+
+    def yardsticks(run):
+        res = run(torch, case)
+        return dict(bound_ms=res["bound"][0], bound_by=res["bound"][1],
+                    library_ms=res["library_ms"])
+
     yd0 = hs.dense_tiles_matmul(part, b, meta, plan)
     if meta.n_dense_tiles:
         got = ops.dense_tiles_matmul(part, b, meta, plan)
@@ -1818,9 +1836,9 @@ def backward_kernels(torch, data, adj) -> dict:
             ok=bool(((got - yd0).abs() <= KERNEL_TOL["atol"]
                      + KERNEL_TOL["rtol"] * scale).all()),
             ms=device_ms(torch, lambda: ops.dense_tiles_matmul(
-                part, b, meta, plan)))
-    for kname, dispatch in (("ragged_ell_spmm", "ragged"),
-                            ("ell_spmm", "fused")):
+                part, b, meta, plan)), **yardsticks(bsr_case))
+    for kname, dispatch, run in (("ragged_ell_spmm", "ragged", ell_case),
+                                 ("ell_spmm", "fused", fixed_ell_case)):
         if not meta.ell_segments:
             continue
         want = yd0 + hs.ell_matmul(part, b, meta, plan, dispatch=dispatch)
@@ -1833,7 +1851,8 @@ def backward_kernels(torch, data, adj) -> dict:
             max_abs_err=max_err(got, want), ok=torch.equal(got, want),
             rows=p,
             ms=device_ms(torch, lambda: ops.ell_matmul(
-                part, b, meta, plan, buf, dispatch=dispatch)))
+                part, b, meta, plan, buf, dispatch=dispatch)),
+            **yardsticks(run))
     return out
 
 
@@ -5258,11 +5277,14 @@ def bf16_fixed_ell_case(torch, case):
 
 
 def bf16_matmul_case(torch, a, b):
-    """``tile_matmul`` at bfloat16 (tensor cores, C rounded once) within
-    ``bf16_close`` of its plain version; every configuration timed and
-    bitwise the picked one. Library: ``torch.matmul`` on bfloat16."""
+    """``tile_matmul`` at bfloat16 (the wgmma instances, C rounded once)
+    within ``bf16_close`` of its plain version; every configuration timed
+    and bitwise the picked one, and a repeat bitwise. Library:
+    ``torch.matmul`` on bfloat16. ``bound_share``: the bound over the
+    kernel's time."""
     from repro_torch.kernels.ref import tile_matmul_ref
-    from repro_torch.kernels.tile_matmul import CONFIGS, tile_matmul
+    from repro_torch.kernels.tile_matmul import (CONFIGS, matmul_contract,
+                                                 tile_matmul)
 
     bf16 = torch.bfloat16
     a, b = a.to(bf16).contiguous(), b.to(bf16).contiguous()
@@ -5273,18 +5295,24 @@ def bf16_matmul_case(torch, a, b):
     mag = torch.matmul(a.abs().float(), b.abs().float())
     configs = all(torch.equal(tile_matmul(a, b, config=c, device=a.device),
                               got) for c in CONFIGS)
+    ms = device_ms(torch, lambda: tile_matmul(a, b, device=a.device))
+    bnd = bound(2.0 * (m * k + k * n + m * n), 2.0 * m * k * n,
+                BF16_FLOPS_PER_S)
+    contract = matmul_contract(
+        m, k, n, dtype=bf16, n_sms=torch.cuda.get_device_properties(
+            a.device).multi_processor_count)
     return dict(
         ok=got.dtype == bf16 and bf16_close(torch, got, want, mag)
         and configs and torch.equal(tile_matmul(a, b, device=a.device), got),
         err=max_err(got.float(), want.float()), configs_bitwise=configs,
+        config=contract["config"], grid=list(contract["grid"]),
         config_ms={c: device_ms(torch, lambda c=c: tile_matmul(
             a, b, config=c, device=a.device)) for c in CONFIGS},
-        ms=device_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
+        ms=ms, bound_share=bnd[0] / ms,
         call_ms=call_ms(torch, lambda: tile_matmul(a, b, device=a.device)),
         plain_ms=device_ms(torch, lambda: tile_matmul_ref(a, b)),
         library_ms=device_ms(torch, lambda: torch.matmul(a, b)),
-        bound=bound(2.0 * (m * k + k * n + m * n), 2.0 * m * k * n,
-                    BF16_FLOPS_PER_S))
+        bound=bnd)
 
 
 # name, source of the bfloat16 instances, the float32 kernel's entry name,
@@ -5296,22 +5324,24 @@ BF16_KERNELS = (
     ("ell_spmm", "src/repro_torch/kernels/csrc/ell_spmm.cu",
      "13__nv_bfloat16"),
     ("tile_matmul", "src/repro_torch/kernels/csrc/tile_matmul.cu",
-     "mma_matmul_kernel"),
+     "wgmma_matmul_kernel"),
 )
 
 
 def bf16_kernel_entries(torch, engine, graphs, launches, build_log) -> tuple:
     """The four kernels' bfloat16 instances at PERF.md §6's shapes: the
     cora class at F = 128 (and 7, the output width), G = 1 (the dense
-    engine also G = 4), ``tile_matmul`` at cora's layer 1. ``launches``:
-    the bfloat16 path's launches by kernel (``bf16_phase``). Returns
-    (problems, one {"kernels"} entry per kernel)."""
+    engine also G = 4), ``tile_matmul`` at every graph's layer 1 and
+    layer 2 (B = relu(X·W1) in bfloat16). ``launches``: the bfloat16
+    path's launches by kernel (``bf16_phase``). A spill of a wgmma
+    ``tile_matmul`` instance fails. Returns (problems, one {"kernels"}
+    entry per kernel)."""
+    from repro_torch.kernels._build import ptxas_entries
+
     problems, entries = [], []
     cases = {(lab["F"], lab["G"]): case
              for lab, case in kernel_cases(torch, engine,
                                            {"cora": graphs["cora"]})}
-    h = engine.handle("cora")
-    a = engine.prepare_x("cora", graphs["cora"]["xs"][0])
     rows = {k: [] for k, _, _ in BF16_KERNELS}
     for f in sorted({f for f, _ in cases}, reverse=True):
         label = dict(graph="cora", F=f, G=1, dtype="bfloat16")
@@ -5321,9 +5351,15 @@ def bf16_kernel_entries(torch, engine, graphs, launches, build_log) -> tuple:
             torch, cases[(f, 1)])))
         rows["ell_spmm"].append((label, bf16_fixed_ell_case(
             torch, cases[(f, 1)])))
-    rows["tile_matmul"].append((dict(
-        graph="cora", layer=1, shape=[*a.shape, h.weights[0].shape[1]],
-        dtype="bfloat16"), bf16_matmul_case(torch, a, h.weights[0])))
+    for name in GRAPHS:
+        h = engine.handle(name)
+        a = engine.prepare_x(name, graphs[name]["xs"][0])
+        ws = [w.to(torch.bfloat16) for w in h.weights]
+        a2 = torch.relu(torch.matmul(a.to(torch.bfloat16), ws[0]))
+        for layer, x, w in ((1, a, ws[0]), (2, a2, ws[1])):
+            rows["tile_matmul"].append((dict(
+                graph=name, layer=layer, shape=[*x.shape, w.shape[1]],
+                dtype="bfloat16"), bf16_matmul_case(torch, x, w)))
     for kname, source, mark in BF16_KERNELS:
         rs = []
         for label, res in rows[kname]:
@@ -5341,10 +5377,25 @@ def bf16_kernel_entries(torch, engine, graphs, launches, build_log) -> tuple:
                   f"{res['library_ms']:.4f} ms  bound "
                   f"{res['bound'][0]:.5f} ms ({res['bound'][1]})  "
                   f"max_abs_err {res['err']:.3g}")
+            if "bound_share" in res:
+                print(f"    picked {res['config']} {res['grid']}, "
+                      f"{res['bound_share']:.3f} of the bound; configs "
+                      + json.dumps(res["config_ms"])
+                      + f" bitwise {res['configs_bitwise']}")
             if not res["ok"]:
                 problems.append(f"{kname} bf16 {label}: disagrees ({row})")
         head = rs[0]
         log = build_log[os.path.basename(source)[:-3]]["log"]
+        if kname == "tile_matmul":
+            for e in ptxas_entries(log):
+                if mark not in e["name"]:
+                    continue
+                print(f"    ptxas {e['name']}: {e['registers']} registers, "
+                      f"{e['smem']} bytes static smem, spills "
+                      f"{e['spill_stores']} / {e['spill_loads']} bytes")
+                if e["spill_stores"] or e["spill_loads"]:
+                    problems.append(f"tile_matmul bf16 instance {e['name']}"
+                                    f" spills ({e})")
         n, by_path = launches[kname], {}
         if isinstance(n, dict):     # ell_spmm: {"fused": .., "loop": ..}
             by_path, n = dict(launches_by_path=n), next(iter(n.values()))
@@ -5750,7 +5801,15 @@ def main() -> None:
         back = bwd_kernels.get(entry["name"])
         entry.update(backward_launches=bwd_launches[entry["name"]],
                      backward_ms=back[0]["ms"] if back else None,
+                     backward_bound_ms=back[0]["bound_ms"] if back else None,
+                     backward_library_ms=(back[0]["library_ms"] if back
+                                          else None),
                      backward_cases=back)
+        for v in back or ():
+            print(f"  {entry['name'] + ' backward':16s} {v['graph']} F="
+                  f"{v['F']}: kernel {v['ms']:.4f} ms  library "
+                  f"{v['library_ms']:.4f} ms  bound {v['bound_ms']:.5f} ms "
+                  f"({v['bound_by']})")
         if entry["name"] == "ragged_ell_spmm":
             entry["tuned"] = [dict(graph=r["graph"], f=r["f"],
                                    shape_class=r["shape_class"],

@@ -52,7 +52,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
                                           ragged_ell_contract)
-from repro_torch.kernels.tile_matmul import (CONFIGS, MMA_TILES, TILES,
+from repro_torch.kernels.tile_matmul import (CONFIGS, TILES, WG_TILES,
                                              matmul_contract)
 
 # sm_90 per-block limits (NVIDIA's Hopper tuning guide).
@@ -80,7 +80,7 @@ BUILT = {
     "ell_band_kernel": {shape + types for shape in itertools.product(
         TUNE_W, TUNE_VEC) for types in ELL_DTYPES},
     "matmul_kernel": set(TILES.values()),
-    "mma_matmul_kernel": set(MMA_TILES.values()),
+    "wgmma_matmul_kernel": set(WG_TILES.values()),
 }
 
 
@@ -325,9 +325,13 @@ def run_kernel_pass(engine=None, *, device="cuda",
         if h.need is not None:
             findings.extend(check_class_fit(h.need, h.sclass, policy))
     # the dense matmul contract in every configuration, at the
-    # reference's two audit sizes
+    # reference's two audit sizes; the bfloat16 instances with B's rows
+    # 16-byte aligned and not (the staged instances)
     for (m, k, n), config, dtype in itertools.product(
             ((512, 512, 512), (2048, 1024, 256)), CONFIGS, MATMUL_DTYPES):
-        findings.extend(check_contract(matmul_contract(
-            m, k, n, config=config, dtype=dtype)))
+        for b_aligned in (True, False) if dtype == torch.bfloat16 else (
+                True,):
+            findings.extend(check_contract(matmul_contract(
+                m, k, n, config=config, dtype=dtype,
+                b_aligned=b_aligned)))
     return findings

@@ -1,10 +1,10 @@
-// The bfloat16 tensor-core tile mainloop shared by tile_matmul.cu and
-// bsr_spmm.cu: their bfloat16 instances, as the reference's kernels take
-// bfloat16 operands with a float32 accumulator.
+// The bfloat16 tensor-core tile mainloop of bsr_spmm.cu's bfloat16
+// instances, as the reference's kernels take bfloat16 operands with a
+// float32 accumulator (tile_matmul.cu's run on wgmma_tile.cuh).
 //
-// Both form C[BM x BN] += A[BM x K] @ B[K x BN] per block with
+// It forms C[BM x BN] += A[BM x K] @ B[K x BN] per block with
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. This header holds
-// what they share:
+// its pieces:
 //
 //  * a multi-stage ring of k chunks (BK columns of A, BK rows of B) in
 //    shared memory, filled with cp.async so that chunk q+STAGES-1 is in

@@ -16,11 +16,14 @@ depend on K alone, and the partial sums are added in a fixed order, so
 every configuration gives the same bits. ``config=None`` picks by shape
 (``pick_config``).
 
-bfloat16 A and B (the reference's other type) run the tensor-core
-instances (``csrc/mma_tile.cuh``: m16n8k16 products with a float32
-accumulator, C rounded to bfloat16 once) in the same three
-configurations (``MMA_TILES``), without split-K; every configuration
-gives the same bits.
+bfloat16 A and B (the reference's other type) run the Hopper
+tensor-core instances (``csrc/wgmma_tile.cuh``: wgmma m64nNk16 products
+with a float32 accumulator, A's rows copied asynchronously at any
+alignment, C rounded to bfloat16 once) in three configurations of their
+own (``WG_TILES``: 128 x 128, 64 x 128 and 64 x 8 blocks under the same
+names). Their K is split across a cluster at points that depend on K
+alone (``wg_split_k``), so every configuration gives the same bits
+there too.
 """
 from __future__ import annotations
 
@@ -39,12 +42,13 @@ WIDE_BM, WIDE_BN = 64, 128     # the "wide" configuration's output block
 # csrc/tile_matmul.cu instantiates it (for ``matmul_contract``).
 TILES = {"wide": (64, 128, 16, 8, 8, 4), "fill": (32, 128, 32, 8, 4, 3),
          "narrow": (64, 8, 32, 1, 4, 4)}
-# Each configuration's mma_tile::Tile<BM, BN, BK, WM, WN, STAGES>, the
-# bfloat16 instances of csrc/tile_matmul.cu.
-MMA_TILES = {"wide": (64, 128, 32, 32, 64, 3),
-             "fill": (32, 128, 32, 16, 64, 3),
-             "narrow": (64, 8, 32, 16, 8, 3)}
+# Each configuration's wgmma_tile::Tile<BM, BN, BK, STAGES>, the bfloat16
+# instances of csrc/tile_matmul.cu (BM / 64 warpgroups of 128 threads).
+WG_TILES = {"wide": (128, 128, 64, 4), "fill": (64, 128, 64, 3),
+            "narrow": (64, 8, 64, 4)}
 MAX_SPLITS, SPLIT_ALIGN = 4, 32
+# The bfloat16 instances' split-K (csrc/tile_matmul.cu ``wg_split_k``).
+WG_SPLIT_K, WG_SPLIT_ALIGN, WG_MAX_SPLITS = 576, 64, 3
 
 # Launches of the CUDA kernel since the last reset (ops.reset_launch_counts),
 # by the operands' type.
@@ -72,11 +76,15 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"tile_matmul: {msg}")
 
 
-def pick_config(m: int, n: int, n_sms: int) -> str:
-    """"narrow" for N <= 16; else "wide" when its blocks fill the card's
-    ``n_sms`` SMs twice over, and "fill" (half-height blocks) when not."""
+def pick_config(m: int, n: int, n_sms: int, dtype=torch.float32) -> str:
+    """"narrow" for N <= 16. Else, float32: "wide" when its blocks fill
+    the card's ``n_sms`` SMs twice over, and "fill" (half-height blocks)
+    when not; bfloat16: "fill" (64-row blocks, two an SM; on the H100 it
+    beat "wide" at every layer-1 shape of the three graphs)."""
     if n <= 16:
         return "narrow"
+    if _build.dtype_name(dtype) == "bfloat16":
+        return "fill"
     wide_blocks = -(-m // WIDE_BM) * -(-n // WIDE_BN)
     return "wide" if wide_blocks >= 2 * n_sms else "fill"
 
@@ -88,8 +96,41 @@ def split_k(k: int) -> int:
     return -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
 
 
+def wg_split_k(k: int) -> int:
+    """Elements of k per split of the bfloat16 instances
+    (csrc/tile_matmul.cu ``wg_split_k``): a function of K alone."""
+    splits = min(max((k + WG_SPLIT_K // 2) // WG_SPLIT_K, 1), WG_MAX_SPLITS)
+    per = -(-k // splits)
+    return -(-per // WG_SPLIT_ALIGN) * WG_SPLIT_ALIGN
+
+
+def wg_splits(k: int) -> int:
+    """The bfloat16 instances' K splits: the cluster's blocks on z."""
+    return -(-k // wg_split_k(k)) if k > 0 else 1
+
+
+def wg_smem(config: str, staged: bool) -> int:
+    """Dynamic shared memory of a bfloat16 instance: ``STAGES`` ring
+    slots of B's chunk, A's spans (BK/8 + 1 chunks of 16 bytes a row)
+    and, where B goes through spans, B's spans; an mbarrier a slot; 1024
+    bytes that align the ring to the swizzle's period."""
+    bm, bn, bk, stages = WG_TILES[config]
+    slot = bk * bn * 2 + bm * (bk // 8 + 1) * 16
+    slot += bk * (bn // 8 + 1) * 16 if staged else 0
+    return stages * slot + 8 * stages + 1024
+
+
+def wg_tma(config: str, k: int, n: int, b_aligned: bool = True) -> bool:
+    """Whether B's chunks arrive by TMA: 128-column blocks,
+    16-byte-aligned rows (N % 8 == 0, an aligned base) and at least one
+    box of each dimension; else B's rows go through spans."""
+    bn, bk = WG_TILES[config][1:3]
+    return bn == 128 and n % 8 == 0 and n >= 64 and k >= bk and b_aligned
+
+
 def matmul_contract(m: int, k: int, n: int, *, config: str = None,
-                    n_sms: int = 132, dtype=torch.float32) -> dict:
+                    n_sms: int = 132, dtype=torch.float32,
+                    b_aligned: bool = True) -> dict:
     """The launch contract of one ``tile_matmul`` launch: grid (M blocks,
     N blocks, K splits), the cluster (the splits of one output block),
     ``threads``, dynamic shared memory (the cp.async ring, above 48 KiB
@@ -97,22 +138,25 @@ def matmul_contract(m: int, k: int, n: int, *, config: str = None,
     passed as 32-bit ints, and the kernel instance's ptxas name prefix.
     ``config`` None picks as the wrapper does on a card of ``n_sms``
     SMs (132: the H100 SXM). ``dtype`` (float32 or bfloat16) is A's and
-    B's: bfloat16 runs the tensor-core instances (``MMA_TILES``, no
-    split-K)."""
-    config = config or pick_config(m, n, n_sms)
+    B's: bfloat16 runs the wgmma instances (``WG_TILES``, split at
+    ``wg_split_k``), whose B arrives by TMA where ``wg_tma`` holds
+    (``b_aligned``: B's base is 16-byte aligned), else through spans."""
+    config = config or pick_config(m, n, n_sms, dtype)
     shapes = {"a": (m, k), "b": (k, n), "c": (m, n)}
     if _build.dtype_name(dtype) == "bfloat16":
-        bm, bn, bk, wm, wn, stages = MMA_TILES[config]
+        bm, bn = WG_TILES[config][:2]
+        tma = wg_tma(config, k, n, b_aligned)
+        splits = wg_splits(k)
         return dict(
             name="tile_matmul", source="tile_matmul",
-            kernel="mma_matmul_kernel", config=config,
-            instance=MMA_TILES[config], dtype="bfloat16",
-            ptxas_name="mma_matmul_kernelIN8mma_tile4Tile"
-            + _build.mangled_args(MMA_TILES[config]) + "E",
-            threads=32 * (bm // wm) * (bn // wn),
-            grid=(max(-(-m // bm), 1), max(-(-n // bn), 1), 1),
-            cluster=(1, 1, 1),
-            dyn_smem=stages * (bm * (bk + 8) + bk * (bn + 8)) * 2,
+            kernel="wgmma_matmul_kernel", config=config,
+            instance=WG_TILES[config], dtype="bfloat16", tma=tma,
+            split_k=wg_split_k(k) if k > 0 else 1,
+            ptxas_name="wgmma_matmul_kernelIN10wgmma_tile4Tile"
+            + _build.mangled_args(WG_TILES[config]) + f"ELb{int(tma)}E",
+            threads=128 * (bm // 64),
+            grid=(max(-(-m // bm), 1), max(-(-n // bn), 1), splits),
+            cluster=(1, 1, splits), dyn_smem=wg_smem(config, not tma),
             static_smem=0, smem_optin=True, shapes=shapes,
             extents={"M": m, "N": n, "K": k}, index_bounds={})
     bm, bn, bk, tm, tn, stages = TILES[config]
@@ -131,13 +175,15 @@ def matmul_contract(m: int, k: int, n: int, *, config: str = None,
 
 
 def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
-                device="cuda") -> torch.Tensor:
+                out: torch.Tensor = None, device="cuda") -> torch.Tensor:
     """C[M,N] = A[M,K] @ B[K,N] with a float32 accumulator, in A's dtype.
 
     ``config`` is the kernel's block configuration (one of ``CONFIGS``;
-    ``None`` picks by shape). Both tensors must lie on ``device``. CPU
-    tensors take the plain version; CUDA tensors must be contiguous and
-    both float32 or both bfloat16, and launch the kernel or raise.
+    ``None`` picks by shape). ``out``: a contiguous [M,N] tensor of A's
+    dtype on ``device`` to write C into (at any alignment), else a new
+    one. Both tensors must lie on ``device``. CPU tensors take the plain
+    version; CUDA tensors must be contiguous and both float32 or both
+    bfloat16, and launch the kernel or raise.
     """
     _build.tick("tile_matmul")
     dev = resolve_device(device)
@@ -148,10 +194,16 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
     n = b.shape[1]
     _check(config is None or config in CONFIGS,
            f"configuration {config!r} is not one of {CONFIGS}")
-    for x in (a, b):
+    for x in (a, b) if out is None else (a, b, out):
         _check(x.device == dev, f"tensor on {x.device}, device={dev}")
+    if out is not None:
+        _check(tuple(out.shape) == (m, n) and out.dtype == a.dtype
+               and out.is_contiguous(),
+               f"out must be a contiguous ({m}, {n}) {a.dtype} tensor, got "
+               f"{tuple(out.shape)} {out.dtype}")
     if dev.type == "cpu":
-        return tile_matmul_ref(a, b)
+        c = tile_matmul_ref(a, b)
+        return c if out is None else out.copy_(c)
 
     _check(a.dtype == b.dtype and a.dtype in _build.DTYPES,
            "the CUDA kernel takes float32 or bfloat16 A and B of one type, "
@@ -160,8 +212,9 @@ def tile_matmul(a: torch.Tensor, b: torch.Tensor, *, config: str = None,
            "CUDA kernel needs contiguous tensors")
     if config is None:
         config = pick_config(m, n, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
-    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+            dev).multi_processor_count, a.dtype)
+    if out is None:
+        out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if m and n:
         lib, fn = _kernel(a.dtype)
         with torch.cuda.device(dev):

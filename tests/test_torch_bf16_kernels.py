@@ -274,21 +274,48 @@ def test_cuda_hybrid_bf16_against_the_plain_backend(cuda_device, f):
     assert within(ys["ragged"].cpu(), plain.cpu(), mag, rounded=mag)
 
 
+def _bf16_view(x: np.ndarray, off: int, device):
+    """``x`` in bfloat16 on ``device`` as a contiguous view that starts
+    ``off`` elements into a larger buffer (not 16-byte aligned unless
+    ``off`` is a multiple of 8)."""
+    buf = torch.zeros(x.size + off + 8, dtype=BF16, device=device)
+    view = buf[off:off + x.size].view(x.shape)
+    view.copy_(torch.from_numpy(np.ascontiguousarray(x)).to(BF16))
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 128, 128), (8, 8, 8), (70, 33, 5),
-                                   (257, 300, 130), (4096, 1433, 128),
-                                   (4096, 3703, 128), (32768, 500, 128),
-                                   (4096, 128, 7)])
-def test_cuda_tile_matmul_bf16(cuda_device, m, k, n):
+@pytest.mark.parametrize("m,k,n,off", [
+    (1, 128, 128, (0, 0, 0)), (8, 8, 8, (0, 0, 0)), (70, 33, 5, (0, 0, 0)),
+    (257, 300, 130, (0, 0, 0)), (4096, 1433, 128, (0, 0, 0)),
+    (4096, 3703, 128, (0, 0, 0)), (32768, 500, 128, (0, 0, 0)),
+    (4096, 128, 7, (0, 0, 0)),
+    # K = 1, 3, 5 and 7 (mod 8): every row of A starts at another shift
+    (257, 1025, 128, (0, 0, 0)), (257, 1027, 128, (0, 0, 0)),
+    (257, 1029, 128, (0, 0, 0)), (257, 1031, 128, (0, 0, 0)),
+    # A, B and C 1, 3 and 7 elements into larger buffers
+    (300, 1433, 128, (1, 3, 7)), (300, 1433, 128, (3, 7, 1)),
+    (300, 1433, 128, (7, 1, 3)), (300, 128, 7, (1, 3, 7)),
+    (130, 3703, 136, (3, 1, 7)),
+    # M not a multiple of any tile's rows
+    (4099, 500, 128, (0, 0, 0)), (4161, 1433, 130, (0, 0, 0)),
+    (33, 64, 3, (0, 0, 0)),
+    # N = 3, 6 and 7 (the graphs' layer 2)
+    (4096, 128, 6, (0, 0, 0)), (32768, 128, 3, (0, 0, 0)),
+    (1000, 131, 7, (1, 7, 3))])
+def test_cuda_tile_matmul_bf16(cuda_device, m, k, n, off):
     rng = np.random.default_rng(m + k)
-    a, b = (x.to(cuda_device).to(BF16) for x in _t(
-        rng.standard_normal((m, k)).astype(np.float32),
-        rng.standard_normal((k, n)).astype(np.float32)))
+    a = _bf16_view(rng.standard_normal((m, k)).astype(np.float32), off[0],
+                   cuda_device)
+    b = _bf16_view(rng.standard_normal((k, n)).astype(np.float32), off[1],
+                   cuda_device)
     ops.reset_launch_counts()
-    outs = [tile_matmul(a, b, config=c) for c in CONFIGS]
+    outs = [tile_matmul(a, b, config=c, out=_bf16_view(
+        np.zeros((m, n), np.float32), off[2], cuda_device)) for c in CONFIGS]
     assert outs[0].dtype == BF16
-    # one accumulator per element over the k16 steps: every configuration
-    # gives the same bits, and so does a repeat
+    # one accumulator per element and split over the k16 steps, the splits
+    # added in rank order: every configuration gives the same bits, and so
+    # does a repeat
     assert all(torch.equal(o, outs[0]) for o in outs)
     assert torch.equal(tile_matmul(a, b), outs[0])
     assert within(outs[0].float(), tile_matmul_ref(a, b).float(),
