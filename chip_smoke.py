@@ -32,19 +32,20 @@ repository's ``src/`` next to this file. It
      launches of each kernel per batch, and each
      warm latency sample at least its dispatch's device time; prints
      one ``{"serving": ...}`` line;
-  6. a reordered graph on the main path: cora at full size, reordered by
-     its planted communities (``reorder(csr, "labels", ...)``), served
-     one ``infer`` with the launches of the main path and logits within
-     tolerance of the plain backend and of the unreordered graph; its
-     class has no dense tile, and ``bsr_spmm_rows`` on that empty dense
-     part must give zeros without a launch;
+  6. reordered graphs on the main path: cora and pubmed at full size,
+     reordered by their planted communities (``reorder(csr, "labels",
+     ...)``), each served one ``infer`` with the launches of the main
+     path and logits within tolerance of the plain backend (cora's also
+     of the unreordered graph); cora's class has no dense tile, and
+     ``bsr_spmm_rows`` on that empty dense part must give zeros without a
+     launch;
   7. dispatch A/B: the same requests through ``Engine(ell_dispatch=d)``
      for the per-K dispatches "fused" and "loop" (one ``ell_spmm`` launch
-     per class band per layer, which also sums the band onto rows and
-     adds it onto the dense rows; no ``ragged_ell_spmm``); logits must
-     equal the ragged dispatch's bit for bit, repeats bitwise; one
-     ``infer`` of each is profiled beside the ragged dispatch's, and its
-     ELL part must be the band kernels alone;
+     per layer for every class band, which also sums the unit rows onto
+     rows and adds them onto the dense rows; no ``ragged_ell_spmm``);
+     logits must equal the ragged dispatch's bit for bit, repeats
+     bitwise; one ``infer`` of each is profiled beside the ragged
+     dispatch's, and its ELL part must be the band kernel alone;
   8. lifecycle, on the "ragged" and the "fused" dispatch: three
      pubmed-shaped graphs of one shape class, served, then their class
      retired by a ``LifecycleManager`` window; the successors are
@@ -229,8 +230,9 @@ repository's ``src/`` next to this file. It
      three graphs and read just after (the kernels it runs must launch
      their bfloat16 instances, and no float32 one), and layer 1's X·W
      through ``ops.matmul`` (``tile_matmul``; ``gcn_forward``'s X·W is
-     ``torch.matmul``) in a window of its own. Gates: logits bfloat16, finite, bitwise across the
-     dispatches and a repeat, and bitwise the composition of the layers;
+     ``torch.matmul``) in a window of its own. Gates: logits bfloat16,
+     finite, bitwise across the dispatches and a repeat, and bitwise the
+     composition of the layers;
      each layer within ``bf16_close`` of the "torch" backend on the same
      input (``|got - ref| <= ulp_bf16(|ref|) + 2e-6 |A| @ |B|``, plus
      ``ulp_bf16`` of the dense rows, which the reference rounds on the
@@ -239,7 +241,10 @@ repository's ``src/`` next to this file. It
  20. holds each of the four kernels against its plain PyTorch version at
      the shapes its path gave it, and times kernel, plain version and one
      library call with CUDA events: for the ELL row kernels
-     (``ragged_ell_rows``, and ``ell_spmm_rows`` band after band)
+     (``ragged_ell_rows``, each unit to its band's K, and
+     ``ell_spmm_rows``, every bucket in one launch, each unit to its
+     bucket's K; also at the classes of cora and pubmed reordered by
+     labels; the K trips at Kmax and at the bound printed)
      ``torch.sparse.mm`` over a CSR of the rows with an entry, then
      ``index_add_`` onto them; ``torch.matmul`` for ``tile_matmul``
      (every block configuration timed, all bitwise-equal); for the dense
@@ -248,7 +253,9 @@ repository's ``src/`` next to this file. It
      ``segment_sum``, with ``torch.bmm`` alone beside it. Each folded
      kernel must equal its per-tile / per-unit kernel followed by
      ``segment_sum`` (for the ELL rows also the add onto the dense rows;
-     for the bands also the "loop" chain of per-bucket sums) bit for bit;
+     for the fixed-K rows also the "loop" chain of per-bucket sums and
+     the ragged kernel; for the ragged rows also the Kmax pass) bit for
+     bit;
      and, at bfloat16 (the cora class, F = 128 and 7; ``tile_matmul`` at
      every graph's layer 1 and layer 2, each time's share of its bound
      printed, and a spill of any of its wgmma instances failing the
@@ -820,26 +827,31 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
     return problems, record
 
 
+REORDERED = {"cora@labels": "cora", "pubmed@labels": "pubmed"}
+
+
 def reordered_phase(torch, engine, graphs) -> tuple:
-    """One more graph on the main path: cora at full size, reordered by
-    its planted communities (``reorder(csr, "labels", labels=
-    make_paper_dataset.last_labels)``, the paper workload's first step),
-    registered on the main path's engine and served one ``infer``, with
-    the launch counters set to 0 just before and read just after.
+    """More graphs on the main path: cora and pubmed at full size,
+    reordered by their planted communities (``reorder(csr, "labels",
+    labels=make_paper_dataset.last_labels)``, the paper workload's first
+    step), registered on the main path's engine (``REORDERED``: each with
+    its source graph's weights) and served one ``infer`` each, with the
+    launch counters set to 0 just before and read just after each.
 
     Gates: the main path's launches, one per layer of each engine that
     the graph's shape class has (the reordering moves all of cora's
     dense tiles into the ELL engine, so its class may have none, and
     then ``bsr_spmm`` has no launch), and nothing else; logits finite,
     of the graph's shape, within ``LOGIT_TOL`` of the plain "torch"
-    backend on the same reordered graph and of the main path's
-    unreordered cora logits (same weights and features; the engine
-    returns rows in the graph's own order).
+    backend on the same reordered graph and, for cora, of the main
+    path's unreordered cora logits (same weights and features; the
+    engine returns rows in the graph's own order).
 
-    Then ``bsr_spmm_rows`` once on the dense part of the graph's class,
+    Then ``bsr_spmm_rows`` once on the dense part of cora@labels' class,
     which has no tile: zeros of the row tiles' shape, and no launch.
 
-    Returns (problems, record, launch counts of the run).
+    Returns (problems, cora@labels' record with a ``graphs`` list of
+    every reordered graph's, launch counts of cora@labels' run).
     """
     from repro_torch.core.formats import b_tiles_of, plan_to, stack_plans
     from repro_torch.core.reorder import bandwidth, reorder
@@ -848,38 +860,54 @@ def reordered_phase(torch, engine, graphs) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.kernels.bsr_spmm import bsr_spmm_rows
 
-    g = graphs["cora"]
-    csr, _, _, _ = make_paper_dataset("cora", scale=1.0, seed=SEED)
-    labels = make_paper_dataset.last_labels
-    name = "cora@labels"
-    t0 = time.perf_counter()
-    engine.register(name, csr, reorder="labels", labels=labels,
-                    weights=g["ws"])
-    register_s = time.perf_counter() - t0
-    ops.reset_launch_counts()
-    y = engine.infer(name, g["xs"][0])
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    problems = []
-    sc = engine.handle(name).sclass
-    want = {"bsr_spmm": LAYERS if sc.n_dense_tiles else 0,
-            "ragged_ell_spmm": LAYERS if sc.ell_units else 0,
-            "ell_spmm": 0, "tile_matmul": 0}
-    if counts != want or counts["ragged_ell_spmm"] == 0:
-        problems.append(f"{name}: launches {counts}, want {want}")
-    if tuple(y.shape) != (g["n"], g["classes"]) or not bool(
-            torch.isfinite(y).all()):
-        problems.append(f"{name}: logits {tuple(y.shape)}, finite "
-                        f"{bool(torch.isfinite(y).all())}")
+    problems, records = [], []
     ref = Engine(device="cuda", backend="torch")
-    ref.register(name, csr, reorder="labels", labels=labels, weights=g["ws"])
-    y_ref = ref.infer(name, g["xs"][0])
-    for what, other in (("torch backend", y_ref),
-                        ("unreordered graph", g["y_infer"])):
-        if not close(y, other, **LOGIT_TOL):
-            problems.append(f"{name} vs {what}: max_abs_err "
-                            f"{max_err(y, other)}")
+    for name, src in REORDERED.items():
+        g = graphs[src]
+        csr, _, _, _ = make_paper_dataset(src, scale=1.0, seed=SEED)
+        labels = make_paper_dataset.last_labels
+        t0 = time.perf_counter()
+        engine.register(name, csr, reorder="labels", labels=labels,
+                        weights=g["ws"])
+        register_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        y = engine.infer(name, g["xs"][0])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        sc = engine.handle(name).sclass
+        want = {"bsr_spmm": LAYERS if sc.n_dense_tiles else 0,
+                "ragged_ell_spmm": LAYERS if sc.ell_units else 0,
+                "ell_spmm": 0, "tile_matmul": 0}
+        if counts != want or counts["ragged_ell_spmm"] == 0:
+            problems.append(f"{name}: launches {counts}, want {want}")
+        if tuple(y.shape) != (g["n"], g["classes"]) or not bool(
+                torch.isfinite(y).all()):
+            problems.append(f"{name}: logits {tuple(y.shape)}, finite "
+                            f"{bool(torch.isfinite(y).all())}")
+        ref.register(name, csr, reorder="labels", labels=labels,
+                     weights=g["ws"])
+        y_ref = ref.infer(name, g["xs"][0])
+        others = [("torch backend", y_ref)]
+        if src == "cora":
+            others.append(("unreordered graph", g["y_infer"]))
+        for what, other in others:
+            if not close(y, other, **LOGIT_TOL):
+                problems.append(f"{name} vs {what}: max_abs_err "
+                                f"{max_err(y, other)}")
+        records.append(dict(
+            graph=name, register_s=register_s, launches=counts,
+            err_vs_torch=max_err(y, y_ref),
+            bands=[list(b) for b in sc.bands],
+            bandwidth=[bandwidth(csr), bandwidth(reorder(
+                csr, "labels", labels=labels)[0])],
+            shape_class=sc.summary(),
+            main_path_class=engine.handle(src).sclass.summary()))
+        if src == "cora":
+            cora_counts, cora_y = counts, y
+    name = "cora@labels"
+    g = graphs["cora"]
     h = engine.handle(name)
+    sc = h.sclass
     b = torch.matmul(engine.prepare_x(name, g["xs"][0]), h.weights[0])
     c0 = ops.launch_counts()["bsr_spmm"]
     empty = bsr_spmm_rows(
@@ -899,15 +927,10 @@ def reordered_phase(torch, engine, graphs) -> tuple:
                         f"{tuple(empty.shape)}, nonzero "
                         f"{int(empty.count_nonzero())}, launches "
                         f"{ops.launch_counts()['bsr_spmm'] - c0}")
-    record = dict(graph=name, register_s=register_s, launches=counts,
-                  empty_dense_zeros=empty_ok,
-                  err_vs_torch=max_err(y, y_ref),
-                  err_vs_unreordered=max_err(y, g["y_infer"]),
-                  bandwidth=[bandwidth(csr), bandwidth(reorder(
-                      csr, "labels", labels=labels)[0])],
-                  shape_class=sc.summary(),
-                  main_path_class=engine.handle("cora").sclass.summary())
-    return problems, record, counts
+    record = dict(records[0], empty_dense_zeros=empty_ok,
+                  err_vs_unreordered=max_err(cora_y, g["y_infer"]),
+                  graphs=records)
+    return problems, record, cora_counts
 
 
 def profile_calls(torch, fn, calls: int = 5, cpu: bool = True,
@@ -1015,9 +1038,9 @@ def dispatch_ab(torch, graphs) -> tuple:
     ``infer`` per graph beside the ragged dispatch's profile
     (``graphs[name]["profile"]``).
 
-    Gates: one ``ell_spmm`` launch per class band per layer and no
-    ``ragged_ell_spmm``; logits bit for bit equal to the ragged
-    dispatch's; repeats bitwise; in the profile, band kernels and no
+    Gates: one ``ell_spmm`` launch per layer (for every class band) and
+    no ``ragged_ell_spmm``; logits bit for bit equal to the ragged
+    dispatch's; repeats bitwise; in the profile, the band kernel and no
     ``ell_rows_kernel`` on the ELL part, and no gather,
     ``segment_reduce``, scan or elementwise kernel beyond the ragged
     dispatch's (``profile_problems``).
@@ -1041,7 +1064,7 @@ def dispatch_ab(torch, graphs) -> tuple:
         for name, g in graphs.items():
             bands = len(engine.handle(name).sclass.bands)
             want = {"bsr_spmm": LAYERS, "ragged_ell_spmm": 0,
-                    "ell_spmm": LAYERS * bands, "tile_matmul": 0}
+                    "ell_spmm": LAYERS, "tile_matmul": 0}
             c0 = ops.launch_counts()
             y = engine.infer(name, g["xs"][0])
             torch.cuda.synchronize()
@@ -1070,8 +1093,7 @@ def dispatch_ab(torch, graphs) -> tuple:
                 problems.append(f"{d} {name}: repeat not bitwise-equal")
             x_dev = torch.from_numpy(g["xs"][0]).cuda()
             prof = profile_calls(torch, lambda: engine.infer(name, x_dev))
-            problems += profile_problems(f"{d} {name}", prof, g["profile"],
-                                         bands)
+            problems += profile_problems(f"{d} {name}", prof, g["profile"])
             rows.append(dict(
                 dispatch=d, graph=name, bands=bands,
                 register_s=register_s[name],
@@ -1093,19 +1115,18 @@ def dispatch_ab(torch, graphs) -> tuple:
     return problems, rows, per_dispatch
 
 
-def profile_problems(what, prof, ragged, bands) -> list:
+def profile_problems(what, prof, ragged) -> list:
     """A per-K dispatch's profile of one infer against the ragged
-    dispatch's: its ELL part is the band kernels alone, at most one per
-    band per layer. A profile may miss or add a stray event, so the
-    other kernels by name may exceed "ragged"'s by less than one per
-    infer: the chain the band kernels replace launched a gather and a
-    ``segment_reduce`` per layer."""
+    dispatch's: its ELL part is the band kernel alone, at most one per
+    layer. A profile may miss or add a stray event, so the other kernels
+    by name may exceed "ragged"'s by less than one per infer: the chain
+    the band kernel replaces launched a gather and a ``segment_reduce``
+    per layer."""
     got, base = prof["launches_per_infer"], ragged["launches_per_infer"]
     problems = []
-    if got["ell_rows_kernel"] or not 0 < got["ell_band_kernel"] <= (
-            LAYERS * bands):
+    if got["ell_rows_kernel"] or not 0 < got["ell_band_kernel"] <= LAYERS:
         problems.append(f"{what}: ELL kernels per infer {got}, want only "
-                        f"ell_band_kernel, {LAYERS * bands} per infer")
+                        f"ell_band_kernel, {LAYERS} per infer")
     extra = {k: got[k] - base[k] for k in got
              if k not in ("ell_rows_kernel", "ell_band_kernel")
              and got[k] - base[k] >= 1}
@@ -1570,12 +1591,12 @@ def csr_grads(torch, data, ws):
 
 
 def _want_launches(meta, dispatch: str) -> dict:
-    """One launch of each path kernel per layer (one per class band for
-    the fixed-K kernel) over a partition of ``meta``."""
-    bands = len(meta.ell_segments)
+    """One launch of each path kernel per layer (the fixed-K kernel's for
+    every K bucket) over a partition of ``meta``."""
+    ell = len(meta.ell_segments) > 0
     return {"bsr_spmm": LAYERS * (meta.n_dense_tiles > 0),
-            "ragged_ell_spmm": LAYERS * (dispatch == "ragged" and bands > 0),
-            "ell_spmm": LAYERS * bands * (dispatch != "ragged"),
+            "ragged_ell_spmm": LAYERS * (dispatch == "ragged" and ell),
+            "ell_spmm": LAYERS * (dispatch != "ragged" and ell),
             "tile_matmul": 0}
 
 
@@ -1793,8 +1814,11 @@ def backward_kernels(torch, data, adj) -> dict:
     ``ell_case``, ``fixed_ell_case``): ``bound_ms`` / ``bound_by`` (the
     folded function's bytes for ``bsr_spmm``, ``contract_cost`` for the
     ELL kernels) and ``library_ms`` (``torch.bmm`` + ``segment_sum``;
-    ``torch.sparse.mm`` over Aᵀ's live rows, then ``index_add_``).
-    Reads no launch counter of a path's run."""
+    ``torch.sparse.mm`` over Aᵀ's live rows, then ``index_add_``). The
+    ELL records carry the launches of one call (``launches_per_call``,
+    gated to 1: the fixed-K kernel takes every one of Aᵀ's K buckets,
+    ``buckets``, in one launch). Reads no launch counter of a path's
+    run."""
     import importlib
 
     from repro_torch.core.formats import b_tiles_of, pad_b_to_tiles
@@ -1817,7 +1841,7 @@ def backward_kernels(torch, data, adj) -> dict:
     case = ([part.dense.tiles, part.dense.tile_col, part.ell.cols,
              part.ell.vals, part.ell.tile_col, part.ell.unit_k,
              part.ell.rows], b_tiles_of(b, meta).contiguous(), meta,
-            plan.dense, plan.ell, plan.ell_bands)
+            plan.dense, plan.ell, plan.ell_bucket_k)
 
     def yardsticks(run):
         res = run(torch, case)
@@ -1842,14 +1866,17 @@ def backward_kernels(torch, data, adj) -> dict:
         if not meta.ell_segments:
             continue
         want = yd0 + hs.ell_matmul(part, b, meta, plan, dispatch=dispatch)
+        c0 = ops.launch_counts()[kname]
         got = ops.ell_matmul(part, b, meta, plan, yd0.clone(),
                              dispatch=dispatch)
+        launches = ops.launch_counts()[kname] - c0
         buf = yd0.clone()
         out[kname] = dict(
             graph=data["name"], transposed=not adj.symmetric, F=HIDDEN,
-            dispatch=dispatch,
-            max_abs_err=max_err(got, want), ok=torch.equal(got, want),
-            rows=p,
+            dispatch=dispatch, launches_per_call=launches,
+            buckets=len(meta.ell_segments),
+            max_abs_err=max_err(got, want),
+            ok=torch.equal(got, want) and launches == 1, rows=p,
             ms=device_ms(torch, lambda: ops.ell_matmul(
                 part, b, meta, plan, buf, dispatch=dispatch)),
             **yardsticks(run))
@@ -4535,10 +4562,11 @@ def checkpoint_phase(torch, smi: str, dev="cuda") -> tuple:
 
 
 # --------------------------------------------------------- kernel phase ----
-def kernel_cases(torch, engine, graphs):
+def kernel_cases(torch, engine, graphs, groups=None):
     """(graph, F, G, inputs, class meta) at the shapes the main path gave
     the sparse kernels: each graph's class-padded partition against B of
-    width 128 (layer 1) and n_classes (layer 2), alone and stacked G=4."""
+    width 128 (layer 1) and n_classes (layer 2), alone and stacked G=4
+    (``groups``: {name: group sizes} for a graph cased otherwise)."""
     from repro_torch.core.formats import b_tiles_of, plan_to, stack_plans
 
     for name, g in graphs.items():
@@ -4548,7 +4576,7 @@ def kernel_cases(torch, engine, graphs):
         # layer 2's B is relu(A·B1)·W2; relu(B1)·W2 has its shape and scale
         b2 = torch.matmul(torch.relu(b1), h.weights[1])
         for b in (b1, b2):
-            for G in (1, GROUP):
+            for G in (groups or {}).get(name, (1, GROUP)):
                 bt = b_tiles_of(b[None].expand(G, -1, -1),
                                 meta).contiguous()
                 part = [torch.stack([leaf] * G).contiguous()
@@ -4558,7 +4586,7 @@ def kernel_cases(torch, engine, graphs):
                                      h.part.ell.unit_k, h.part.ell.rows)]
                 plan = plan_to(stack_plans([h.host_plan] * G), bt.device)
                 yield dict(graph=name, F=int(b.shape[1]), G=G), (
-                    part, bt, meta, plan.dense, plan.ell, plan.ell_bands)
+                    part, bt, meta, plan.dense, plan.ell, plan.ell_bucket_k)
 
 
 def bsr_case(torch, case):
@@ -4624,19 +4652,22 @@ def bsr_case(torch, case):
         bound=bound(nbytes, flops))
 
 
-def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None) -> float:
+def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None,
+              bound=None) -> float:
     """Bytes an ELL function must move.
 
     Per unit (``plan`` None): its cols/vals lanes, tile_col, each distinct
     B row its lanes ``live`` address, and the [G, U, R, F] output.
 
-    Folded onto rows (``plan``, the ELL ``SegmentPlan``): cols/vals of the
-    unit rows the plan sums, every Kmax lane of each (the mask sits on the
-    values, so a masked lane's B row is read too, and ``live`` is not
-    used), tile_col and unit_k of their units, the plan's order, the
-    offsets and live-table entries of its live rows, each distinct B row
-    those lanes address, and the live output rows, read once and written
-    once (no per-unit output).
+    Folded onto rows (``plan``, the ELL ``SegmentPlan``; ``bound`` [U], the
+    lanes each unit's chain reads: its band's K, ragged, or its bucket's
+    K, fixed K): cols/vals of those lanes of each unit row the plan sums
+    (the ragged kernel masks the values, so a masked lane inside the band
+    is read too, and ``live`` is not used), tile_col and unit_k (or
+    bucket_k) of their units, the plan's order, the offsets and
+    live-table entries of its live rows, each distinct B row those lanes
+    address, and the live output rows, read once and written once (no
+    per-unit output).
     """
     c = cols.cpu().numpy()
     tc = tcol.cpu().numpy()
@@ -4651,14 +4682,35 @@ def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None) -> float:
     order = plan.order.cpu().numpy()
     segs = np.flatnonzero(plan.lengths.cpu().numpy())
     unit = order // r                                 # over the group
+    kb = np.asarray(bound)[unit % u]
+    read = np.arange(kmax)[None, :] < kb[:, None]
     b_rows = ((unit // u)[:, None] * (1 << 40)
               + tc.reshape(-1)[unit][:, None] * t
-              + c.reshape(-1, kmax)[order])
+              + c.reshape(-1, kmax)[order])[read]
     used_rows = len(np.unique(b_rows))
     used_offsets = len(np.unique(np.concatenate([segs, segs + 1])))
-    return (order.size * kmax * 8 + len(np.unique(unit)) * 8
+    return (int(kb.sum()) * 8 + len(np.unique(unit)) * 8
             + order.size * 8 + used_offsets * 8 + segs.size * 8
             + used_rows * f * 4 + 2 * segs.size * f * 4)
+
+
+def band_bound(meta, u, kmax) -> np.ndarray:
+    """[U] the K of each unit's band, as the reference's kernel selects
+    it: the meta's runs merged to its default 4 bands, unit u in band
+    sum(u >= off)."""
+    from repro_torch.kernels.bands import (DEFAULT_MAX_BANDS, _band_tables,
+                                           _bands_of)
+    ks, _, offs = _band_tables(_bands_of(meta.ell_segments, u, kmax,
+                                         DEFAULT_MAX_BANDS))
+    return np.asarray(ks)[np.searchsorted(offs, np.arange(u),
+                                          side="right")]
+
+
+def trips(bound, g, r, kmax) -> dict:
+    """K trips of every unit row of the group: each to Kmax, and each to
+    the bound its kernel runs it to."""
+    return {"kmax": int(g * len(bound) * r * kmax),
+            "bounded": int(g * r * np.asarray(bound).sum())}
 
 
 def rows_csr(torch, cols, vals, tcol, uk, rows, meta, nct, t):
@@ -4709,19 +4761,23 @@ def dense_rows(part, bt, dense_plan, p):
 
 def ell_case(torch, case):
     """The sparse engine as the main path runs it: one ``ragged_ell_rows``
-    launch, the per-unit products summed onto the padded rows in plan
-    order and added onto the dense engine's rows in place.
+    launch, each unit to its band's K (the meta's runs merged to 4 bands,
+    as the main path passes them), the per-unit products summed onto the
+    padded rows in plan order and added onto the dense engine's rows in
+    place.
 
-    Gates: bit for bit equal to its plain version (``ragged_ell_rows_ref``)
-    and to the parent's chain (per-unit ``ragged_ell_spmm`` +
-    ``scatter_ell_partials`` + ``yd + ye``); the per-unit kernel bit for
-    bit equal to ``ragged_ell_spmm_ref``. Yardsticks: the parent's chain
-    as one CUDA graph, the per-unit kernel alone, and ``torch.sparse.mm``
-    over a CSR of the ELL entries: over only the rows with an entry, then
-    ``index_add_`` onto those rows (``library_ms``), and over all padded
-    rows, plus the add, with the two kernels that take it the most device
-    time (cuSPARSE's SpMM time grows with the CSR's row count, even
-    where almost every row is empty)."""
+    Gates: bit for bit equal to its plain version (``ragged_ell_rows_ref``,
+    the same bands), to the parent's chain (per-unit ``ragged_ell_spmm`` +
+    ``scatter_ell_partials`` + ``yd + ye``) and to the Kmax pass
+    (``segments=()``, the parent's function: B is finite); the per-unit
+    kernel bit for bit equal to ``ragged_ell_spmm_ref``. Yardsticks: the
+    parent's chain as one CUDA graph, the per-unit kernel alone, and
+    ``torch.sparse.mm`` over a CSR of the ELL entries: over only the rows
+    with an entry, then ``index_add_`` onto those rows (``library_ms``),
+    and over all padded rows, plus the add, with the two kernels that
+    take it the most device time (cuSPARSE's SpMM time grows with the
+    CSR's row count, even where almost every row is empty). ``trips``:
+    the K trips of the group's unit rows at Kmax and at their band's K."""
     from repro_torch.core.formats import scatter_ell_partials
     from repro_torch.kernels.ell_spmm import (contract_cost,
                                               ragged_ell_contract,
@@ -4735,10 +4791,12 @@ def ell_case(torch, case):
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
     p = meta.n_padded_rows
+    segs = tuple(meta.ell_segments)
     yd = dense_rows(part, bt, dense_plan, p)
 
     def per_unit():
-        return ragged_ell_spmm(cols, vals, tcol, uk, bt, device=dev)
+        return ragged_ell_spmm(cols, vals, tcol, uk, bt, segments=segs,
+                               device=dev)
 
     def chain():
         ye = scatter_ell_partials(rows.reshape(g, u * r),
@@ -4747,11 +4805,14 @@ def ell_case(torch, case):
         return yd + ye
 
     got = ragged_ell_rows(cols, vals, tcol, uk, bt, plan, yd.clone(),
-                          device=dev)
-    want = ragged_ell_rows_ref(cols, vals, tcol, uk, bt, plan, yd.clone())
+                          segments=segs, device=dev)
+    want = ragged_ell_rows_ref(cols, vals, tcol, uk, bt, plan, yd.clone(),
+                               segments=segs)
     folded_bitwise = torch.equal(got, chain())
+    kmax_bitwise = torch.equal(got, ragged_ell_rows(
+        cols, vals, tcol, uk, bt, plan, yd.clone(), device=dev))
     per_unit_ok = torch.equal(per_unit(), ragged_ell_spmm_ref(
-        cols, vals, tcol, uk, bt))
+        cols, vals, tcol, uk, bt, segments=segs))
     buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
     all_csr, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
                                            meta, nct, t)
@@ -4762,26 +4823,33 @@ def ell_case(torch, case):
 
     lengths = plan.lengths.cpu().numpy()
     entries = plan.order.shape[0]
+    kb = band_bound(meta, u, kmax)
+    lanes = int(kb[(plan.order.cpu().numpy() // r) % u].sum())
     live = np.broadcast_to(np.arange(kmax)[None, None, None, :]
                            < uk.cpu().numpy()[:, :, None, None], cols.shape)
-    flops = 2.0 * entries * kmax * f + entries * f + (lengths > 0).sum() * f
+    flops = 2.0 * lanes * f + entries * f + (lengths > 0).sum() * f
     cost = contract_cost(ragged_ell_contract(
-        g, u, r, kmax, nct, t, f, n_slots=int(plan.live.shape[1])),
-        cols=cols, tile_col=tcol, plan=plan)
+        g, u, r, kmax, nct, t, f, segments=segs,
+        n_slots=int(plan.live.shape[1])), cols=cols, tile_col=tcol,
+        plan=plan)
     counts = dict(contract_cost=[cost["hbm_bytes"], cost["flops"]],
                   smoke=[float(ell_bytes(cols, tcol, None, t, f, g, u, r,
-                                         plan=plan)), float(flops)])
+                                         plan=plan, bound=kb)),
+                         float(flops)])
     return dict(counts=counts,
-        ok=bool(torch.equal(got, want)) and folded_bitwise and per_unit_ok,
+        ok=(bool(torch.equal(got, want)) and folded_bitwise and per_unit_ok
+            and kmax_bitwise),
         err=max_err(got, want), folded_bitwise=folded_bitwise,
-        per_unit_ok=per_unit_ok, entries=entries,
-        live_rows=int((lengths > 0).sum()),
+        kmax_bitwise=kmax_bitwise, per_unit_ok=per_unit_ok, entries=entries,
+        live_rows=int((lengths > 0).sum()), trips=trips(kb, g, r, kmax),
         ms=device_ms(torch, lambda: ragged_ell_rows(
-            cols, vals, tcol, uk, bt, plan, buf, device=dev)),
+            cols, vals, tcol, uk, bt, plan, buf, segments=segs, device=dev)),
         call_ms=call_ms(torch, lambda: ragged_ell_rows(
+            cols, vals, tcol, uk, bt, plan, buf, segments=segs, device=dev)),
+        kmax_ms=device_ms(torch, lambda: ragged_ell_rows(
             cols, vals, tcol, uk, bt, plan, buf, device=dev)),
         plain_ms=device_ms(torch, lambda: ragged_ell_rows_ref(
-            cols, vals, tcol, uk, bt, plan, plain_buf)),
+            cols, vals, tcol, uk, bt, plan, plain_buf, segments=segs)),
         library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
             0, live_ids, torch.sparse.mm(live_csr, b2))),
         library_all_rows_ms=device_ms(torch, all_rows),
@@ -4795,61 +4863,32 @@ def ell_case(torch, case):
         bound=bound(cost["hbm_bytes"], cost["flops"]))
 
 
-def band_bytes(buckets, bands, t, f) -> tuple:
-    """(bytes, operations) of one layer's band rows: cols/vals of the unit
-    rows the band plans sum (the band's K lanes of each), their units'
-    tile_col, the plans' order and their live slots' offsets, row and
-    carry entries, each distinct B row those lanes address, the live
-    output rows read and written once, and each carried row written and
-    read once."""
-    nbytes = flops = 0.0
-    b_rows, out_rows = set(), set()
-    for bk, band in zip(buckets, bands):
-        g, u, r, k = bk.cols.shape
-        order = band.order.cpu().numpy()
-        rows = band.rows.cpu().numpy()
-        carry = band.carry.cpu().numpy()
-        gi, si = np.nonzero(rows >= 0)
-        lengths = np.diff(band.offsets.cpu().numpy()).reshape(rows.shape)
-        member = np.repeat(gi, lengths[gi, si])       # member of each entry
-        unit = order // r
-        c = bk.cols.cpu().numpy().reshape(g, u * r, k)[member, order]
-        tc = bk.tile_col.cpu().numpy()[member, unit]
-        b_rows.update(((member * (1 << 20) + tc)[:, None] * t + c)
-                      .reshape(-1).tolist())
-        out_rows.update((gi * (1 << 32) + rows[gi, si]).tolist())
-        n_carried = int((carry[gi, si] >= 0).sum())
-        nbytes += (order.size * k * 8 + len(set(zip(member, unit))) * 4
-                   + order.size * 8 + (3 * gi.size + 1) * 8
-                   + n_carried * f * 4)
-        flops += 2.0 * order.size * k * f + order.size * f
-    nbytes += len(b_rows) * f * 4 + len(out_rows) * f * 8
-    flops += len(out_rows) * f
-    return nbytes, flops
-
-
 def fixed_ell_case(torch, case):
     """One layer's ELL rows as the "fused"/"loop" dispatches run them: one
-    ``ell_spmm_rows`` launch per class band, each summing its unit rows'
-    products onto the padded rows (carrying a row's sum from band to
-    band) and adding them onto the dense engine's rows in place.
+    ``ell_spmm_rows`` launch for every bucket of the class and the group,
+    each unit to its bucket's K (the plan's ``ell_bucket_k``), the unit
+    rows' products summed onto the padded rows in plan order (bucket after
+    bucket, each in unit order) in registers and added onto the dense
+    engine's rows in place.
 
-    Gates: bit for bit equal to its plain version (``ell_spmm_rows_ref``
-    band after band) and to the parent's chains: the per-unit
-    ``ell_spmm`` kernel per band, ``scatter_ell_partials`` at once
+    Gates: one launch a call; bit for bit equal to its plain version
+    (``ell_spmm_rows_ref``), to the parent's chains (the per-unit
+    ``ell_spmm`` kernel per bucket, ``scatter_ell_partials`` at once
     ("fused", in the order of ``plan.ell``) or bucket by bucket into a
-    running buffer ("loop"), then ``yd + ye``; one launch per band.
-    Yardsticks: both chains as CUDA graphs, and ``torch.sparse.mm`` over a
-    CSR of the ELL entries of only the rows with an entry, then
-    ``index_add_`` onto those rows."""
+    running buffer ("loop"), then ``yd + ye``) and to ``ragged_ell_rows``
+    (B is finite). Yardsticks: both chains as CUDA graphs, and
+    ``torch.sparse.mm`` over a CSR of the ELL entries of only the rows
+    with an entry, then ``index_add_`` onto those rows. ``trips``: the K
+    trips of the group's unit rows at Kmax and at their bucket's K."""
     from repro_torch.core.formats import (RaggedEll, bucket_plan,
                                           ell_buckets, scatter_ell_partials)
     from repro_torch.kernels import ops
     from repro_torch.kernels.ell_spmm import (contract_cost, ell_contract,
-                                              ell_spmm, ell_spmm_rows)
+                                              ell_spmm, ell_spmm_rows,
+                                              ragged_ell_rows)
     from repro_torch.kernels.ref import ell_spmm_rows_ref
 
-    part, bt, meta, dense_plan, plan, bands = case
+    part, bt, meta, dense_plan, plan, bucket_k = case
     cols, vals, tcol, uk, rows = part[2:7]
     dev = bt.device
     g, u, r, kmax = cols.shape
@@ -4857,14 +4896,10 @@ def fixed_ell_case(torch, case):
     p = meta.n_padded_rows
     buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
                           meta.ell_segments)
-    n_carry = bands[0].n_carry
-    carry = torch.zeros((g, n_carry, f), device=dev)
     yd = dense_rows(part, bt, dense_plan, p)
 
     def folded(out, rows_fn=ell_spmm_rows, **kw):
-        for bk, band in zip(buckets, bands):
-            rows_fn(bk.cols, bk.vals, bk.tile_col, bt, band, out, carry, **kw)
-        return out
+        return rows_fn(cols, vals, tcol, bt, plan, out, bucket_k, **kw)
 
     prod = torch.empty((g, u, r, f), dtype=torch.float32, device=dev)
 
@@ -4901,33 +4936,39 @@ def fixed_ell_case(torch, case):
     want = folded(yd.clone(), ell_spmm_rows_ref)
     fused_bitwise = torch.equal(got, fused_chain())
     loop_bitwise = torch.equal(got, loop_chain())
+    ragged_bitwise = torch.equal(got, ragged_ell_rows(
+        cols, vals, tcol, uk, bt, plan, yd.clone(),
+        segments=tuple(meta.ell_segments), device=dev))
     _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
                                      meta, nct, t)
     b2 = bt.reshape(g * nct * t, f)
     buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
-    nbytes, flops = band_bytes(buckets, bands, t, f)
-    seen, cost = {}, [0.0, 0.0]
-    for bk, band in zip(buckets, bands):
-        c = contract_cost(ell_contract(g, bk.cols.shape[1], r,
-                                       bk.cols.shape[-1], nct, t, f,
-                                       n_slots=int(band.rows.shape[1])),
-                          cols=bk.cols, tile_col=bk.tile_col, plan=band,
-                          seen=seen)
-        cost = [cost[0] + c["hbm_bytes"], cost[1] + c["flops"]]
-    counts = dict(contract_cost=cost, smoke=[float(nbytes), float(flops)])
+    kb = bucket_k.cpu().numpy()
+    lengths = plan.lengths.cpu().numpy()
+    entries = plan.order.shape[0]
+    lanes = int(kb[(plan.order.cpu().numpy() // r) % u].sum())
+    flops = 2.0 * lanes * f + entries * f + (lengths > 0).sum() * f
+    cost = contract_cost(ell_contract(
+        g, u, r, kmax, nct, t, f, segments=meta.ell_segments,
+        n_slots=int(plan.live.shape[1])), cols=cols, tile_col=tcol,
+        plan=plan)
+    counts = dict(contract_cost=[cost["hbm_bytes"], cost["flops"]],
+                  smoke=[float(ell_bytes(cols, tcol, None, t, f, g, u, r,
+                                         plan=plan, bound=kb)),
+                         float(flops)])
     return dict(counts=counts,
         ok=(bool(torch.equal(got, want)) and fused_bitwise and loop_bitwise
-            and launches_per_call == len(buckets)),
+            and ragged_bitwise and launches_per_call == 1),
         err=max_err(got, want), folded_bitwise=fused_bitwise,
-        loop_bitwise=loop_bitwise, launches_per_call=launches_per_call,
-        bands=[[int(bk.cols.shape[-1]), int(band.rows.shape[1])]
-               for bk, band in zip(buckets, bands)],
+        loop_bitwise=loop_bitwise, ragged_bitwise=ragged_bitwise,
+        launches_per_call=launches_per_call,
+        bands=[[int(bk.cols.shape[-1]), int(bk.cols.shape[-3])]
+               for bk in buckets],
+        trips=trips(kb, g, r, kmax),
         ms=device_ms(torch, lambda: folded(buf, device=dev)),
         call_ms=call_ms(torch, lambda: folded(buf, device=dev)),
-        # the plain version syncs (its loops and masks are sized from the
-        # plan's data), so it is timed per call, not as a CUDA graph
-        plain_ms=call_ms(torch, lambda: folded(plain_buf,
-                                               ell_spmm_rows_ref)),
+        plain_ms=device_ms(torch, lambda: folded(plain_buf,
+                                                 ell_spmm_rows_ref)),
         library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
             0, live_ids, torch.sparse.mm(live_csr, b2))),
         parent_chain_ms=device_ms(torch, fused_chain),
@@ -4940,7 +4981,7 @@ def fixed_ell_case(torch, case):
             torch, fused_chain, calls=1)["kernels_per_infer"],
         parent_loop_chain_kernels=profile_calls(
             torch, loop_chain, calls=1)["kernels_per_infer"],
-        bound=bound(*cost))
+        bound=bound(cost["hbm_bytes"], cost["flops"]))
 
 
 def matmul_case(torch, case):
@@ -5166,10 +5207,11 @@ def bf16_bsr_case(torch, case, case4):
 def bf16_ell_case(torch, case):
     """The ragged ELL rows at bfloat16 B (the partition's float32 vals, as
     the main path's bfloat16 GCN gives them), onto the bfloat16 dense
-    engine's rows: for every launch shape the kernel is built with,
-    bitwise the float32 instance on ``b.float()``, and bitwise its plain
-    version; the per-unit kernel likewise. Library: ``torch.sparse.mm``
-    over the live rows' CSR on B upcast to float32, then ``index_add_``."""
+    engine's rows, each unit to its band's K: for every launch shape the
+    kernel is built with, bitwise the float32 instance on ``b.float()``,
+    and bitwise its plain version; the per-unit kernel likewise. Library:
+    ``torch.sparse.mm`` over the live rows' CSR on B upcast to float32,
+    then ``index_add_``."""
     from repro_torch.kernels.autotune import candidates
     from repro_torch.kernels.ell_spmm import (contract_cost,
                                               ragged_ell_contract,
@@ -5183,70 +5225,69 @@ def bf16_ell_case(torch, case):
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
     p = meta.n_padded_rows
+    segs = tuple(meta.ell_segments)
     b16 = bt.to(bf16)
     b32 = b16.float()
     yd = dense_rows(part, b16, dense_plan, p)
     tunes = candidates(f)
-    equal = all(torch.equal(
-        ragged_ell_rows(cols, vals, tcol, uk, b16, plan, yd.clone(),
-                        tune=tn, device=dev),
-        ragged_ell_rows(cols, vals, tcol, uk, b32, plan, yd.clone(),
-                        tune=tn, device=dev)) for tn in tunes)
-    got = ragged_ell_rows(cols, vals, tcol, uk, b16, plan, yd.clone(),
-                          device=dev)
-    want = ragged_ell_rows_ref(cols, vals, tcol, uk, b16, plan, yd.clone())
+
+    def rows_of(b, out, **kw):
+        return ragged_ell_rows(cols, vals, tcol, uk, b, plan, out,
+                               segments=segs, device=dev, **kw)
+
+    equal = all(torch.equal(rows_of(b16, yd.clone(), tune=tn),
+                            rows_of(b32, yd.clone(), tune=tn))
+                for tn in tunes)
+    got = rows_of(b16, yd.clone())
+    want = ragged_ell_rows_ref(cols, vals, tcol, uk, b16, plan, yd.clone(),
+                               segments=segs)
     per_unit = torch.equal(
-        ragged_ell_spmm(cols, vals, tcol, uk, b16, device=dev),
-        ragged_ell_spmm(cols, vals, tcol, uk, b32, device=dev))
+        ragged_ell_spmm(cols, vals, tcol, uk, b16, segments=segs,
+                        device=dev),
+        ragged_ell_spmm(cols, vals, tcol, uk, b32, segments=segs,
+                        device=dev))
     _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
                                      meta, nct, t)
     b2 = b16.reshape(g * nct * t, f)
     buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
     cost = contract_cost(ragged_ell_contract(
-        g, u, r, kmax, nct, t, f, n_slots=int(plan.live.shape[1]),
-        b_dtype=bf16), cols=cols, tile_col=tcol, plan=plan)
+        g, u, r, kmax, nct, t, f, segments=segs,
+        n_slots=int(plan.live.shape[1]), b_dtype=bf16), cols=cols,
+        tile_col=tcol, plan=plan)
     return dict(
         ok=equal and per_unit and torch.equal(got, want),
         err=max_err(got, want), shapes_bitwise_f32=equal,
         launch_shapes=len(tunes), per_unit_bitwise_f32=per_unit,
-        ms=device_ms(torch, lambda: ragged_ell_rows(
-            cols, vals, tcol, uk, b16, plan, buf, device=dev)),
-        call_ms=call_ms(torch, lambda: ragged_ell_rows(
-            cols, vals, tcol, uk, b16, plan, buf, device=dev)),
+        ms=device_ms(torch, lambda: rows_of(b16, buf)),
+        call_ms=call_ms(torch, lambda: rows_of(b16, buf)),
         plain_ms=device_ms(torch, lambda: ragged_ell_rows_ref(
-            cols, vals, tcol, uk, b16, plan, plain_buf)),
+            cols, vals, tcol, uk, b16, plan, plain_buf, segments=segs)),
         library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
             0, live_ids, torch.sparse.mm(live_csr, b2.float()))),
         bound=bound(cost["hbm_bytes"], cost["flops"]))
 
 
 def bf16_fixed_ell_case(torch, case):
-    """The fixed-K band rows at bfloat16 B, band after band onto the
-    bfloat16 dense engine's rows: bitwise the float32 instances on
+    """The fixed-K rows at bfloat16 B, every bucket in one launch onto the
+    bfloat16 dense engine's rows: bitwise the float32 instance on
     ``b.float()`` and bitwise the plain version. Library as for the
     ragged kernel."""
-    from repro_torch.core.formats import RaggedEll, ell_buckets
     from repro_torch.kernels.ell_spmm import (contract_cost, ell_contract,
                                               ell_spmm_rows)
     from repro_torch.kernels.ref import ell_spmm_rows_ref
 
     bf16 = torch.bfloat16
-    part, bt, meta, dense_plan, plan, bands = case
+    part, bt, meta, dense_plan, plan, bucket_k = case
     cols, vals, tcol, uk, rows = part[2:7]
     dev = bt.device
     g, u, r, kmax = cols.shape
     nct, t, f = bt.shape[1:]
     p = meta.n_padded_rows
     b16 = bt.to(bf16)
-    buckets = ell_buckets(RaggedEll(cols, vals, rows, tcol, uk),
-                          meta.ell_segments)
-    carry = torch.zeros((g, bands[0].n_carry, f), device=dev)
     yd = dense_rows(part, b16, dense_plan, p)
 
     def folded(out, b, rows_fn=ell_spmm_rows, **kw):
-        for bk, band in zip(buckets, bands):
-            rows_fn(bk.cols, bk.vals, bk.tile_col, b, band, out, carry, **kw)
-        return out
+        return rows_fn(cols, vals, tcol, b, plan, out, bucket_k, **kw)
 
     got = folded(yd.clone(), b16, device=dev)
     equal = torch.equal(got, folded(yd.clone(), b16.float(), device=dev))
@@ -5255,25 +5296,20 @@ def bf16_fixed_ell_case(torch, case):
                                      meta, nct, t)
     b2 = b16.reshape(g * nct * t, f)
     buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
-    seen, cost = {}, [0.0, 0.0]
-    for bk, band in zip(buckets, bands):
-        c = contract_cost(ell_contract(g, bk.cols.shape[1], r,
-                                       bk.cols.shape[-1], nct, t, f,
-                                       n_slots=int(band.rows.shape[1]),
-                                       b_dtype=bf16),
-                          cols=bk.cols, tile_col=bk.tile_col, plan=band,
-                          seen=seen)
-        cost = [cost[0] + c["hbm_bytes"], cost[1] + c["flops"]]
+    cost = contract_cost(ell_contract(
+        g, u, r, kmax, nct, t, f, segments=meta.ell_segments,
+        n_slots=int(plan.live.shape[1]), b_dtype=bf16), cols=cols,
+        tile_col=tcol, plan=plan)
     return dict(
         ok=equal and torch.equal(got, want), err=max_err(got, want),
-        bitwise_f32=equal, bands=len(buckets),
+        bitwise_f32=equal, bands=len(meta.ell_segments),
         ms=device_ms(torch, lambda: folded(buf, b16, device=dev)),
         call_ms=call_ms(torch, lambda: folded(buf, b16, device=dev)),
-        plain_ms=call_ms(torch, lambda: folded(plain_buf, b16,
-                                               ell_spmm_rows_ref)),
+        plain_ms=device_ms(torch, lambda: folded(plain_buf, b16,
+                                                 ell_spmm_rows_ref)),
         library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
             0, live_ids, torch.sparse.mm(live_csr, b2.float()))),
-        bound=bound(*cost))
+        bound=bound(cost["hbm_bytes"], cost["flops"]))
 
 
 def bf16_matmul_case(torch, a, b):
@@ -5429,18 +5465,21 @@ KERNELS = (
 
 
 def kernel_phase(torch, engine, graphs, launches, matmul_cases,
-                 build_log, reordered: str) -> tuple:
+                 build_log, reordered: dict) -> tuple:
     """Hold each kernel against its plain version at every shape its path
     gave it, and time it. ``launches`` maps each kernel to the count of
     its path's run, or to {path: count} for a kernel of several paths
     (``launches`` is then the first path's count); ``build_log`` is the
     build's log, whose ptxas lines each entry carries. The ELL kernels
-    also run at the shapes of the ``reordered`` graph (cora reordered by
-    labels, whose class puts every tile into the ELL engine)."""
+    also run at the shapes of the ``reordered`` graphs ({name: the graph
+    whose features and weights it serves}: cora and pubmed reordered by
+    labels, whose classes put every tile into the ELL engine and have
+    several K bands; pubmed's at G = 1 only)."""
     problems, entries = [], []
     ell = list(kernel_cases(torch, engine, dict(
-        graphs, **{reordered: graphs["cora"]})))
-    cases = {"sparse": [c for c in ell if c[0]["graph"] != reordered],
+        graphs, **{n: graphs[src] for n, src in reordered.items()}),
+        groups={n: (1,) for n, src in reordered.items() if src != "cora"}))
+    cases = {"sparse": [c for c in ell if c[0]["graph"] not in reordered],
              "ell": ell,
              "matmul": [(dict(graph=name, layer=layer,
                               shape=[int(a.shape[0]), int(a.shape[1]),
@@ -5455,7 +5494,9 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                        bound_ms=res["bound"][0], bound_by=res["bound"][1],
                        max_abs_err=res["err"])
             for extra in ("launches_per_call", "folded_bitwise",
-                          "loop_bitwise", "bands", "parent_loop_chain_ms",
+                          "loop_bitwise", "ragged_bitwise", "kmax_bitwise",
+                          "kmax_ms", "trips", "bands",
+                          "parent_loop_chain_ms",
                           "kernels_per_call", "parent_chain_kernels",
                           "parent_loop_chain_kernels",
                           "per_tile_ok", "tiles_summed", "row_tiles",
@@ -5486,6 +5527,14 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                   f"{res['library_ms']:.4f} ms  bound "
                   f"{res['bound'][0]:.5f} ms "
                   f"({res['bound'][1]})  max_abs_err {res['err']:.3g}")
+            if "trips" in res:
+                print(f"    K trips: {res['trips']['kmax']} at Kmax, "
+                      f"{res['trips']['bounded']} at the "
+                      + ("band K (Kmax pass "
+                         f"{res['kmax_ms']:.4f} ms, bitwise "
+                         f"{res['kmax_bitwise']})" if "kmax_ms" in res
+                         else "bucket K (ragged bitwise "
+                         f"{res['ragged_bitwise']})"))
             if "config_ms" in res:
                 print("    configs " + json.dumps(res["config_ms"])
                       + f" bitwise {res['configs_bitwise']}")
@@ -5503,7 +5552,7 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                       f"{res['parent_chain_kernels']}, "
                       f"{res['parent_loop_chain_kernels']})  "
                       f"bitwise fused {res['folded_bitwise']} loop "
-                      f"{res['loop_bitwise']}  [K, live rows] per band "
+                      f"{res['loop_bitwise']}  [K, units] per bucket "
                       f"{res['bands']}")
             elif "parent_chain_ms" in res:
                 print(f"    parent chain {res['parent_chain_ms']:.4f} ms  "
@@ -5516,6 +5565,7 @@ def kernel_phase(torch, engine, graphs, launches, matmul_cases,
                       f"onto {res['live_rows']} live rows")
             if not res["ok"]:
                 why = {k: res[k] for k in ("folded_bitwise", "loop_bitwise",
+                                           "ragged_bitwise", "kmax_bitwise",
                                            "per_unit_ok", "per_tile_ok",
                                            "configs_bitwise",
                                            "launches_per_call") if k in res}
@@ -5795,7 +5845,7 @@ def main() -> None:
                 "ell_spmm": {d: c["ell_spmm"] for d, c in ab_counts.items()},
                 "tile_matmul": mm_counts["tile_matmul"]}
     kproblems, entries = kernel_phase(torch, engine, graphs, launches,
-                                      mm_cases, log, reordered["graph"])
+                                      mm_cases, log, REORDERED)
     problems += kproblems
     for entry in entries:
         back = bwd_kernels.get(entry["name"])
@@ -5809,7 +5859,9 @@ def main() -> None:
             print(f"  {entry['name'] + ' backward':16s} {v['graph']} F="
                   f"{v['F']}: kernel {v['ms']:.4f} ms  library "
                   f"{v['library_ms']:.4f} ms  bound {v['bound_ms']:.5f} ms "
-                  f"({v['bound_by']})")
+                  f"({v['bound_by']})"
+                  + (f"  launches {v['launches_per_call']} for "
+                     f"{v['buckets']} buckets" if "buckets" in v else ""))
         if entry["name"] == "ragged_ell_spmm":
             entry["tuned"] = [dict(graph=r["graph"], f=r["f"],
                                    shape_class=r["shape_class"],

@@ -25,7 +25,12 @@ anything:
 - **vec-align**: 16-byte rows (``vec`` 4) only where F % 4 == 0 and
   both pointers are 16-byte aligned.
 - **index-bounds**: worst-case stand-ins of the index operands
-  (``tile_col < nct``, ``cols < T``, ``unit_k <= Kmax``) lie in range.
+  (``tile_col < nct``, ``cols < T``, ``unit_k <= Kmax``, ``bucket_k <=
+  Kmax``) lie in range.
+- **bands**: the ELL kernels' band table (the ragged kernel's K bands,
+  the fixed-K kernel's buckets): Ks strictly descending, each in
+  [0, Kmax], the units' counts summing to U; the ragged kernel takes at
+  most ``MAX_BANDS`` bands (by value).
 - **registers**: where the build's ``-Xptxas -v`` log holds the
   instance, its registers times the block's threads must fit the SM's
   64 K registers, and it must not spill: any spill store or spill load
@@ -49,6 +54,7 @@ from repro_torch.analysis.static.report import Finding
 from repro_torch.engine.shape_class import (ClassNeed, ShapeClass,
                                            ShapePolicy, class_fits)
 from repro_torch.kernels import _build
+from repro_torch.kernels.bands import MAX_BANDS, unit_bounds
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
                                           ragged_ell_contract)
@@ -145,6 +151,9 @@ def check_contract(contract: dict, *, scalar_args: Sequence = (),
             f"{contract['aligned16']}): 16-byte rows need F % 4 == 0 and "
             "16-byte aligned B and output")
 
+    if "bands" in contract:
+        findings.extend(check_bands(contract))
+
     bounds = contract["index_bounds"]
     if len(scalar_args) != len(bounds):
         err("index-bounds", f"contract names {len(bounds)} index "
@@ -181,6 +190,29 @@ def check_contract(contract: dict, *, scalar_args: Sequence = (),
             err("registers", f"{e['name']}: {e['registers']} registers x "
                 f"{threads} threads > {REGISTERS_PER_SM}")
     return findings
+
+
+def check_bands(contract: dict) -> List[Finding]:
+    """The band table of an ELL contract: Ks strictly descending, each
+    in [0, Kmax], counts summing to the units, and at most ``MAX_BANDS``
+    bands for the ragged kernel."""
+    _, u, _, kmax = contract["shapes"]["cols"]
+    bands = tuple(contract["bands"])
+    ks = [k for k, _ in bands]
+    msgs = []
+    if any(a <= b for a, b in zip(ks, ks[1:])):
+        msgs.append(f"band Ks {ks} do not descend")
+    if any(not 0 <= k <= kmax for k in ks):
+        msgs.append(f"band Ks {ks} outside [0, Kmax={kmax}]: a chain "
+                    "would read past the slab's lanes")
+    if sum(n for _, n in bands) != u or any(n <= 0 for _, n in bands):
+        msgs.append(f"band counts {[n for _, n in bands]} do not cover "
+                    f"the {u} units")
+    if contract["kernel"] == "ell_rows_kernel" and len(bands) > MAX_BANDS:
+        msgs.append(f"{len(bands)} bands: the ragged kernel takes at most "
+                    f"{MAX_BANDS}")
+    return [Finding("kernel", "bands", "error", contract["name"], m)
+            for m in msgs]
 
 
 # ----------------------------------------------------------- class fit -----
@@ -261,10 +293,11 @@ def contracts_for_class(sc: ShapeClass, f_widths: Sequence[int],
     member of ``sc`` at each feature width, with worst-case index
     stand-ins (``repro_torch.kernels.autotune.class_stand_ins``: every
     unit on the LAST column tile at its band slot's FULL K): the ragged
-    kernel in the launch shape ``tune`` (clamped at each width; None =
-    the defaults), which is how the autotuner audits its candidates, and
-    the fixed-K kernel on each class band; for each (vals, B) type pair
-    of ``ELL_DTYPES``."""
+    kernel with the class's bands in the launch shape ``tune`` (clamped
+    at each width; None = the defaults), which is how the autotuner
+    audits its candidates, and the fixed-K kernel over the class's
+    buckets (one launch a layer); for each (vals, B) type pair of
+    ``ELL_DTYPES``."""
     from repro_torch.kernels.autotune import class_stand_ins
     out = []
     if not (sc.ell_units and sc.ell_kmax):
@@ -273,15 +306,13 @@ def contracts_for_class(sc: ShapeClass, f_widths: Sequence[int],
     for f, (vt, bt) in itertools.product(f_widths, ELL_DTYPES):
         types = dict(vals_dtype=getattr(torch, vt),
                      b_dtype=getattr(torch, bt))
-        out.append((ragged_ell_contract(
-            1, sc.ell_units, sc.r_block, sc.ell_kmax, sc.n_col_tiles,
-            sc.tile, f, tune=tune, **types), (tile_col, cols, unit_k)))
-        at = 0
-        for k, n in sc.bands:
-            out.append((ell_contract(1, n, sc.r_block, k, sc.n_col_tiles,
-                                     sc.tile, f, **types),
-                        (tile_col[:, at:at + n], cols[:, at:at + n, :, :k])))
-            at += n
+        shape = (1, sc.ell_units, sc.r_block, sc.ell_kmax, sc.n_col_tiles,
+                 sc.tile, f)
+        out.append((ragged_ell_contract(*shape, segments=sc.bands,
+                                        tune=tune, **types),
+                    (tile_col, cols, unit_k)))
+        out.append((ell_contract(*shape, segments=sc.bands, **types),
+                    (tile_col, cols, unit_bounds(sc.bands))))
     return out
 
 
@@ -291,7 +322,7 @@ def run_kernel_pass(engine=None, *, device="cuda",
                     ) -> List[Finding]:
     """Repo-level entry: audit every contract the engine's registered
     classes imply at each of ``f_widths`` (ragged kernel in each class's
-    applied tuning at that width, fixed-K kernel per band; each for
+    applied tuning at that width, fixed-K kernel over the buckets; each for
     every (vals, B) type pair of ``ELL_DTYPES``), the dense matmul
     contract in every configuration and operand type, and every
     (member, class) fit in the engine.

@@ -347,43 +347,19 @@ def segment_live(member_lengths) -> np.ndarray:
     return out
 
 
-class BandPlan(NamedTuple):
-    """One class band's share of the ELL reduction, for the kernel that
-    sums the band's unit rows onto padded rows and adds them onto the
-    dense engine's rows in the same launch (``ell_spmm_rows``, the
-    "fused"/"loop" dispatches).
-
-    Entries are the band's unit rows numbered per member as in its
-    bucket view [U_b, R] (``u * R + r``); padded rows are numbered per
-    member too. ``rows`` [G, L] lists, per member, the padded rows that
-    the band reaches, ascending, padded with -1 to the member with the
-    most: the kernel's grid. Slot j of the flattened table sums
-    ``order[offsets[j]:offsets[j + 1]]`` in that order (unit order).
-    ``carry`` [G, L] is -1 for a row that no other band reaches, else
-    ``(c << 2) | (carry_in << 1) | carry_out``: the row's slot ``c`` in a
-    carry buffer [G, n_carry, F], whether an earlier band left the row's
-    running sum there, and whether a later band adds onto it.
-    """
-
-    order: torch.Tensor    # [n_sel] int64
-    offsets: torch.Tensor  # [G * L + 1] int64
-    rows: torch.Tensor     # [G, L] int64, -1 past a member's last
-    carry: torch.Tensor    # [G, L] int64
-    n_carry: int           # carry slots per member
-
-
 class ReductionPlan(NamedTuple):
     """The per-partition reductions onto output rows.
 
-    ``ell_bands`` holds one ``BandPlan`` per ``ell_buckets`` bucket of
-    ``meta.ell_segments`` (``band_plans``): the per-K dispatches' row
-    sums. Hand-built plans may leave it ``()``.
+    ``ell_bucket_k`` [U] int32 is the K of each ELL unit's bucket of
+    ``meta.ell_segments`` (``bucket_bounds``; every member of a group
+    shares it): the per-K dispatches' kernel reads each unit to it.
+    Hand-built plans may leave it None.
     """
 
     dense: SegmentPlan   # dense tile products -> row tiles (over tile_row)
     ell: SegmentPlan     # ELL unit rows -> padded rows (sentinel dropped)
     coo: SegmentPlan     # COO products -> padded rows
-    ell_bands: tuple = ()   # BandPlan per bucket ("fused"/"loop")
+    ell_bucket_k: object = None   # [U] int32 bucket K ("fused"/"loop")
 
 
 def segment_plan(dest: np.ndarray, n_segments: int,
@@ -418,46 +394,18 @@ def _ell_plan(rows: np.ndarray, meta: PartitionMeta) -> SegmentPlan:
                         rows != meta.ell_sentinel_row)
 
 
-def band_plans(rows: np.ndarray, meta: PartitionMeta) -> tuple:
-    """Host ``BandPlan``s of one member's ELL ``rows`` [U, R], one per
-    bucket of ``meta.ell_segments``.
+def bucket_runs(u: int, kmax: int, segments=()) -> tuple:
+    """The fixed-K buckets ((K, n_units), ...) of a ``u``-unit array, as
+    ``ell_buckets`` cuts it (one Kmax bucket without ``segments``)."""
+    return tuple((k, sl.stop - sl.start)
+                 for k, sl in _bucket_slices(u, kmax, segments))
 
-    A padded row reached by several bands takes its entries band after
-    band, each band's in unit order: with the running sum carried from
-    band to band and added onto the dense row by the last band that
-    reaches it, every row sums its entries from +0 in the order of the
-    one "fused" ``segment_sum`` (``_ell_plan``), which is also the order
-    of the reference's "loop" (one sequential scatter per bucket).
-    """
-    rows = np.asarray(rows, np.int64)
-    slices = _bucket_slices(rows.shape[0], 0, meta.ell_segments)
-    if not slices:
-        return ()
-    p = meta.n_padded_rows
-    reach = np.zeros((len(slices), p + 1), bool)      # + the sentinel row
-    for b, (_, sl) in enumerate(slices):
-        reach[b, rows[sl].reshape(-1)] = True
-    reach = reach[:, :p]
-    shared = reach.sum(0) > 1
-    slot = np.cumsum(shared) - 1
-    first = reach.argmax(0)
-    last = len(slices) - 1 - reach[::-1].argmax(0)
-    out = []
-    for b, (_, sl) in enumerate(slices):
-        br = rows[sl].reshape(-1)
-        keep = np.flatnonzero(br != meta.ell_sentinel_row)
-        order = keep[np.argsort(br[keep], kind="stable")]
-        live, lengths = np.unique(br[order], return_counts=True)
-        carry_in = (first[live] < b).astype(np.int64)
-        carry_out = (last[live] > b).astype(np.int64)
-        carry = np.where(shared[live],
-                         (slot[live] << 2) | (carry_in << 1) | carry_out, -1)
-        out.append(BandPlan(order=order.astype(np.int64),
-                            offsets=segment_offsets(lengths),
-                            rows=live[None].astype(np.int64),
-                            carry=carry[None].astype(np.int64),
-                            n_carry=int(shared.sum())))
-    return tuple(out)
+
+def bucket_bounds(u: int, kmax: int, segments=()) -> np.ndarray:
+    """[U] int32: the K of each unit's bucket (``bucket_runs``)."""
+    runs = bucket_runs(u, kmax, segments)
+    return np.repeat([k for k, _ in runs],
+                     [n for _, n in runs]).astype(np.int32)
 
 
 def bucket_plan(rows, meta: PartitionMeta, device=None) -> SegmentPlan:
@@ -511,7 +459,8 @@ def _member_plan(part: TriPartition, meta: PartitionMeta) -> ReductionPlan:
         to_numpy(part.coo.vals), np.float32).view(np.uint32) == 0
     coo = segment_plan(crow, meta.n_padded_rows, _first_of_each(
         np.stack([crow, ccol], 1), pos_zero))
-    return ReductionPlan(dense, ell, coo, band_plans(ell_rows, meta))
+    return ReductionPlan(dense, ell, coo, bucket_bounds(
+        part.ell.cols.shape[-3], part.ell.cols.shape[-1], meta.ell_segments))
 
 
 def _stack_segments(segs) -> SegmentPlan:
@@ -525,34 +474,11 @@ def _stack_segments(segs) -> SegmentPlan:
         live=segment_live(member_lengths))
 
 
-def _stack_bands(bands) -> BandPlan:
-    """Concatenate band plans (of one band) over the group axis; ``rows``
-    and ``carry`` are padded with -1 to the longest member."""
-    rows = [to_numpy(b.rows) for b in bands]
-    width = max(r.shape[1] for r in rows)
-    g = sum(r.shape[0] for r in rows)
-    table = {name: np.full((g, width), -1, np.int64)
-             for name in ("rows", "carry")}
-    lengths = np.zeros((g, width), np.int64)
-    at = 0
-    for b, r in zip(bands, rows):
-        n, w = r.shape
-        table["rows"][at:at + n, :w] = r
-        table["carry"][at:at + n, :w] = to_numpy(b.carry)
-        lengths[at:at + n, :w] = np.diff(to_numpy(b.offsets)).reshape(n, w)
-        at += n
-    return BandPlan(order=np.concatenate([to_numpy(b.order) for b in bands]),
-                    offsets=segment_offsets(lengths.reshape(-1)),
-                    rows=table["rows"], carry=table["carry"],
-                    n_carry=max(b.n_carry for b in bands))
-
-
 def stack_plans(plans) -> ReductionPlan:
     """Concatenate members' plans into one plan over a group axis."""
     return ReductionPlan(
         *(_stack_segments([p[i] for p in plans]) for i in range(3)),
-        ell_bands=tuple(_stack_bands(list(bands)) for bands in
-                        zip(*[p.ell_bands for p in plans])))
+        ell_bucket_k=plans[0].ell_bucket_k)
 
 
 def reduction_plan(part: TriPartition, meta: PartitionMeta,
@@ -581,15 +507,11 @@ def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
                        _to_tensor(seg.live, np.int64, device))
 
 
-def _bands_to(band: BandPlan, device) -> BandPlan:
-    return BandPlan(*(_to_tensor(a, np.int64, device) for a in band[:4]),
-                    n_carry=band.n_carry)
-
-
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:
     return ReductionPlan(
         *(_segments_to(s, device) for s in plan[:3]),
-        ell_bands=tuple(_bands_to(b, device) for b in plan.ell_bands))
+        ell_bucket_k=(None if plan.ell_bucket_k is None else _to_tensor(
+            plan.ell_bucket_k, np.int32, device)))
 
 
 class IdentityCache:

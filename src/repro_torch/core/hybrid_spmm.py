@@ -10,7 +10,7 @@ TriPartition, dispatching each component to its engine:
                  (``"fused"``/``"loop"``, the per-K A/B dispatches); on
                  the ``cuda`` backend the kernels also sum the unit rows
                  onto output rows and add them onto the dense engine's
-                 rows (one launch, or one per bucket)
+                 rows (one launch a layer)
   COO residual-> take + segment sum        (flexible engine)
 
 The three partial products add as ``(dense + ell) + coo`` on both
@@ -93,7 +93,9 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     reference's structure.
 
     ``"ragged"`` runs one masked Kmax pass over the concatenated unit
-    array; ``"fused"``/``"loop"`` run one fixed-K pass per bucket of
+    array (the reference's XLA mirror; the ``cuda`` backend's kernel runs
+    each unit only to its band's K, the same bits for finite B);
+    ``"fused"``/``"loop"`` run one fixed-K pass per bucket of
     ``meta.ell_segments``. The products are reduced onto rows at once
     (``"ragged"``, ``"fused"``, in the order of ``plan.ell``) or bucket by
     bucket into a running buffer (``"loop"``, as the reference's

@@ -11,9 +11,9 @@ above it see the same behaviour.
 
 The batched variant runs the same forward over a leading group axis
 ``G``: every CUDA kernel takes ``G`` as a grid dimension, so a group of
-any size costs the launches of one graph per layer (one of each kernel
-with the ragged ELL dispatch; one ``ell_spmm`` per class band with
-"fused"/"loop").
+any size costs the launches of one graph per layer: one of each kernel,
+with the ragged ELL dispatch or with "fused"/"loop" (one ``ell_spmm``
+for every class band).
 
 An autotuned ragged-kernel launch shape (``set_tuned``, fed by
 ``Engine.autotune``, one per class and feature width) rides in every

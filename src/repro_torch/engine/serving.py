@@ -149,7 +149,7 @@ class Engine:
     plain PyTorch versions (the reference's ``"xla"`` counterpart).
     ``ell_dispatch`` is ``"ragged"`` (one ``ragged_ell_spmm`` launch per
     layer) or one of the per-K A/B dispatches ``"fused"``/``"loop"``
-    (one ``ell_spmm`` launch per class band per layer).
+    (one ``ell_spmm`` launch per layer for every class band).
     """
 
     def __init__(self, *, policy: ShapePolicy = ShapePolicy(),

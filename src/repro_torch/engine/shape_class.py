@@ -32,7 +32,7 @@ import numpy as np
 from repro_torch.core.formats import (CooResidual, DenseTiles,
                                       PartitionMeta, RaggedEll, TriPartition,
                                       to_numpy)
-from repro_torch.kernels.ell_spmm import DEFAULT_MAX_BANDS, merge_bands
+from repro_torch.kernels.bands import DEFAULT_MAX_BANDS, merge_bands
 
 # Canonical slab widths for the ragged ELL array. Power-of-two rungs
 # bound Kmax-padding waste at 2x on the widest unit; unlike the retired

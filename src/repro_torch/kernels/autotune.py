@@ -223,17 +223,19 @@ class Autotuner:
         """
         from repro_torch.analysis.static.kernel_pass import check_contract
         c = ragged_ell_contract(1, sc.ell_units, sc.r_block, sc.ell_kmax,
-                                sc.n_col_tiles, sc.tile, f, tune=cfg)
+                                sc.n_col_tiles, sc.tile, f,
+                                segments=sc.bands, tune=cfg)
         return check_contract(c, scalar_args=class_stand_ins(sc))
 
     # ----------------------------------------------------------- timing -----
-    def _measure(self, cfg: dict, data: tuple) -> float:
-        """Device seconds of one tuned ``ragged_ell_rows`` launch."""
+    def _measure(self, cfg: dict, data: tuple, segments: tuple) -> float:
+        """Device seconds of one tuned ``ragged_ell_rows`` launch, with
+        the class's K bands ``segments``."""
         from .ell_spmm import ragged_ell_rows
         cols, vals, tile_col, unit_k, b, plan, out = data
         return device_seconds(lambda: ragged_ell_rows(
-            cols, vals, tile_col, unit_k, b, plan, out, tune=cfg,
-            device=self.device), self.reps)
+            cols, vals, tile_col, unit_k, b, plan, out, segments=segments,
+            tune=cfg, device=self.device), self.reps)
 
     # ------------------------------------------------------------ sweep -----
     def tune(self, sc, f: int, *, operands: Optional[Callable] = None
@@ -291,7 +293,7 @@ class Autotuner:
             else:
                 if data is None:
                     data = operands()
-                secs = self._measure(cfg, data)
+                secs = self._measure(cfg, data, sc.bands)
             row["ms"] = secs * 1e3
             self.timed += 1
             if best is None or secs < best[0]:  # strict: first min wins

@@ -2,23 +2,37 @@
 // a padded row's unit rows that computes each unit row's product and adds
 // it onto the row's sum. Both ELL sources include it:
 //
-//   ragged_ell_spmm.cu  the ragged unit array [G, U, R, Kmax], masked by
-//                       the per-unit live K (`unit_k`): the main path;
-//   ell_spmm.cu         one fixed-K band [G, U_b, R, K_b] of it, read in
-//                       place through the band view's strides, K_b the
-//                       loop bound: the "fused"/"loop" dispatches.
+//   ragged_ell_spmm.cu  the ragged unit array [G, U, R, Kmax] (kBanded): each
+//                       unit to the K of its band, the values masked by the
+//                       per-unit live K (`unit_k`): the main path;
+//   ell_spmm.cu         the same array with each unit to the K of its fixed-K
+//                       bucket (kBucketed, `bucket_k`, no value mask): the
+//                       "fused"/"loop" dispatches, one launch a layer; and
+//                       one bucket's view [G, U_b, R, K_b] read in place
+//                       through its strides (kView, K_b the bound): the TPU
+//                       kernel's own per-bucket function.
 //
-// For a unit row e the product is one chain from +0, in ascending kk,
+// For a unit row e of unit u the product is one chain from +0, in ascending
+// kk < kb(u),
 //
 //   p_e[:] = p_e[:] + (kk < unit_k ? vals[e,kk] : 0) * B[tile_col, cols[e,kk], :]
 //
 // with multiply and add rounded on their own (__fmul_rn / __fadd_rn, never
 // contracted into an FMA); the mask sits on the values, so a masked lane
 // still multiplies 0 by its B row (a non-finite B row propagates, as in the
-// reference). In the fixed-K form unit_k is K_b: every lane is live, and
-// lanes past K_b are never read. The row's sum is acc = acc + p_e over its
-// unit rows in plan order, from whatever value the caller starts acc at
-// (+0, or a sum carried from an earlier band).
+// reference). kb(u) is, for kBanded, the K of u's band: the partition's
+// descending (K, n_units) runs merged to at most 4 bands (the reference's
+// `_bands_of`), passed by value (`Bands`), u's band being sum(u >= off), as
+// the TPU kernel `_ragged_ell_kernel` selects its chain; lanes in [band K,
+// Kmax) are never read, exactly as there. For kBucketed kb(u) = bucket_k[u]
+// and every lane below it is live (unit_k <= K_b and the slab's lanes past
+// unit_k hold 0); for kView it is the view's K_b. The row's sum is acc =
+// acc + p_e over its unit rows in plan order, from +0.
+//
+// Bits. With finite B a lane past unit_k adds 0 * x = +-0 to a chain that
+// starts at +0 and is never -0 (x + y is -0 only when both are), so where
+// the chain stops past unit_k does not change its bits: the banded chain,
+// the Kmax chain and the bucket's chain agree bit for bit on finite B.
 //
 // What bounds it on the H100: bytes. An entry does K multiply-adds per
 // feature on K gathered B rows, about a quarter of an operation per byte,
@@ -32,11 +46,14 @@
 // Design. A group of W lanes owns one padded row; lanes run over features,
 // VEC contiguous elements each (one 16-byte load of 4 floats, or one
 // 8-byte load of 4 bfloat16, when the row stride allows; else one
-// element). For each unit row the group reads its tile_col (and
-// unit_k), then, in chunks of KC lanes of the K axis, lane i loads cols/vals
-// of lane k0+i (coalesced) and passes them round with shuffles; every lane
-// then issues the chunk's KC independent B-row loads before its
-// multiply-add chain, so KC loads are in flight per lane. Only the B rows
+// element). For each unit row the group reads its tile_col (and unit_k or
+// bucket_k), then, W lanes of the K axis at a time up to kb(u), lane i
+// loads cols/vals of K lane k1+i (one coalesced load) and passes them
+// round with shuffles in chunks of KC; every lane issues a chunk's KC
+// independent B-row loads before its multiply-add chain, so KC loads are
+// in flight per lane and a chunk waits on one round trip, its B rows'
+// (were each chunk to load its own cols/vals first, that would be two
+// round trips a chunk on the entry's critical path). Only the B rows
 // the entry addresses are read (no [T, F] slab is staged), and each output
 // row is written once, by one thread per feature: no atomics, no shared
 // memory.
@@ -49,7 +66,9 @@
 // F <= 8, 16 for F <= 16, so a narrow row does not leave most of a warp
 // idle, else 32), VEC 4 at W = 32 where the rows allow it, KC = 4 and 256
 // threads. The ragged kernel takes all four as launch knobs (its
-// autotuner sweeps them); the fixed-K kernel runs the defaults.
+// autotuner sweeps them); the fixed-K kernel runs the defaults. The band
+// table adds seven ints to the ragged kernel's arguments and three
+// compares a unit row, read from the parameter bank, not loaded.
 //
 // Types. vals (VT) and B (BT) are float or __nv_bfloat16, template
 // arguments of the row loop. A bfloat16 value is widened to float where it
@@ -64,9 +83,10 @@
 // 48 or 40 registers) and spilled 4-36 bytes to get there, the defaults
 // among them (a 64-bit pointer stored before the loops and reloaded
 // after each row's entry loop). With a minimum of one block per SM no
-// instance spills: 43-102 registers (the 16-byte KC = 8 instances the
-// most), 78 at the 16-byte default, so 3 blocks of 256 fit an SM where 4
-// did. The contract audit rejects any instance that spills.
+// instance spills: 56-112 registers (the 16-byte KC = 8 instances the
+// most), 86 at the ragged kernel's 16-byte float default (2 blocks of 256
+// an SM) and 78 at the fixed-K kernel's (ptxas for sm_90a). The
+// contract audit rejects any instance that spills.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -144,21 +164,41 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// How a row loop walks its unit rows (row<..., MODE, ...>).
+enum Mode {
+  kBanded = 0,    // the ragged array, each unit to its band's K, masked
+  kBucketed = 1,  // the ragged array, each unit to its bucket's K
+  kView = 2,      // one bucket's strided view, its K the bound
+};
+
+// The ragged kernel's K bands (at most 4), by value: the K of each band
+// (0 past the last) and the first unit of bands 1..3 (INT_MAX past the
+// last), so unit u's band is the number of offsets it has reached.
+struct Bands {
+  int k[4];
+  int off[3];
+  __device__ __forceinline__ int bound(int u) const {
+    return u >= off[2] ? k[3] : u >= off[1] ? k[2] : u >= off[0] ? k[1] : k[0];
+  }
+};
+
 // The unit array as a kernel reads it; VT is the type of vals.
 template <class VT>
 struct Units {
   const int* cols;      // [G, U, R, K...] tile-local columns
   const VT* vals;       // same layout as cols
   const int* tile_col;  // [G, U]
-  const int* unit_k;    // [G, U] live K per unit (ragged); null (fixed K)
-  long long s_g;        // fixed K: member stride of cols/vals (elements)
-  long long tc_sg;      // fixed K: member stride of tile_col
-  int s_r;              // fixed K: row stride of cols/vals; a unit's R rows
+  const int* unit_k;    // kBanded: [G, U] live K per unit (the value mask)
+  const int* bucket_k;  // kBucketed: [U] the K of each unit's bucket
+  Bands bands;          // kBanded: the band table
+  long long s_g;        // kView: member stride of cols/vals (elements)
+  long long tc_sg;      // kView: member stride of tile_col
+  int s_r;              // kView: row stride of cols/vals; a unit's R rows
                         // are packed (unit stride R * s_r), K contiguous
-  int U, R, K;          // K: Kmax (ragged) or the band's K (fixed)
+  int U, R, K;          // K: Kmax (the ragged array) or the view's K
 };
 
-// Stores, adds and loads of VEC floats at p.
+// Stores and adds of VEC floats at p.
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[VEC]) {
   typename Vec<VEC>::T r;
@@ -176,32 +216,25 @@ __device__ __forceinline__ void add_vec(float* p, const float (&x)[VEC]) {
   Vec<VEC>::store(p, r);
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[VEC]) {
-  const typename Vec<VEC>::T r = Vec<VEC>::load(p);
-#pragma unroll
-  for (int q = 0; q < VEC; ++q) x[q] = Vec<VEC>::get(r, q);
-}
-
 // One padded row of member g: for each block of W*VEC features, acc
-// starts at init[f..] (init null: +0), takes the products of the unit rows
-// order[begin..end) (order null: the entries begin..end themselves) in
-// that order, and is added onto dst[f..] (ADD) or stored there.
-// KC K lanes have their B rows in flight at once.
-// RAGGED: entries e number the unit rows over the group (g*U*R + u*R + r)
-// of a contiguous ragged array, masked by unit_k. Fixed K: entries number
-// member g's unit rows (u*R + r) of a band view with member stride s_g and
-// row stride s_r. ADD is a template argument, not a flag, so that no
-// register holds it through the loop: a caller with both epilogues
-// instantiates both.
-template <int W, int VEC, int KC, bool RAGGED, bool ADD, class VT,
-          class BT>
+// starts at +0, takes the products of the unit rows order[begin..end)
+// (order null: the entries begin..end themselves) in that order, and is
+// added onto dst[f..] (ADD) or stored there. KC K lanes have their B rows
+// in flight at once.
+// kBanded / kBucketed: entries e number the unit rows over the group
+// (g*U*R + u*R + r) of a contiguous ragged array. kView: entries number
+// member g's unit rows (u*R + r) of a bucket view with member stride s_g
+// and row stride s_r. MODE and ADD are template arguments, not flags, so
+// that no register holds them through the loop: a caller with both
+// epilogues or walks instantiates both.
+template <int W, int VEC, int KC, int MODE, bool ADD, class VT, class BT>
 __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
                                     const long long* __restrict__ order,
                                     int begin, int end, long long g, int nct,
-                                    int T, int F, const float* init,
-                                    float* dst) {
-  static_assert(KC <= W, "a chunk's cols/vals are spread over the group");
+                                    int T, int F, float* dst) {
+  static_assert(KC <= W && W % KC == 0,
+                "a chunk's cols/vals are spread over the group");
+  constexpr bool SLAB = MODE != kView;
   using V = BLoad<BT, VEC>;
   const int lane = threadIdx.x % W;
   const unsigned mask =
@@ -209,53 +242,64 @@ __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
               : ((1u << W) - 1u) << ((threadIdx.x % 32) / W * W);
   const BT* bg = b + g * nct * static_cast<long long>(T) * F;
   // the member's unit array: entry e's lanes start at e * stride
-  const int* cb = RAGGED ? a.cols : a.cols + g * a.s_g;
-  const VT* vb = RAGGED ? a.vals : a.vals + g * a.s_g;
-  const int* tb = RAGGED ? a.tile_col : a.tile_col + g * a.tc_sg;
-  const int stride = RAGGED ? a.K : a.s_r;
+  const int* cb = SLAB ? a.cols : a.cols + g * a.s_g;
+  const VT* vb = SLAB ? a.vals : a.vals + g * a.s_g;
+  const int* tb = SLAB ? a.tile_col : a.tile_col + g * a.tc_sg;
+  const int stride = SLAB ? a.K : a.s_r;
+  const int u0 = SLAB ? static_cast<int>(g) * a.U : 0;  // member's 1st unit
 
   for (int fb = 0; fb < F; fb += W * VEC) {
     const int f = fb + lane * VEC;
     const bool on = f < F;
     float acc[VEC];
-    if (init && on) {
-      load_vec<VEC>(init + f, acc);
-    } else {
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
-    }
+    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
     for (int j = begin; j < end; ++j) {
       // entries, units and plan positions are numbered in 32 bits (the
       // wrappers check it): a 64-bit division costs far more than a load
       const int e = order ? static_cast<int>(order[j]) : j;
       const int unit = e / a.R;
-      const int ku = RAGGED ? a.unit_k[unit] : a.K;
+      int kb, ku;  // the chain's lanes, and the live lanes among them
+      if constexpr (MODE == kBanded) {
+        kb = a.bands.bound(unit - u0);
+        ku = a.unit_k[unit];
+      } else if constexpr (MODE == kBucketed) {
+        kb = a.bucket_k[unit - u0];
+        ku = kb;
+      } else {
+        kb = ku = a.K;
+      }
       const BT* bt = bg + static_cast<long long>(tb[unit]) * T * F + f;
       const int* ce = cb + static_cast<long long>(e) * stride;
       const VT* ve = vb + static_cast<long long>(e) * stride;
       float p[VEC];
 #pragma unroll
       for (int q = 0; q < VEC; ++q) p[q] = 0.f;
-      for (int k0 = 0; k0 < a.K; k0 += KC) {
+      for (int k1 = 0; k1 < kb; k1 += W) {
+        // lane i holds cols/vals of K lane k1 + i, read once (coalesced)
+        // and passed round the group chunk by chunk
         int c = 0;
         float v = 0.f;
-        if (lane < KC && k0 + lane < a.K) {
-          c = ce[k0 + lane];
-          v = k0 + lane < ku ? widen(ve[k0 + lane]) : 0.f;  // mask values
+        if (k1 + lane < kb) {
+          c = ce[k1 + lane];
+          v = k1 + lane < ku ? widen(ve[k1 + lane]) : 0.f;  // mask values
         }
-        typename V::T x[KC];
+        const int n = min(W, kb - k1);
+        for (int k0 = 0; k0 < n; k0 += KC) {  // KC divides W: k0 + i < W
+          typename V::T x[KC];
 #pragma unroll
-        for (int i = 0; i < KC; ++i) {
-          const int ci = __shfl_sync(mask, c, i, W);
-          if (on && k0 + i < a.K) x[i] = V::load(bt + ci * F);
-        }
+          for (int i = 0; i < KC; ++i) {
+            const int ci = __shfl_sync(mask, c, k0 + i, W);
+            if (on && k0 + i < n) x[i] = V::load(bt + ci * F);
+          }
 #pragma unroll
-        for (int i = 0; i < KC; ++i) {
-          const float vi = __shfl_sync(mask, v, i, W);
-          if (on && k0 + i < a.K) {
+          for (int i = 0; i < KC; ++i) {
+            const float vi = __shfl_sync(mask, v, k0 + i, W);
+            if (on && k0 + i < n) {
 #pragma unroll
-            for (int q = 0; q < VEC; ++q)
-              p[q] = __fadd_rn(p[q], __fmul_rn(vi, V::get(x[i], q)));
+              for (int q = 0; q < VEC; ++q)
+                p[q] = __fadd_rn(p[q], __fmul_rn(vi, V::get(x[i], q)));
+            }
           }
         }
       }

@@ -35,25 +35,30 @@ ell_rows_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
     end = begin + 1;
   }
   if (live)
-    ell_rows::row<W, VEC, KC, true, true>(a, b, order, begin, end, g, nct, T,
-                                          F, nullptr, out + s * F);
+    ell_rows::row<W, VEC, KC, ell_rows::kBanded, true>(
+        a, b, order, begin, end, g, nct, T, F, out + s * F);
   else
-    ell_rows::row<W, VEC, KC, true, false>(a, b, order, begin, end, g, nct,
-                                           T, F, nullptr, out + s * F);
+    ell_rows::row<W, VEC, KC, ell_rows::kBanded, false>(
+        a, b, order, begin, end, g, nct, T, F, out + s * F);
 }
 
-// One launch (the C entries' arguments, ragged_ell_spmm.cu).
+// One launch (the C entries' arguments, ragged_ell_spmm.cu); `bands` is a
+// host array of 7 ints: the bands' Ks, then the offsets (ell_rows::Bands).
 template <class VT, class BT>
 cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
                    const void* unit_k, const void* b, const void* order,
-                   const void* offsets, const void* live, void* out, int G,
-                   int n_slots, int U, int R, int Kmax, int nct, int T, int F,
-                   int w, int vec, int kc, int threads, void* stream) {
+                   const void* offsets, const void* live, void* out,
+                   const int* bands, int G, int n_slots, int U, int R,
+                   int Kmax, int nct, int T, int F, int w, int vec, int kc,
+                   int threads, void* stream) {
+  ell_rows::Bands bd;
+  for (int i = 0; i < 4; ++i) bd.k[i] = bands[i];
+  for (int i = 0; i < 3; ++i) bd.off[i] = bands[4 + i];
   ell_rows::Units<VT> a{static_cast<const int*>(cols),
                         static_cast<const VT*>(vals),
                         static_cast<const int*>(tile_col),
                         static_cast<const int*>(unit_k),
-                        0, 0, 0, U, R, Kmax};
+                        nullptr, bd, 0, 0, 0, U, R, Kmax};
   const auto* bb = static_cast<const BT*>(b);
   const auto* od = static_cast<const long long*>(order);
   const auto* of = static_cast<const long long*>(offsets);
@@ -86,12 +91,12 @@ cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
   int ragged_ell_rows_##SUFFIX(                                              \
       const void* cols, const void* vals, const void* tile_col,              \
       const void* unit_k, const void* b, const void* order,                  \
-      const void* offsets, const void* live, void* out, int G, int n_slots,  \
-      int U, int R, int Kmax, int nct, int T, int F, int w, int vec, int kc, \
-      int threads, void* stream) {                                           \
+      const void* offsets, const void* live, void* out, const int* bands,    \
+      int G, int n_slots, int U, int R, int Kmax, int nct, int T, int F,     \
+      int w, int vec, int kc, int threads, void* stream) {                   \
     return static_cast<int>(ragged_ell::launch<VT, BT>(                      \
-        cols, vals, tile_col, unit_k, b, order, offsets, live, out, G,       \
-        n_slots, U, R, Kmax, nct, T, F, w, vec, kc, threads, stream));       \
+        cols, vals, tile_col, unit_k, b, order, offsets, live, out, bands,   \
+        G, n_slots, U, R, Kmax, nct, T, F, w, vec, kc, threads, stream));    \
   }                                                                          \
   const char* cuda_error_string(int err) {                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                \

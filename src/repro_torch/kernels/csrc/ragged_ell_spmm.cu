@@ -8,8 +8,14 @@
 // that sum onto the dense engine's partial product. An entry e = (g, u, r)
 // of the unit array is one unit row; its product is
 //
-//   p_e[:] = sum_{kk < Kmax} (kk < unit_k[g,u] ? vals[e,kk] : 0)
+//   p_e[:] = sum_{kk < K_band(u)} (kk < unit_k[g,u] ? vals[e,kk] : 0)
 //            * B[g, tile_col[g,u], cols[e,kk], :]
+//
+// where K_band(u) is the K of u's band: the partition's descending
+// (K, n_units) runs merged to at most 4 bands, the TPU kernel's band switch
+// (`_bands_of`, `_band_tables`; one band of Kmax without runs). The bands
+// come by value (`bands`: their Ks, then the first unit of each band past
+// the first); unit u's band is sum(u >= off), as the reference selects it.
 //
 // Row mode (the main path, `ragged_ell_rows`): for every live segment s of
 // the host-built reduction plan (entries stably sorted by output row, the
@@ -24,9 +30,9 @@
 // own segment and out[e,:] = p_e (no addend).
 //
 // Order of additions (ell_rows.cuh): p_e is one chain from +0 in ascending
-// kk up to Kmax, with the mask on the values, as the plain version and the
-// TPU kernel run it; acc is a chain from +0 over the segment's p_e in plan
-// order, which is what torch.segment_reduce adds; then one add
+// kk up to its band's K, with the mask on the values, as the plain version
+// and the TPU kernel run it; acc is a chain from +0 over the segment's p_e
+// in plan order, which is what torch.segment_reduce adds; then one add
 // out = out + acc, the `yd + ye` of the per-unit form. The result equals
 // the unit-mode products summed by `segment_sum` and added to the dense
 // rows, bit for bit.
@@ -54,7 +60,8 @@
 
 // ragged_ell_rows_f32: cols/vals [G,U,R,Kmax], tile_col/unit_k [G,U], b
 // [G,nct,T,F], all contiguous, cols[...] < T and tile_col[...] < nct; vals
-// and b float.
+// and b float; bands (host memory) the 4 band Ks (0 past the last, each at
+// most Kmax) and the 3 offsets (INT_MAX past the last).
 //   live != null (row mode): order/offsets/live are the ELL plan (entries
 //     g*U*R + u*R + r onto segments g*P + row; live [G, n_slots], -1
 //     padded) and out [G,P,F] holds the rows to add onto, in place;

@@ -11,13 +11,13 @@ Port of ``repro.kernels.ell_spmm``:
   * ``ragged_ell_spmm`` — the TPU kernel's own function, per-unit
     products over every K width: the same kernel with every unit row its
     own segment and nothing to add onto;
-  * ``ell_spmm_rows`` — one fixed-K class band (a bucket of
+  * ``ell_spmm_rows`` — one layer's fixed-K buckets (of
     ``repro_torch.core.formats.ell_buckets``) as the "fused"/"loop"
-    dispatches run it: the TPU kernel ``_ell_kernel``'s products, summed
-    onto output rows in the order of the band's ``BandPlan`` (a row that
-    several bands reach carries its running sum from band to band) and
-    added onto the dense engine's rows, in place, by one launch of
-    ``csrc/ell_spmm.cu`` per band for a whole group;
+    dispatches run them: the TPU kernel ``_ell_kernel``'s products of
+    every bucket, summed onto output rows in the order of the ELL
+    ``SegmentPlan`` and added onto the dense engine's rows, in place, by
+    one launch of ``csrc/ell_spmm.cu`` for a whole group and every
+    bucket;
   * ``ell_spmm`` — the TPU kernel's own function, per-unit products of
     one bucket: the same kernel with every unit row its own row and
     nothing to add onto.
@@ -25,6 +25,18 @@ Port of ``repro.kernels.ell_spmm``:
 Both CUDA sources share their row loop (``csrc/ell_rows.cuh``). On CPU
 tensors each function runs its plain version in
 ``repro_torch.kernels.ref``.
+
+K bands, as the TPU kernel runs them: the ragged functions take the
+reference's ``segments`` (the partition's descending (K, n_units) runs)
+and ``max_bands``, merge the runs to at most ``max_bands`` bands
+(``kernels.bands``, the port's copy of ``_bands_of`` and
+``_band_tables``) and run each unit only to its band's K, with the
+values masked by ``unit_k`` inside it; ``segments=()`` is one Kmax band.
+The fixed-K row kernel runs each unit to its bucket's K
+(``ReductionPlan.ell_bucket_k``), unmasked. With finite B all of them
+give the bits of the masked Kmax pass; with a non-finite B row at a lane
+past a unit's band (or bucket) K they differ from it, as the reference's
+kernels do.
 
 Types, as the reference's kernels take them: ``vals`` and B each float32
 or bfloat16, upcast to float32 before they multiply; products, sums and
@@ -41,16 +53,9 @@ The ragged kernel's launch shape is a knob (``tune``: lanes per row
 per block), swept by ``repro_torch.kernels.autotune``; every value gives
 the same bits. ``ragged_ell_contract`` and ``ell_contract`` return the
 launch contracts the wrappers launch from (grid, threads, shape knobs,
-alignment, shared memory, the extents numbered in 32 bits, the index
-bounds the kernels trust), which ``repro_torch.analysis.static
-.kernel_pass`` audits.
-
-The module also keeps its own copy of the reference's K-band helpers
-(``merge_bands``, ``_bands_of``, ``_band_tables``, ``DEFAULT_MAX_BANDS``):
-the port's shape classes plan their band slots with them. The ragged
-kernel loops every unit to Kmax and the band kernel to its band's K, so
-band plans change class shapes and the per-K dispatches' launches,
-never results.
+alignment, shared memory, the band table, the extents numbered in 32
+bits, the index bounds the kernels trust), which ``repro_torch.analysis
+.static.kernel_pass`` audits.
 """
 from __future__ import annotations
 
@@ -59,15 +64,14 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core.formats import BandPlan, SegmentPlan
+from repro_torch.core.formats import SegmentPlan, bucket_runs
 from repro_torch.device import resolve_device
 
 from . import _build
+from .bands import (DEFAULT_MAX_BANDS, MAX_BANDS, _band_tables, _bands_of,
+                    check_max_bands, merge_bands, unit_bounds)  # noqa: F401
 from .ref import (ell_spmm_ref, ell_spmm_rows_ref, ragged_ell_rows_ref,
                   ragged_ell_spmm_ref)
-
-# Band-merge cap of the class band plans (the reference's value).
-DEFAULT_MAX_BANDS = 4
 
 # The ragged kernel's launch knobs: one kernel instance per combination
 # (csrc/ragged_ell_spmm.cu); the fixed-K kernel runs the defaults.
@@ -89,61 +93,6 @@ launches = {"float32": 0, "bfloat16": 0}
 fixed_k_launches = {"float32": 0, "bfloat16": 0}
 
 _fns: dict = {}
-
-
-def merge_bands(runs, max_bands: int) -> tuple:
-    """Merge descending-K (K, n_units) runs down to ``max_bands`` bands.
-
-    Adjacent runs merge into the wider K; the pair chosen at each step
-    is the one adding the least padded-MAC waste
-    ``(K_left - K_right) * n_right``. Deterministic (first minimum
-    wins), returns a tuple of (K, n_units) with K strictly descending.
-    """
-    merged: list = []
-    for k, n in runs:
-        if n <= 0:
-            continue
-        if merged and merged[-1][0] == int(k):
-            merged[-1][1] += int(n)
-        else:
-            merged.append([int(k), int(n)])
-    while len(merged) > max_bands:
-        best = min(range(len(merged) - 1),
-                   key=lambda i: (merged[i][0] - merged[i + 1][0])
-                   * merged[i + 1][1])
-        merged[best][1] += merged[best + 1][1]
-        del merged[best + 1]
-    return tuple((k, n) for k, n in merged)
-
-
-def _bands_of(segments, u: int, kmax: int, max_bands: int) -> tuple:
-    """Normalize ``segments`` into a K-descending band plan.
-
-    Empty segments (or any non-descending order) collapse to one
-    Kmax-wide band; band Ks are clamped to the slab width.
-    """
-    if u == 0:
-        return ()
-    segs = tuple((int(k), int(n)) for k, n in segments if int(n) > 0)
-    if not segs or sum(n for _, n in segs) != u:
-        return ((kmax, u),)
-    ks = [k for k, _ in segs]
-    if any(ks[i] < ks[i + 1] for i in range(len(ks) - 1)):
-        return ((kmax, u),)
-    segs = tuple((min(k, kmax), n) for k, n in segs)
-    return merge_bands(segs, max_bands)
-
-
-def _band_tables(bands) -> tuple:
-    """(band_ks, band_counts, band_offs) of a band plan; ``band_offs``
-    holds the starting unit index of every band past the first."""
-    band_ks = tuple(k for k, _ in bands)
-    band_counts = tuple(n for _, n in bands)
-    offs, at = [], 0
-    for _, n in bands[:-1]:
-        at += n
-        offs.append(at)
-    return band_ks, band_counts, tuple(offs)
 
 
 def default_lanes(f: int) -> int:
@@ -202,22 +151,27 @@ def ragged_source(dtypes: tuple) -> tuple:
 
 
 def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
-                   aligned, extents, bounds, dtypes) -> dict:
+                   aligned, extents, bounds, dtypes, bands) -> dict:
     per_block = max(knobs["threads"] // knobs["w"], 1)
     source = ("ell_spmm" if kernel == "ell_band_kernel"
               else ragged_source(dtypes)[0])
+    band_ks, band_counts, band_offs = _band_tables(bands)
     return dict(
         name=name, source=source, kernel=kernel, **knobs,
         instance=instance + dtypes, dtypes=dtypes,
         ptxas_name=kernel + _build.mangled_args(instance + dtypes),
         grid=(max(-(-n_slots // per_block), 1), g, 1), f=f,
         aligned16=aligned, dyn_smem=0, static_smem=0, smem_optin=False,
-        shapes=shapes, extents=extents, index_bounds=bounds)
+        shapes=shapes, bands=tuple(bands), band_ks=band_ks,
+        band_counts=band_counts, band_offs=band_offs, extents=extents,
+        index_bounds=bounds)
 
 
 def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
-                        f: int, *, tune: dict = None, n_slots: int = None,
-                        aligned: bool = True, vals_dtype=torch.float32,
+                        f: int, *, segments: tuple = (),
+                        max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
+                        n_slots: int = None, aligned: bool = True,
+                        vals_dtype=torch.float32,
                         b_dtype=torch.float32) -> dict:
     """The launch contract of one ``ragged_ell_rows`` launch, for the
     contract audit and the autotuner (its launch shape is the wrapper's:
@@ -225,12 +179,15 @@ def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
     ``vec``, ``kc``, the ``instance`` (w, vec, kc, threads), F,
     ``aligned16`` (B aligned to 4 of its elements and the output to 16
     bytes; ``vec`` 4 needs it), shared memory (none), the operand
-    ``shapes``, the ``extents`` the kernel numbers in 32 bits, and
-    ``index_bounds`` {operand: exclusive bound of its values}. ``n_slots``
-    is the grid's rows per member: the plan's live rows, at most (and by
-    default) every unit row ``u*r``. ``tune`` is clamped at this F
-    (``resolve_tune``). ``vals_dtype``/``b_dtype`` pick the instance
-    (``instance`` ends with their names, ``dtypes``) and its source."""
+    ``shapes``, the band table (``bands`` ((K, n_units), ...) from
+    ``segments`` and ``max_bands`` as the reference's ``_bands_of`` merges
+    them, and its ``band_ks``, ``band_counts``, ``band_offs``), the
+    ``extents`` the kernel numbers in 32 bits, and ``index_bounds``
+    {operand: exclusive bound of its values}. ``n_slots`` is the grid's
+    rows per member: the plan's live rows, at most (and by default) every
+    unit row ``u*r``. ``tune`` is clamped at this F (``resolve_tune``).
+    ``vals_dtype``/``b_dtype`` pick the instance (``instance`` ends with
+    their names, ``dtypes``) and its source."""
     knobs = resolve_tune(f, tune, aligned=aligned)
     n_slots = u * r if n_slots is None else n_slots
     return _rows_contract(
@@ -241,15 +198,19 @@ def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
         f, aligned, {"unit rows": g * u * r, "plan entries": g * u * r,
                      "grid rows": g * n_slots},
         {"tile_col": nct, "cols": t, "unit_k": kmax + 1},
-        instance_dtypes(vals_dtype, b_dtype))
+        instance_dtypes(vals_dtype, b_dtype),
+        _bands_of(segments, u, kmax, check_max_bands(max_bands)))
 
 
-def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
-                 *, n_slots: int = None, aligned: bool = True,
-                 vals_dtype=torch.float32, b_dtype=torch.float32) -> dict:
+def ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int, f: int,
+                 *, segments: tuple = (), n_slots: int = None,
+                 aligned: bool = True, vals_dtype=torch.float32,
+                 b_dtype=torch.float32) -> dict:
     """The launch contract of one fixed-K ``ell_spmm_rows`` launch over a
-    band [G, U_b, R, K] (the ragged contract's keys; the kernel runs the
-    default launch shape, no knob). ``n_slots``: the band's live rows per
+    layer's slab [G, U, R, Kmax] (the ragged contract's keys; the kernel
+    runs the default launch shape, no knob). Its band table is the
+    buckets (``formats.bucket_runs`` of ``segments``), each unit read to
+    its bucket's K (``bucket_k``). ``n_slots``: the plan's live rows per
     member, at most (and by default) ``u*r``; the types as for
     ``ragged_ell_contract``."""
     knobs = resolve_tune(f, aligned=aligned)
@@ -257,14 +218,15 @@ def ell_contract(g: int, u: int, r: int, k: int, nct: int, t: int, f: int,
     return _rows_contract(
         "ell_spmm_rows", "ell_band_kernel", knobs,
         (knobs["w"], knobs["vec"]), g, n_slots,
-        {"cols": (g, u, r, k), "vals": (g, u, r, k), "tile_col": (g, u),
-         "b_tiles": (g, nct, t, f)},
-        f, aligned, {"unit rows": g * u * r, "grid rows": g * n_slots},
-        {"tile_col": nct, "cols": t}, instance_dtypes(vals_dtype, b_dtype))
+        {"cols": (g, u, r, kmax), "vals": (g, u, r, kmax),
+         "tile_col": (g, u), "bucket_k": (u,), "b_tiles": (g, nct, t, f)},
+        f, aligned, {"unit rows": g * u * r, "plan entries": g * u * r,
+                     "grid rows": g * n_slots},
+        {"tile_col": nct, "cols": t, "bucket_k": kmax + 1},
+        instance_dtypes(vals_dtype, b_dtype), bucket_runs(u, kmax, segments))
 
 
-def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
-                  seen: dict = None) -> dict:
+def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None) -> dict:
     """HBM bytes and FMA FLOPs of one launch of ``c`` (a
     ``ragged_ell_contract`` or an ``ell_contract``): what the CUDA kernel
     reads and writes once each, and the operations it executes (the
@@ -272,79 +234,53 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None,
     TPU's blocks; here there are none, each grid row gathers what its
     sums address).
 
-    Given the launch's data (``cols``, ``tile_col`` and ``plan``: the
-    ``SegmentPlan`` of a ragged launch, the band's ``BandPlan`` of a
-    fixed-K one; read on the host), it counts what this launch's plan
-    sums: for each unit row in the plan, all K lanes of cols and vals
-    (the ragged kernel masks the values, not the loads, so a masked
-    lane is read too) and its 8-byte order entry; tile_col of each unit
-    the plan reaches (and unit_k, ragged); the plan's offsets of the live
-    rows, and their live-table entries (ragged) or their row, offset and
-    carry entries (fixed K); each distinct B row [F] those lanes address;
-    each live output row read and written; the carry buffer's rows a band
-    writes or reads. Operations: K multiply-adds per feature per unit
-    row, one add per unit row and feature onto its row's sum, and one
-    add per live row and feature onto the dense engine's rows. vals and
-    B count the bytes of their types (the contract's ``dtypes``); indices,
-    the output rows and the carry are 4-byte int32 / float32.
-
-    ``seen`` (fixed K): a dict shared by a layer's band launches; a B row
-    or an output row that an earlier launch of the layer counted is not
-    counted again, so the launches' costs sum to the layer's (every input
-    read once, every output written once). Without it each launch counts
-    its own.
+    Each unit's chain reads the lanes below its band's K (ragged) or its
+    bucket's K (fixed K), ``c["bands"]``; the lanes past it are not read.
+    Given the launch's data (``cols``, ``tile_col`` and ``plan``, the ELL
+    ``SegmentPlan``; read on the host), it counts what this launch's plan
+    sums: for each unit row in the plan, cols and vals of the lanes its
+    chain reads (the ragged kernel masks the values, not the loads, so a
+    masked lane inside the band is read too) and its 8-byte order entry;
+    tile_col and unit_k (ragged) or bucket_k (fixed K) of each unit the
+    plan reaches; the plan's offsets of the live rows and their live-table
+    entries; each distinct B row [F] those lanes address; each live output
+    row read and written. Operations: a multiply and an add per lane read
+    and feature, one add per unit row and feature onto its row's sum, and
+    one add per live row and feature onto the dense engine's rows. vals
+    and B count the bytes of their types (the contract's ``dtypes``);
+    indices and the output rows are 4-byte int32 / float32.
 
     Without data, the most the shapes allow: every unit row summed,
     every grid row live, every B row read."""
-    g, u, r, k = c["shapes"]["cols"]
+    g, u, r, kmax = c["shapes"]["cols"]
     _, nct, t, f = c["shapes"]["b_tiles"]
-    ragged = c["name"] == "ragged_ell_rows"
     n_slots = c["extents"]["grid rows"] // g
+    bound = unit_bounds(c["bands"]).astype(np.int64)       # [U] lanes read
     if plan is None:
         e, units, live = g * u * r, g * u, g * n_slots
-        b_rows, out_rows = min(g * nct * t, e * k), live
-        index = (2 * live + 1 if ragged else 3 * live + 1) * 8
-        carried = 0
-    elif ragged:
-        cv = cols.cpu().numpy().reshape(-1, k)
+        lanes = g * r * int(bound.sum())
+        b_rows, out_rows = min(g * nct * t, lanes), live
+        index = (2 * live + 1) * 8
+    else:
+        cv = cols.cpu().numpy().reshape(-1, kmax)
         tc = tile_col.cpu().numpy().reshape(-1)
         order = plan.order.cpu().numpy()
         segs = np.flatnonzero(plan.lengths.cpu().numpy())
         unit = order // r                              # over the group
+        kb = bound[unit % u]
+        read = np.arange(kmax)[None, :] < kb[:, None]
         e, units, live = order.size, np.unique(unit).size, segs.size
-        b_rows = np.unique(((unit // u) * nct + tc[unit])[:, None] * t
-                           + cv[order]).size
+        lanes = int(kb.sum())
+        b_rows = np.unique((((unit // u) * nct + tc[unit])[:, None] * t
+                            + cv[order])[read]).size
         out_rows = live
         index = (np.unique(np.concatenate([segs, segs + 1])).size
                  + live) * 8
-        carried = 0
-    else:
-        rows = plan.rows.cpu().numpy()
-        gi, si = np.nonzero(rows >= 0)
-        lengths = np.diff(plan.offsets.cpu().numpy()).reshape(rows.shape)
-        member = np.repeat(gi, lengths[gi, si])
-        order = plan.order.cpu().numpy()
-        unit = order // r
-        cv = cols.cpu().numpy().reshape(g, u * r, k)[member, order]
-        tc = tile_col.cpu().numpy()[member, unit]
-        e, live = order.size, gi.size
-        units = np.unique(member * u + unit).size
-        brs = set(((member * nct + tc)[:, None] * t + cv).reshape(-1)
-                  .tolist())
-        outs = set((gi * (1 << 32) + rows[gi, si]).tolist())
-        if seen is not None:
-            brs -= seen.setdefault("b_rows", set())
-            outs -= seen.setdefault("out_rows", set())
-            seen["b_rows"] |= brs
-            seen["out_rows"] |= outs
-        b_rows, out_rows = len(brs), len(outs)
-        index = (3 * live + 1) * 8
-        carried = int((plan.carry.cpu().numpy()[gi, si] >= 0).sum())
     vb, bb = (torch.empty((), dtype=getattr(torch, d)).element_size()
               for d in c["dtypes"])
-    nbytes = (e * k * (4 + vb) + units * (8 if ragged else 4) + e * 8 + index
-              + b_rows * f * bb + out_rows * f * 8 + carried * f * 4)
-    flops = 2.0 * e * k * f + e * f + out_rows * f
+    nbytes = (lanes * (4 + vb) + units * 8 + e * 8 + index
+              + b_rows * f * bb + out_rows * f * 8)
+    flops = 2.0 * lanes * f + e * f + out_rows * f
     return {"hbm_bytes": float(nbytes), "flops": float(flops)}
 
 
@@ -369,8 +305,18 @@ def _entry(source: str, entry: str, argtypes: list):
 def _kernel(vals_dtype, b_dtype):
     """The ragged kernel's C entry for these types."""
     return _entry(*ragged_source(instance_dtypes(vals_dtype, b_dtype)),
-                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
                   + [ctypes.c_void_p])
+
+
+def band_args(bands) -> ctypes.Array:
+    """The band table as the ragged kernel takes it (``ell_rows::Bands``):
+    seven ints, the bands' Ks (0 past the last), then the first unit of
+    each band past the first (INT_MAX past the last)."""
+    ks, _, offs = _band_tables(bands)
+    ks = list(ks) + [0] * (MAX_BANDS - len(ks))
+    offs = list(offs) + [INDEX_LIMIT - 1] * (MAX_BANDS - 1 - len(offs))
+    return (ctypes.c_int * 7)(*ks, *offs)
 
 
 def _check(cond: bool, msg: str, what: str = "ragged_ell_spmm") -> None:
@@ -411,7 +357,7 @@ def _checked(cols, vals, tile_col, unit_k, b_tiles, dev, what) -> tuple:
 
 
 def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
-            dev, tune) -> None:
+            dev, tune, bands) -> None:
     """One kernel launch; ``plan`` None = unit mode."""
     g, u, r, kmax = cols.shape
     _, nct, t, f = b_tiles.shape
@@ -427,7 +373,7 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
                  unit_k.data_ptr(), b_tiles.data_ptr(), *idx, out.data_ptr(),
-                 g, n_slots, u, r, kmax, nct, t, f,
+                 band_args(bands), g, n_slots, u, r, kmax, nct, t, f,
                  *(knobs[k] for k in TUNE_KEYS), stream)
     _build.check(lib, err, "ragged_ell_spmm launch")
     with _build.count_lock:
@@ -437,7 +383,8 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
 def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
                     b_tiles: torch.Tensor, plan: SegmentPlan,
-                    out: torch.Tensor, *, tune: dict = None,
+                    out: torch.Tensor, *, segments: tuple = (),
+                    max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
                     device="cuda") -> torch.Tensor:
     """The sparse engine's rows, added onto ``out`` in place.
 
@@ -451,8 +398,13 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     (the sum in plan order, from +0); rows without one are not touched.
     Returns ``out``.
 
-    ``tune`` is the kernel's launch shape (``resolve_tune``; None = the
-    defaults); every value gives the same bits.
+    ``segments`` (the partition's descending (K, n_units) runs,
+    ``meta.ell_segments``) and ``max_bands`` (1 to 4) give the K bands,
+    as the reference's kernel takes them: each unit's product runs to its
+    band's K, the values masked by ``unit_k`` inside it; ``segments=()``
+    is one Kmax band. ``tune`` is the kernel's launch shape
+    (``resolve_tune``; None = the defaults); every value gives the same
+    bits.
 
     Every tensor must lie on ``device``. CPU tensors take the plain
     version (``ragged_ell_spmm_ref``, ``segment_sum``, then the add);
@@ -463,9 +415,10 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     dev = resolve_device(device)
     cols, vals, tile_col, unit_k, b_tiles, _ = _checked(
         cols, vals, tile_col, unit_k, b_tiles, dev, what)
-    g, u, r, _ = cols.shape
+    g, u, r, kmax = cols.shape
     f = b_tiles.shape[-1]
     resolve_tune(f, tune)          # unknown knobs raise on every device
+    bands = _bands_of(segments, u, kmax, check_max_bands(max_bands))
     n_seg = plan.lengths.shape[0]
     _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
            and out.shape[0] * out.shape[1] == n_seg
@@ -477,7 +430,8 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
            f"{u * r} on {dev}", what)
     if dev.type == "cpu":
         return ragged_ell_rows_ref(cols, vals, tile_col, unit_k, b_tiles,
-                                   plan, out)
+                                   plan, out, segments=segments,
+                                   max_bands=max_bands)
     _check(plan.live.dim() == 2 and plan.live.shape[0] == g,
            f"plan needs its live table [{g}, L] (segment_live)", what)
     for x in (plan.order, plan.offsets, plan.live):
@@ -488,38 +442,42 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
            f"offsets for {n_seg} segments", what)
     _check(out.is_contiguous(), "CUDA kernel needs a contiguous out", what)
     _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out,
-            plan.live.shape[1], dev, tune)
+            plan.live.shape[1], dev, tune, bands)
     return out
 
 
 def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
-                    b_tiles: torch.Tensor, *, tune: dict = None,
+                    b_tiles: torch.Tensor, *, segments: tuple = (),
+                    max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
                     device="cuda") -> torch.Tensor:
     """Per-unit ELL products over the concatenated ragged unit array.
 
     cols [(G,) U, R, Kmax] int32 (tile-local), vals [(G,) U, R, Kmax] f32
     or bf16, tile_col [(G,) U] int32, unit_k [(G,) U] int32, b_tiles
     [(G,) nct, T, F] f32 or bf16  ->  [(G,) U, R, F] f32. ONE launch
-    covers every K width. Every tensor must lie on ``device``; CPU
-    tensors take the plain version, CUDA tensors launch the kernel or
-    raise. Indices must be in range (``cols < T``, ``tile_col < nct``):
-    partitions guarantee it and ``Engine.register`` checks it on the
-    host. ``tune`` as for ``ragged_ell_rows``.
+    covers every K width, each unit to its band's K (``segments``,
+    ``max_bands`` and ``tune`` as for ``ragged_ell_rows``). Every tensor
+    must lie on ``device``; CPU tensors take the plain version, CUDA
+    tensors launch the kernel or raise. Indices must be in range
+    (``cols < T``, ``tile_col < nct``): partitions guarantee it and
+    ``Engine.register`` checks it on the host.
     """
     _build.tick("ragged_ell_spmm")
     dev = resolve_device(device)
     cols, vals, tile_col, unit_k, b_tiles, grouped = _checked(
         cols, vals, tile_col, unit_k, b_tiles, dev, "ragged_ell_spmm")
     resolve_tune(b_tiles.shape[-1], tune)
+    g, u, r, kmax = cols.shape
+    bands = _bands_of(segments, u, kmax, check_max_bands(max_bands))
     if dev.type == "cpu":
-        out = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
+        out = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles,
+                                  segments=segments, max_bands=max_bands)
         return out if grouped else out[0]
-    g, u, r, _ = cols.shape
     out = torch.empty((g, u, r, b_tiles.shape[-1]), dtype=torch.float32,
                       device=dev)
     _launch(cols, vals, tile_col, unit_k, b_tiles, None, out, u * r, dev,
-            tune)
+            tune, bands)
     return out if grouped else out[0]
 
 
@@ -527,7 +485,7 @@ def _fixed_kernel(vals_dtype, b_dtype):
     """The fixed-K kernel's C entry for these types."""
     suffix = type_suffix(instance_dtypes(vals_dtype, b_dtype))
     return _entry("ell_spmm", f"ell_spmm_rows_{suffix}",
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                   + [ctypes.c_longlong, ctypes.c_int]
                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
 
@@ -584,25 +542,24 @@ def _row_stride(cols: torch.Tensor) -> int:
     return cols.stride(2) if cols.shape[2] > 1 else cols.stride(1)
 
 
-def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
-                  n_rows, out_sg, dev) -> None:
-    """One launch of the fixed-K kernel; ``band`` None = unit mode."""
+def _fixed_launch(cols, vals, tile_col, b_tiles, bucket_k, plan, out,
+                  n_slots, out_sg, dev) -> None:
+    """One launch of the fixed-K kernel; ``plan`` None = unit mode."""
     g, u, r, k = cols.shape
     _, nct, t, f = b_tiles.shape
+    if not (g and n_slots and f):
+        return
     lib, fn = _fixed_kernel(vals.dtype, b_tiles.dtype)
     f32 = instance_dtypes(vals.dtype, b_tiles.dtype) == ("float32",) * 2
-    plan = ((None,) * 4 if band is None else
-            (band.order.data_ptr(), band.offsets.data_ptr(),
-             band.rows.data_ptr(), band.carry.data_ptr()))
-    n_carry = 0 if band is None else band.n_carry
+    idx = ((None,) * 4 if plan is None else
+           (bucket_k.data_ptr(), plan.order.data_ptr(),
+            plan.offsets.data_ptr(), plan.live.data_ptr()))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
-                 b_tiles.data_ptr(), *plan,
-                 None if carry is None else carry.data_ptr(), out.data_ptr(),
-                 g, n_slots, u, r, k, nct, t, f, n_rows, n_carry,
-                 cols.stride(0), _row_stride(cols), tile_col.stride(0),
-                 out_sg, stream)
+                 idx[0], b_tiles.data_ptr(), *idx[1:], out.data_ptr(),
+                 g, n_slots, u, r, k, nct, t, f, cols.stride(0),
+                 _row_stride(cols), tile_col.stride(0), out_sg, stream)
     _build.check(lib, err, "ell_spmm launch")
     with _build.count_lock:
         fixed_k_launches["float32" if f32 else "bfloat16"] += 1
@@ -610,28 +567,28 @@ def _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out, n_slots,
 
 def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
                   tile_col: torch.Tensor, b_tiles: torch.Tensor,
-                  band: BandPlan, out: torch.Tensor,
-                  carry: torch.Tensor = None, *, device="cuda"
-                  ) -> torch.Tensor:
-    """One class band's ELL rows, added onto ``out`` in place.
+                  plan: SegmentPlan, out: torch.Tensor,
+                  bucket_k: torch.Tensor, *, device="cuda") -> torch.Tensor:
+    """One layer's fixed-K ELL rows, every bucket in one launch, added
+    onto ``out`` in place.
 
-    cols/vals [G, U_b, R, K] (int32 tile-local / f32 or bf16; views of
-    the ragged slab, ``ell_buckets``, read in place), tile_col
-    [G, U_b] int32, b_tiles [G, nct, T, F] f32 or bf16, ``band`` the band's
-    ``BandPlan`` (``ReductionPlan.ell_bands``), ``out`` [G, P, F] f32,
-    which holds the dense engine's rows, and ``carry`` [G, band.n_carry,
-    F] f32 (needed when ``band.n_carry`` > 0), one buffer shared by all
-    bands of the call. Each live row of the band sums its unit rows'
-    products in plan order, starting from the sum an earlier band left in
-    ``carry`` or from +0; the sum then goes to ``carry`` when a later
-    band reaches the row, else onto ``out[row]``. Rows the band does not
-    reach are not touched. Run over the bands in order, this is
-    ``out + scatter_ell_partials`` of the bands' products, bit for bit.
+    cols/vals [G, U, R, Kmax] (int32 tile-local / f32 or bf16: the ragged
+    slab), tile_col [G, U] int32, b_tiles [G, nct, T, F] f32 or bf16,
+    ``plan`` the ELL ``SegmentPlan`` (as for ``ragged_ell_rows``, with
+    its ``live`` table), ``out`` [G, P, F] f32, which holds the dense
+    engine's rows, and ``bucket_k`` [U] int32, the K of each unit's
+    bucket of ``meta.ell_segments`` (``ReductionPlan.ell_bucket_k``). Each
+    unit row's product is its bucket's fixed-K chain (the bucket's K lanes
+    read in place, no value mask); each row with ELL entries becomes
+    ``out[row] + sum of its unit rows' products`` (the sum in plan order,
+    from +0, which is the buckets in order, each in unit order); rows
+    without one are not touched. This is ``out + scatter_ell_partials`` of
+    the per-bucket products on "fused" and on "loop", bit for bit.
     Returns ``out``.
 
     Every tensor must lie on ``device``. CPU tensors take the plain
     version (``ell_spmm_rows_ref``); CUDA tensors launch the kernel (one
-    launch, also for a band that reaches no row) or raise.
+    launch for the group and every bucket) or raise.
     """
     what = "ell_spmm_rows"
     _build.tick(what)
@@ -640,36 +597,37 @@ def ell_spmm_rows(cols: torch.Tensor, vals: torch.Tensor,
         cols, vals, tile_col, b_tiles, dev, what)
     g, u, r, _ = cols.shape
     f = b_tiles.shape[-1]
+    n_seg = plan.lengths.shape[0]
     _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
+           and out.shape[0] * out.shape[1] == n_seg
            and out.dtype == torch.float32 and out.device == dev,
            f"out {tuple(out.shape)} {out.dtype} on {out.device}: want "
-           f"float32 [{g}, P, {f}] on {dev}", what)
-    n_slots = band.rows.shape[-1]
-    for x in band[:4]:
-        _check(x.dtype == torch.int64 and x.device == dev
-               and (dev.type == "cpu" or x.is_contiguous()),
-               f"band plan tensors must be contiguous int64 on {dev}", what)
-    _check(tuple(band.rows.shape) == (g, n_slots)
-           and tuple(band.carry.shape) == (g, n_slots)
-           and band.offsets.shape[0] == g * n_slots + 1,
-           f"band plan rows {tuple(band.rows.shape)}, carry "
-           f"{tuple(band.carry.shape)}, offsets {band.offsets.shape[0]} do "
-           f"not fit a group of {g}", what)
-    if band.n_carry:
-        _check(carry is not None and carry.dtype == torch.float32
-               and tuple(carry.shape) == (g, band.n_carry, f)
-               and carry.device == dev, f"the band carries rows: want a "
-               f"float32 carry [{g}, {band.n_carry}, {f}] on {dev}", what)
-    else:
-        carry = None
+           f"float32 [{g}, {n_seg // max(g, 1)}, {f}] on {dev}", what)
+    _check(plan.n_entries == u * r and plan.order.device == dev,
+           f"plan of {plan.n_entries} entries on {plan.order.device}, want "
+           f"{u * r} on {dev}", what)
+    _check(bucket_k is not None and tuple(bucket_k.shape) == (u,)
+           and bucket_k.dtype == torch.int32 and bucket_k.device == dev,
+           f"bucket_k must be int32 [{u}] on {dev} (the plan's "
+           "ell_bucket_k)", what)
     if dev.type == "cpu":
-        return ell_spmm_rows_ref(cols, vals, tile_col, b_tiles, band, out,
-                                 carry)
-    _check(out.is_contiguous() and (carry is None or carry.is_contiguous()),
-           "CUDA kernel needs a contiguous out and carry", what)
-    if g and f:
-        _fixed_launch(cols, vals, tile_col, b_tiles, band, carry, out,
-                      n_slots, out.shape[1], 0, dev)
+        return ell_spmm_rows_ref(cols, vals, tile_col, b_tiles, plan, out,
+                                 bucket_k)
+    _check(cols.is_contiguous() and vals.is_contiguous()
+           and tile_col.is_contiguous() and bucket_k.is_contiguous(),
+           "CUDA kernel needs the contiguous ragged slab and bucket_k",
+           what)
+    _check(plan.live.dim() == 2 and plan.live.shape[0] == g,
+           f"plan needs its live table [{g}, L] (segment_live)", what)
+    for x in (plan.order, plan.offsets, plan.live):
+        _check(x.dtype == torch.int64 and x.is_contiguous()
+               and x.device == dev, "plan order/offsets/live must be "
+               f"contiguous int64 on {dev}", what)
+    _check(plan.offsets.shape[0] == n_seg + 1, f"{plan.offsets.shape[0]} "
+           f"offsets for {n_seg} segments", what)
+    _check(out.is_contiguous(), "CUDA kernel needs a contiguous out", what)
+    _fixed_launch(cols, vals, tile_col, b_tiles, bucket_k, plan, out,
+                  plan.live.shape[1], 0, dev)
     return out
 
 
@@ -714,7 +672,6 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor, tile_col: torch.Tensor,
         out = torch.empty((g, u, r, f), dtype=torch.float32, device=dev)
     _check(_packed(out, 1), "out needs contiguous unit, row and feature axes",
            what)
-    if g and u and r and f:
-        _fixed_launch(cols, vals, tile_col, b_tiles, None, None, out, u * r,
-                      0, out.stride(0), dev)
+    _fixed_launch(cols, vals, tile_col, b_tiles, None, None, out, u * r,
+                  out.stride(0), dev)
     return out if grouped else out[0]

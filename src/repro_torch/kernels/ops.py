@@ -5,10 +5,9 @@ group axis [G, N, F] and returns [G, n_padded_rows, F]; the hand-written
 kernels run for the whole group at once (CUDA tensors), or their plain
 versions run (CPU tensors). The dense engine's sum onto row tiles runs
 inside its kernel. The ELL sum onto output rows, and its add onto the
-dense engine's rows, run inside the ELL kernels too: in one launch on
-the "ragged" dispatch, in one launch per class band on the
-"fused"/"loop" dispatches. All of them add in the order of the
-host-built ``ReductionPlan``.
+dense engine's rows, run inside the ELL kernels too: one launch a layer
+on every dispatch. All of them add in the order of the host-built
+``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
@@ -20,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import (PartitionMeta, ReductionPlan,
-                                      TriPartition, b_tiles_of, ell_buckets)
+                                      TriPartition, b_tiles_of)
 
 from . import _build
 from . import bsr_spmm as _bsr
@@ -113,36 +112,34 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     its bits (``yd + 0``).
 
     ``"ragged"`` makes ONE ``ragged_ell_rows`` launch over the
-    concatenated unit array of the whole group: the products, their sum
+    concatenated unit array of the whole group: the products, each unit
+    to the K of its band of ``meta.ell_segments`` (as the reference's
+    ``ops.ell_matmul`` passes ``segments=meta.ell_segments``), their sum
     onto rows and the add onto ``yd``, in the launch shape ``ell_tune``
     (an autotuned config; None = the defaults; the same bits either
     way).
-    ``"fused"``/``"loop"`` are the per-K A/B dispatches: one
-    ``ell_spmm_rows`` launch per bucket (class band) of
-    ``meta.ell_segments`` for the whole group, each doing its band's
-    products, their sum onto rows and the add onto ``yd``, in the bands'
-    ``plan.ell_bands``. The reference's two scatter structures (one
-    reduction of all buckets' products, or one per bucket into a running
-    buffer) add in one order, so both names run these same launches.
+    ``"fused"``/``"loop"`` are the per-K A/B dispatches: ONE
+    ``ell_spmm_rows`` launch for every bucket of ``meta.ell_segments`` and
+    the whole group, each unit to its bucket's K (``plan.ell_bucket_k``),
+    the products summed onto rows in the order of ``plan.ell`` (bucket
+    after bucket, each in unit order) and added onto ``yd``. The
+    reference's two scatter structures (one reduction of all buckets'
+    products, or one per bucket into a running buffer) add in that one
+    order, so both names run this same launch.
     """
     check_ell_dispatch(dispatch)
-    f = b.shape[-1]
     if part.ell.cols.shape[-3] == 0:
         return yd
     bt = b_tiles_of(b, meta)
     if dispatch == "ragged":
         return _ell.ragged_ell_rows(part.ell.cols, part.ell.vals,
                                     part.ell.tile_col, part.ell.unit_k, bt,
-                                    plan.ell, yd, tune=ell_tune,
-                                    device=b.device)
-    buckets = ell_buckets(part.ell, meta.ell_segments)
-    if len(plan.ell_bands) != len(buckets):
-        raise ValueError(f"{len(plan.ell_bands)} band plans for "
-                         f"{len(buckets)} buckets (build the plan with "
-                         "reduction_plan)")
-    n_carry = plan.ell_bands[0].n_carry
-    carry = (yd.new_empty((yd.shape[0], n_carry, f)) if n_carry else None)
-    for bucket, band in zip(buckets, plan.ell_bands):
-        _ell.ell_spmm_rows(bucket.cols, bucket.vals, bucket.tile_col, bt,
-                           band, yd, carry, device=b.device)
-    return yd
+                                    plan.ell, yd,
+                                    segments=tuple(meta.ell_segments),
+                                    tune=ell_tune, device=b.device)
+    if plan.ell_bucket_k is None:
+        raise ValueError("the plan has no bucket table (ell_bucket_k): "
+                         "build it with reduction_plan")
+    return _ell.ell_spmm_rows(part.ell.cols, part.ell.vals,
+                              part.ell.tile_col, bt, plan.ell, yd,
+                              plan.ell_bucket_k, device=b.device)

@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.formats import BandPlan, SegmentPlan, segment_sum
+from repro_torch.core.formats import SegmentPlan, segment_sum
 from repro_torch.device import pin_ieee_f32
+
+from .bands import DEFAULT_MAX_BANDS, _band_tables, _bands_of
 
 
 def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -136,92 +138,119 @@ def ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
     return acc if grouped else acc[0]
 
 
+def band_bounds(u: int, kmax: int, segments=(), max_bands: int = None,
+                device=None) -> tuple:
+    """(lanes, bound) of the ragged kernel's K bands over ``u`` units:
+    ``bound`` [U] int64 on ``device``, the K of each unit's band (the
+    reference's ``_bands_of`` / ``_band_tables``: unit u's band is
+    ``sum(u >= off)``), built on the device from the band table's
+    constants (no copy from the host), and ``lanes`` the widest band's
+    K, past which no unit reads."""
+    max_bands = DEFAULT_MAX_BANDS if max_bands is None else max_bands
+    bands = _bands_of(segments, u, kmax, max_bands)
+    ks, _, offs = _band_tables(bands)
+    unit = torch.arange(u, device=device)
+    bound = torch.full((u,), ks[0] if ks else 0, dtype=torch.int64,
+                       device=device)
+    for off, k in zip(offs, ks[1:]):
+        bound = torch.where(unit >= off, k, bound)
+    return (ks[0] if ks else 0), bound
+
+
+def _chains(cols, vals, tile_col, b_tiles, lanes, bound, unit_k=None):
+    """Per-unit products [G, U, R, F] float32 of grouped operands: unit
+    u's chain runs from +0 in ascending kk over the lanes kk < bound[u]
+    (``bound`` [U], or [G, U]), each multiply and add rounded on its own;
+    lanes past the bound are never read into a sum. ``unit_k`` masks the
+    VALUES (a masked lane multiplies 0 by its B row, as in the
+    reference); without it every lane inside the bound is live.
+    ``lanes``: no unit reads past it (at most Kmax)."""
+    g, u, r, _ = cols.shape
+    f = b_tiles.shape[-1]
+    bt = _gather_b_tiles(b_tiles, tile_col)                  # [G, U, T, F]
+    bound = bound.to(b_tiles.device).expand(g, u)[..., None, None]
+    acc = torch.zeros((g, u, r, f), dtype=torch.float32,
+                      device=b_tiles.device)
+    zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+    for kk in range(lanes):
+        idx = cols[..., kk].long()[..., None].expand(g, u, r, f)
+        rows = torch.gather(bt, 2, idx)                      # [G, U, R, F]
+        v = vals[..., kk]
+        if unit_k is not None:
+            v = torch.where((kk < unit_k)[..., None], v, zero)
+        acc = torch.where(kk < bound, acc + v[..., None].float()
+                          * rows.float(), acc)
+    return acc
+
+
 def ragged_ell_spmm_ref(cols: torch.Tensor, vals: torch.Tensor,
                         tile_col: torch.Tensor, unit_k: torch.Tensor,
-                        b_tiles: torch.Tensor) -> torch.Tensor:
-    """Per-unit ragged ELL products (masked Kmax loop, per-unit live K).
+                        b_tiles: torch.Tensor, *, segments: tuple = (),
+                        max_bands: int = None) -> torch.Tensor:
+    """Per-unit ragged ELL products (masked, each unit to its band's K).
 
     cols [(G,) U, R, Kmax] tile-local, vals [(G,) U, R, Kmax],
     tile_col [(G,) U], unit_k [(G,) U], b_tiles [(G,) nct, T, F];
-    returns [(G,) U, R, F] float32. As in the reference the mask sits on
-    the values, so a masked lane still multiplies 0 by its B row, and
-    both factors are upcast to float32 before they are multiplied.
+    returns [(G,) U, R, F] float32. ``segments`` (the partition's
+    descending (K, n_units) runs) merged to at most ``max_bands`` bands
+    (default ``DEFAULT_MAX_BANDS``) bound each unit's lanes, as the TPU
+    kernel's band switch does; ``segments=()`` is one Kmax band. As in
+    the reference the mask sits on the values, so a masked lane inside
+    the band still multiplies 0 by its B row, and both factors are upcast
+    to float32 before they are multiplied.
     """
     grouped = cols.dim() == 4
     if not grouped:
         cols, vals, tile_col, unit_k, b_tiles = (
             cols[None], vals[None], tile_col[None], unit_k[None],
             b_tiles[None])
-    g, u, r, kmax = cols.shape
-    f = b_tiles.shape[-1]
-    bt = _gather_b_tiles(b_tiles, tile_col)                  # [G, U, T, F]
-    acc = torch.zeros((g, u, r, f), dtype=torch.float32,
-                      device=b_tiles.device)
-    for kk in range(kmax):
-        idx = cols[..., kk].long()[..., None].expand(g, u, r, f)
-        rows = torch.gather(bt, 2, idx)                      # [G, U, R, F]
-        v = torch.where((kk < unit_k)[..., None], vals[..., kk],
-                        torch.zeros((), dtype=vals.dtype, device=vals.device))
-        acc = acc + v[..., None].float() * rows.float()
+    _, u, _, kmax = cols.shape
+    lanes, bound = band_bounds(u, kmax, segments, max_bands, cols.device)
+    acc = _chains(cols, vals, tile_col, b_tiles, lanes, bound, unit_k)
     return acc if grouped else acc[0]
 
 
 def ragged_ell_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
                         tile_col: torch.Tensor, unit_k: torch.Tensor,
                         b_tiles: torch.Tensor, plan: SegmentPlan,
-                        out: torch.Tensor) -> torch.Tensor:
+                        out: torch.Tensor, *, segments: tuple = (),
+                        max_bands: int = None) -> torch.Tensor:
     """The sparse engine's rows added onto ``out`` in place.
 
     cols/vals [G, U, R, Kmax], tile_col/unit_k [G, U], b_tiles
     [G, nct, T, F], ``plan`` (a ``SegmentPlan`` over the G * U * R unit
     rows onto G * P padded rows) and ``out`` [G, P, F]:
-    ``ragged_ell_spmm_ref``, then ``segment_sum`` over the plan in its
-    order, then ``out += `` the sum. Returns ``out``.
+    ``ragged_ell_spmm_ref`` (its K bands from ``segments`` /
+    ``max_bands``), then ``segment_sum`` over the plan in its order, then
+    ``out += `` the sum. Returns ``out``.
     """
     g, u, r, _ = cols.shape
     f = b_tiles.shape[-1]
-    prod = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles)
+    prod = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles,
+                               segments=segments, max_bands=max_bands)
     rows = segment_sum(prod.reshape(g * u * r, f), plan)
     return out.add_(rows.reshape(out.shape))
 
 
 def ell_spmm_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
                       tile_col: torch.Tensor, b_tiles: torch.Tensor,
-                      band: BandPlan, out: torch.Tensor,
-                      carry: torch.Tensor = None) -> torch.Tensor:
-    """One class band's ELL rows, added onto ``out`` in place.
+                      plan: SegmentPlan, out: torch.Tensor,
+                      bucket_k: torch.Tensor) -> torch.Tensor:
+    """One layer's fixed-K ELL rows, every bucket at once, added onto
+    ``out`` in place.
 
-    cols/vals [G, U_b, R, K], tile_col [G, U_b], b_tiles [G, nct, T, F],
-    ``band`` the band's ``BandPlan`` (tensors), ``out`` [G, P, F] and
-    ``carry`` [G, band.n_carry, F] (rows that several bands reach). Step
-    by step: the per-unit products (``ell_spmm_ref``); per live row of
-    the band, a sum started from the row's carried value (an earlier band
-    reached it) or from +0, adding its unit rows' products one at a time
-    in plan order; then the sum is stored in ``carry`` (a later band
-    reaches the row) or added onto ``out``. Returns ``out``.
+    cols/vals [G, U, R, Kmax] (the ragged slab), tile_col [G, U],
+    b_tiles [G, nct, T, F], ``plan`` the ELL ``SegmentPlan`` (as for
+    ``ragged_ell_rows_ref``), ``out`` [G, P, F] and ``bucket_k`` [U] the
+    K of each unit's bucket (``ReductionPlan.ell_bucket_k``). Each unit's
+    product is its bucket's fixed-K chain (``ell_spmm_ref`` over the
+    bucket's K lanes, no value mask; lanes past K are never read), then
+    ``segment_sum`` over the plan, then ``out += `` the sum: the per-bucket
+    products scattered in the order of ``plan.ell`` ("fused") and added
+    onto ``out``, bit for bit. Returns ``out``.
     """
-    g, u, r, _ = cols.shape
+    g, u, r, kmax = cols.shape
     f = b_tiles.shape[-1]
-    prod = ell_spmm_ref(cols, vals, tile_col, b_tiles).reshape(g, u * r, f)
-    n_slots = band.rows.shape[1]
-    gi, si = torch.nonzero(band.rows >= 0, as_tuple=True)
-    slot = gi * n_slots + si
-    begin = band.offsets[slot]
-    n = band.offsets[slot + 1] - begin
-    code = band.carry[gi, si]
-    c = code >> 2
-    carry_in = (code >= 0) & (code & 2 != 0)
-    carry_out = (code >= 0) & (code & 1 != 0)
-    acc = torch.zeros((slot.shape[0], f), dtype=torch.float32,
-                      device=prod.device)
-    if bool(carry_in.any()):
-        acc[carry_in] = carry[gi[carry_in], c[carry_in]]
-    for i in range(int(n.max()) if n.numel() else 0):
-        m = i < n
-        acc[m] = acc[m] + prod[gi[m], band.order[begin[m] + i]]
-    if bool(carry_out.any()):
-        carry[gi[carry_out], c[carry_out]] = acc[carry_out]
-    add = ~carry_out
-    rows = band.rows[gi[add], si[add]]
-    out[gi[add], rows] = out[gi[add], rows] + acc[add]
-    return out
+    prod = _chains(cols, vals, tile_col, b_tiles, kmax, bucket_k)
+    rows = segment_sum(prod.reshape(g * u * r, f), plan)
+    return out.add_(rows.reshape(out.shape))

@@ -270,20 +270,30 @@ def test_all_dispatches_match_reference(name, backend):
     assert torch.equal(ys["loop"], ys["fused"])
 
 
-@pytest.mark.parametrize("dispatch", DISPATCHES)
-def test_nonfinite_b_matches_the_references_own_dispatch(dispatch):
-    """With inf/NaN in B the dispatches differ (ragged multiplies masked
-    lanes by 0, fused/loop never read them), in the reference too: each
-    is held against the reference's own dispatch."""
+@pytest.mark.parametrize("dispatch,backend,ref_backend", [
+    ("ragged", "cuda", "pallas"), ("fused", "cuda", "xla"),
+    ("loop", "cuda", "xla"), ("ragged", "torch", "xla")])
+def test_nonfinite_b_matches_the_references_own_dispatch(dispatch, backend,
+                                                        ref_backend):
+    """With inf/NaN in B the dispatches differ, in the reference too: the
+    ragged kernel runs each unit to its band's K and multiplies masked
+    lanes inside it by 0, the XLA mirror runs every unit to Kmax, and
+    fused/loop never read lanes past a bucket's K. Each is held against
+    the reference's counterpart: the port's "ragged" kernel against the
+    Pallas kernel it ports (interpret mode; one unit a grid step, the
+    port's grid, ``gu=1``), its plain "torch" backend against the XLA
+    mirror, fused/loop against the reference's own dispatch."""
     a, part, meta, ref_part, ref_meta = _edge("mixed_k")
     b = np.random.default_rng(1).standard_normal((a.shape[1], 8)).astype(
         np.float32)
     b[0, :3] = (np.inf, -np.inf, np.nan)   # padded lanes read col 0
     b[70, 4] = np.inf
-    got = tc.hybrid_spmm(part, b, meta=meta, backend="cuda",
+    got = tc.hybrid_spmm(part, b, meta=meta, backend=backend,
                          ell_dispatch=dispatch, device="cpu").numpy()
-    want = np.asarray(rc.hybrid_spmm(ref_part, jnp.asarray(b), meta=ref_meta,
-                                     backend="xla", ell_dispatch=dispatch))
+    want = np.asarray(rc.hybrid_spmm(
+        ref_part, jnp.asarray(b), meta=ref_meta, backend=ref_backend,
+        ell_dispatch=dispatch,
+        ell_tune={"gu": 1} if ref_backend == "pallas" else None))
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
     fin = np.isfinite(want)
@@ -312,8 +322,8 @@ def test_dispatches_on_a_stacked_group_bitwise():
     b = np.random.default_rng(5).standard_normal(
         (2, meta.n_cols, 6)).astype(np.float32)
     plan = reduction_plan(stack, meta)
-    assert len(plan.ell_bands) == len(meta.ell_segments)
-    assert all(tuple(bp.rows.shape)[0] == 2 for bp in plan.ell_bands)
+    np.testing.assert_array_equal(plan.ell_bucket_k, np.repeat(
+        *zip(*meta.ell_segments)))
     ragged = tc.hybrid_spmm(stack, b, meta=meta, device="cpu")
     for d in ("fused", "loop"):
         y = tc.hybrid_spmm(stack, b, meta=meta, ell_dispatch=d, plan=plan,

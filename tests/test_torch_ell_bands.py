@@ -1,18 +1,17 @@
-"""The fixed-K ELL kernel with each band's sum onto rows and the add onto
-the dense engine's rows folded into its launch (``ell_spmm_rows``), the
-"fused"/"loop" dispatches as the port runs them.
+"""The fixed-K ELL kernel with every bucket's products, their sum onto rows
+and the add onto the dense engine's rows in one launch a layer
+(``ell_spmm_rows``), the "fused"/"loop" dispatches as the port runs them.
 
 On the CPU ``ell_spmm_rows`` runs its plain version ``ell_spmm_rows_ref``.
-Run band after band with one carry buffer, that is held bit for bit
-against the chain the per-K dispatches ran before it: the per-band
-products (``ell_spmm_ref``), ``scatter_ell_partials`` (one reduction in
-the order of ``plan.ell`` for "fused", one per bucket into a running
-buffer for "loop") and ``yd + ye``. The inputs: class-padded cora and
-pubmed partitions (G = 1 and 4), a partition whose padded rows are
-reached by units of several bands (the carry path), negative weights and
-B with -0 entries (rows no band reaches are left untouched, which equals
-``yd + 0`` because the dense engine never writes -0), and a non-finite B
-row read by a lane whose value is 0.
+That is held bit for bit against the chain the per-K dispatches ran
+before it: the per-bucket products (``ell_spmm_ref``),
+``scatter_ell_partials`` (one reduction in the order of ``plan.ell`` for
+"fused", one per bucket into a running buffer for "loop") and ``yd +
+ye``. The inputs: class-padded cora and pubmed partitions (G = 1 and 4),
+a partition whose padded rows are reached by units of several buckets,
+negative weights and B with -0 entries (rows no bucket reaches are left
+untouched, which equals ``yd + 0`` because the dense engine never writes
+-0), and a non-finite B row read by a lane whose value is 0.
 
 The whole SpMM with ``ell_dispatch="fused"``/``"loop"`` is held against
 the reference's Pallas kernels in interpret mode within ``rtol=1e-4,
@@ -26,11 +25,10 @@ import pytest
 import torch
 
 import repro_torch.core as tc
-from repro_torch.core.formats import (BandPlan, CooResidual, DenseTiles,
+from repro_torch.core.formats import (CooResidual, DenseTiles,
                                       PartitionMeta, RaggedEll, TriPartition,
-                                      b_tiles_of, band_plans, ell_buckets,
-                                      plan_to, reduction_plan,
-                                      scatter_ell_partials, segment_plan,
+                                      b_tiles_of, ell_buckets, plan_to,
+                                      reduction_plan, scatter_ell_partials,
                                       stack_plans)
 from repro_torch.data.graphs import PAPER_DATASETS, make_paper_dataset
 from repro_torch.engine import Engine
@@ -57,16 +55,10 @@ def assert_same_bits(a, b):
 
 
 def folded(ell, bt, yd, plan, meta, device="cpu"):
-    """The port's "fused"/"loop": one ``ell_spmm_rows`` per band, in
-    order, onto a copy of ``yd``, with one carry buffer."""
-    out = yd.clone()
-    n_carry = plan.ell_bands[0].n_carry if plan.ell_bands else 0
-    carry = torch.full((yd.shape[0], n_carry, yd.shape[2]), float("nan"),
-                       device=yd.device)
-    for bk, band in zip(ell_buckets(ell, meta.ell_segments), plan.ell_bands):
-        ell_spmm_rows(bk.cols, bk.vals, bk.tile_col, bt, band, out, carry,
-                      device=device)
-    return out
+    """The port's "fused"/"loop": one ``ell_spmm_rows`` call for every
+    bucket, onto a copy of ``yd``."""
+    return ell_spmm_rows(ell.cols, ell.vals, ell.tile_col, bt, plan.ell,
+                         yd.clone(), plan.ell_bucket_k, device=device)
 
 
 def parent_chain(ell, bt, yd, plan, meta, dispatch, per_band=ell_spmm_ref):
@@ -122,9 +114,9 @@ SYNTH_BANDS = ((5, 3), (3, 4), (2, 2), (1, 3))
 def synth_inputs(g=3, r=4, t=16, nct=3, nrt=2, f=7, n_rows=9, seed=0,
                  nonfinite=False):
     """A ragged ELL over ``SYNTH_BANDS`` whose unit rows land on a few of
-    the padded rows, so most live rows are reached by several bands (the
-    carry path) and by several units of one band; some units have
-    unit_k < K (zero lanes inside the band), some rows are sentinel.
+    the padded rows, so most live rows are reached by several buckets and
+    by several units of one bucket; some units have unit_k < K (zero
+    lanes inside the bucket), some rows are sentinel.
     Negative weights, B with -0 entries, ``yd`` never -0. With
     ``nonfinite`` an inf sits in a B row that only a zero lane reads."""
     rng = np.random.default_rng(seed)
@@ -165,89 +157,15 @@ def synth_inputs(g=3, r=4, t=16, nct=3, nrt=2, f=7, n_rows=9, seed=0,
     return ell, torch.from_numpy(b), torch.from_numpy(yd), plan, meta
 
 
-# --------------------------------------------------------- band plans ----
-def test_band_plans_split_the_ell_plan_band_by_band():
-    """Each band's order is the band's share of ``plan.ell`` in the same
-    order, its rows the rows it reaches, and the carry flags say which
-    earlier / later band reaches the same row."""
-    ell, _, _, plan, meta = synth_inputs(g=1)
-    rows = ell.rows[0].numpy().astype(np.int64)
-    full = segment_plan(rows.reshape(-1), meta.n_padded_rows,
-                        rows.reshape(-1) != meta.ell_sentinel_row)
-    bands = band_plans(rows, meta)
-    assert len(bands) == len(SYNTH_BANDS) == len(plan.ell_bands)
-    assert bands[0].n_carry > 0, "fixture must reach rows from several bands"
-    reached = [set(np.asarray(b.rows[0]).tolist()) for b in bands]
-    at, got_order = 0, []
-    for i, ((_, n), band) in enumerate(zip(SYNTH_BANDS, bands)):
-        br = rows[at:at + n].reshape(-1)
-        live = np.asarray(band.rows[0])
-        np.testing.assert_array_equal(
-            live, np.unique(br[br != meta.ell_sentinel_row]))
-        offsets = np.asarray(band.offsets)
-        for j, p in enumerate(live):
-            entries = np.asarray(band.order)[offsets[j]:offsets[j + 1]]
-            assert np.all(br[entries] == p)
-            assert np.all(np.diff(entries) > 0)          # unit order
-            code = int(band.carry[0, j])
-            before = any(p in reached[k] for k in range(i))
-            after = any(p in reached[k] for k in range(i + 1, len(bands)))
-            if before or after:
-                assert code >= 0 and (code & 2 > 0) == before \
-                    and (code & 1 > 0) == after
-                assert 0 <= code >> 2 < band.n_carry
-            else:
-                assert code == -1
-            got_order.append(entries + at * ell.rows.shape[-1])
-        at += n
-    # per row, the bands' entries, band after band, are the one
-    # reduction's entries in its order
-    by_row = {}
-    for e in np.concatenate(got_order):
-        by_row.setdefault(int(rows.reshape(-1)[e]), []).append(int(e))
-    order, offsets = np.asarray(full.order), np.asarray(full.offsets)
-    for p, entries in by_row.items():
-        np.testing.assert_array_equal(entries,
-                                      order[offsets[p]:offsets[p + 1]])
-    assert len(by_row) == int((np.asarray(full.lengths) > 0).sum())
-
-
-@pytest.mark.parametrize("g", [1, 2, 4])
-def test_stacked_band_plans_index_each_member(g):
-    """Stacking pads each band's [G, L] tables with -1 and keeps every
-    member's slots and order; ``plan_to`` moves them as int64 tensors."""
-    plans = []
-    for i in range(g):
-        a = make_heterogeneous_matrix(300 + 4 * i, seed=i)
-        part, meta = _padded(a)
-        plans.append(reduction_plan(part, meta))
-    stacked = plan_to(stack_plans(plans), "cpu")
-    for b, band in enumerate(stacked.ell_bands):
-        assert isinstance(band, BandPlan)
-        assert band.rows.shape[0] == g and band.carry.shape == band.rows.shape
-        assert band.offsets.shape[0] == band.rows.numel() + 1
-        assert band.n_carry == max(p.ell_bands[b].n_carry for p in plans)
-        lengths = torch.diff(band.offsets).reshape(band.rows.shape)
-        assert bool((lengths[band.rows < 0] == 0).all())
-        at = 0
-        for i, p in enumerate(plans):
-            mine = p.ell_bands[b]
-            n = np.asarray(mine.rows).shape[1]
-            np.testing.assert_array_equal(band.rows[i, :n].numpy(),
-                                          np.asarray(mine.rows)[0])
-            assert bool((band.rows[i, n:] == -1).all())
-            k = int(np.asarray(mine.order).shape[0])
-            np.testing.assert_array_equal(band.order[at:at + k].numpy(),
-                                          np.asarray(mine.order))
-            at += k
-        for x in band[:4]:
-            assert x.dtype == torch.int64
-
-
-def _padded(a):
-    part, meta, _ = tc.analyze_and_partition(tc.csr_from_dense(a),
-                                             tc.PartitionConfig(tile=64))
-    return pad_to_class(part, meta, ClassRegistry().classify(part, meta))
+def shared_rows(ell, plan, meta) -> int:
+    """Rows of member 0 that units of more than one bucket reach."""
+    n = ell.rows.shape[-1]
+    bucket = np.repeat(np.arange(len(meta.ell_segments)),
+                       [c for _, c in meta.ell_segments])
+    order = plan.ell.order.numpy()
+    offsets = plan.ell.offsets.numpy()
+    return sum(len(set(bucket[order[offsets[s]:offsets[s + 1]] // n])) > 1
+               for s in range(meta.n_padded_rows))
 
 
 # ------------------------------------------- the plain version, bitwise ----
@@ -258,16 +176,13 @@ def test_rows_ref_equals_parent_chain_at_paper_partitions(graph, g,
                                                           dispatch):
     for f in (16, PAPER_DATASETS[graph].n_classes):
         ell, bt, yd, plan, meta = paper_inputs(graph, g, f)
-        assert len(plan.ell_bands) == len(meta.ell_segments) > 1
+        assert len(meta.ell_segments) > 1
         assert not bool((torch.signbit(yd) & (yd == 0)).any())
         got = folded(ell, bt, yd, plan, meta)
         assert_same_bits(got, parent_chain(ell, bt, yd, plan, meta,
                                            dispatch))
-        # rows no band reaches keep yd's bits
-        hit = torch.zeros(yd.shape[:2], dtype=torch.bool)
-        for band in plan.ell_bands:
-            gi, si = torch.nonzero(band.rows >= 0, as_tuple=True)
-            hit[gi, band.rows[gi, si]] = True
+        # rows no bucket reaches keep yd's bits
+        hit = (plan.ell.lengths > 0).reshape(yd.shape[:2])
         assert bool((~hit).any()) and bool(hit.any())
         assert_same_bits(got[~hit], yd[~hit])
 
@@ -276,8 +191,7 @@ def test_rows_ref_equals_parent_chain_at_paper_partitions(graph, g,
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_rows_ref_equals_parent_chain_when_bands_share_rows(seed, dispatch):
     ell, bt, yd, plan, meta = synth_inputs(seed=seed)
-    assert plan.ell_bands[0].n_carry > 0
-    assert bool((plan.ell_bands[1].carry >= 0).any())
+    assert shared_rows(ell, plan, meta) > 0
     assert_same_bits(folded(ell, bt, yd, plan, meta),
                      parent_chain(ell, bt, yd, plan, meta, dispatch))
 
@@ -291,61 +205,37 @@ def test_rows_ref_propagates_a_nonfinite_b_row_read_by_a_zero_lane():
     assert_same_bits(got, parent_chain(ell, bt, yd, plan, meta, "loop"))
 
 
-def test_rows_ref_sums_step_by_step_from_the_carry():
-    """The carried value is where a row's sum starts: a band that finds
-    x in the row's carry slot adds its products onto x, one at a time."""
-    ell, bt, yd, plan, meta = synth_inputs(g=1, seed=5)
-    buckets = ell_buckets(ell, meta.ell_segments)
-    band, bk = plan.ell_bands[1], buckets[1]
-    carry = torch.randn((1, band.n_carry, bt.shape[-1]))
-    before, out = carry.clone(), yd.clone()
-    ell_spmm_rows_ref(bk.cols, bk.vals, bk.tile_col, bt, band, out, carry)
-    prod = ell_spmm_ref(bk.cols, bk.vals, bk.tile_col, bt).reshape(
-        -1, bt.shape[-1])
-    for j in range(band.rows.shape[1]):
-        code, p = int(band.carry[0, j]), int(band.rows[0, j])
-        acc = (before[0, code >> 2].clone() if code >= 0 and code & 2
-               else torch.zeros(bt.shape[-1]))
-        for e in band.order[band.offsets[j]:band.offsets[j + 1]]:
-            acc = acc + prod[e]
-        if code >= 0 and code & 1:
-            assert_same_bits(carry[0, code >> 2], acc)
-        else:
-            assert_same_bits(out[0, p], yd[0, p] + acc)
-
-
 # ------------------------------------------------------------ wrappers ----
 def test_rows_wrapper_checks_inputs_and_counts_no_cpu_launch():
     ell, bt, yd, plan, meta = synth_inputs()
-    bk, band = ell_buckets(ell, meta.ell_segments)[0], plan.ell_bands[0]
+    kb = plan.ell_bucket_k
+    args = (ell.cols, ell.vals, ell.tile_col, bt, plan.ell)
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="carry"):
-        ell_spmm_rows(bk.cols, bk.vals, bk.tile_col, bt, band, yd.clone(),
-                      device="cpu")
-    carry = torch.zeros((yd.shape[0], band.n_carry, yd.shape[2]))
+    with pytest.raises(ValueError, match="bucket_k"):
+        ell_spmm_rows(*args, yd.clone(), kb[:-1], device="cpu")
+    with pytest.raises(ValueError, match="bucket_k"):
+        ell_spmm_rows(*args, yd.clone(), kb.long(), device="cpu")
     with pytest.raises(ValueError, match="out"):
-        ell_spmm_rows(bk.cols, bk.vals, bk.tile_col, bt, band, yd[..., :-1],
-                      carry, device="cpu")
-    with pytest.raises(ValueError, match="band plan"):
-        ell_spmm_rows(bk.cols[:1], bk.vals[:1], bk.tile_col[:1], bt[:1],
-                      band, yd[:1].clone(), carry[:1], device="cpu")
+        ell_spmm_rows(*args, yd[..., :-1], kb, device="cpu")
+    with pytest.raises(ValueError, match="plan"):
+        ell_spmm_rows(ell.cols[:, :-1], ell.vals[:, :-1],
+                      ell.tile_col[:, :-1], bt, plan.ell, yd.clone(),
+                      kb[:-1], device="cpu")
     with pytest.raises(ValueError, match="int32"):
-        ell_spmm_rows(bk.cols.long(), bk.vals, bk.tile_col, bt, band,
-                      yd.clone(), carry, device="cpu")
+        ell_spmm_rows(ell.cols.long(), *args[1:], yd.clone(), kb,
+                      device="cpu")
     out = yd.clone()
-    assert ell_spmm_rows(bk.cols, bk.vals, bk.tile_col, bt, band, out, carry,
-                         device="cpu") is out
+    assert ell_spmm_rows(*args, out, kb, device="cpu") is out
     assert ops.launch_counts()["ell_spmm"] == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            ell_spmm_rows(bk.cols, bk.vals, bk.tile_col, bt, band, out,
-                          carry)
+            ell_spmm_rows(*args, out, kb)
 
 
 def test_ops_fused_and_loop_fold_the_sum_onto_the_dense_rows():
-    """``ops.ell_matmul`` on "fused"/"loop": the band rows onto ``yd`` in
-    place, equal to the parent chain bit for bit, with no launch counted
-    on the CPU; a plan without band plans is refused."""
+    """``ops.ell_matmul`` on "fused"/"loop": the bucket rows onto ``yd``
+    in place, equal to the parent chain bit for bit, with no launch
+    counted on the CPU; a plan without its bucket table is refused."""
     ell, bt, yd, plan, meta = paper_inputs("cora", 2, 9)
     part = TriPartition(DenseTiles(None, None, None), ell,
                         CooResidual(None, None, None))
@@ -357,8 +247,8 @@ def test_ops_fused_and_loop_fold_the_sum_onto_the_dense_rows():
         assert ops.ell_matmul(part, b, meta, plan, out, dispatch=d) is out
         assert_same_bits(out, want)
         assert ops.launch_counts()["ell_spmm"] == 0
-    with pytest.raises(ValueError, match="band plans"):
-        ops.ell_matmul(part, b, meta, plan._replace(ell_bands=()), yd,
+    with pytest.raises(ValueError, match="bucket table"):
+        ops.ell_matmul(part, b, meta, plan._replace(ell_bucket_k=None), yd,
                        dispatch="fused")
 
 
@@ -406,8 +296,9 @@ def test_engine_dispatches_give_the_same_logits_bit_for_bit():
     for d in ("ragged", "fused", "loop"):
         eng = Engine(device="cpu", ell_dispatch=d)
         eng.register("cora", csr, weights=ws)
-        assert len(eng.handle("cora").plan.ell_bands) == len(
-            eng.handle("cora").sclass.bands)
+        h = eng.handle("cora")
+        np.testing.assert_array_equal(h.plan.ell_bucket_k.numpy(),
+                                      np.repeat(*zip(*h.sclass.bands)))
         outs[d] = [eng.infer("cora", x) for x in xs] + eng.serve_group(
             [("cora", x) for x in xs])
     for d in ("fused", "loop"):
@@ -428,22 +319,20 @@ def cuda_device():
 @pytest.mark.parametrize("graph", ["cora", "pubmed"])
 def test_cuda_band_rows_bitwise_at_paper_shapes(cuda_device, graph, g):
     """At the class-padded partitions of cora and pubmed (full size), F =
-    128 and the class count: one launch per band, equal to the plain
-    version and to the per-unit kernel + ``scatter_ell_partials`` + add
-    bit for bit, on both dispatches."""
+    128 and the class count: one launch for every bucket, equal to the
+    plain version and to the per-unit kernel + ``scatter_ell_partials`` +
+    add bit for bit, on both dispatches."""
     for f in (128, PAPER_DATASETS[graph].n_classes):
         ell, bt, yd, plan, meta = paper_inputs(graph, g, f, scale=1.0,
                                                device=cuda_device)
         ops.reset_launch_counts()
         got = folded(ell, bt, yd, plan, meta, device=cuda_device)
-        assert ops.launch_counts()["ell_spmm"] == len(meta.ell_segments)
+        assert ops.launch_counts()["ell_spmm"] == 1
         assert ops.launch_counts()["ragged_ell_spmm"] == 0
         assert_same_bits(got, folded(ell, bt, yd, plan, meta,
                                      device=cuda_device))      # repeats
-        want = yd.clone()
-        for bk, band in zip(ell_buckets(ell, meta.ell_segments),
-                            plan.ell_bands):
-            ell_spmm_rows_ref(bk.cols, bk.vals, bk.tile_col, bt, band, want)
+        want = ell_spmm_rows_ref(ell.cols, ell.vals, ell.tile_col, bt,
+                                 plan.ell, yd.clone(), plan.ell_bucket_k)
         assert_same_bits(got, want)
         for d in ("fused", "loop"):
             assert_same_bits(got, parent_chain(
@@ -455,6 +344,8 @@ def test_cuda_band_rows_bitwise_at_paper_shapes(cuda_device, graph, g):
 @pytest.mark.parametrize("f", [7, 16, 128, 130])
 @pytest.mark.parametrize("nonfinite", [False, True])
 def test_cuda_band_rows_carry_case_bitwise(cuda_device, f, nonfinite):
+    """Rows reached by several buckets, each summed in registers across
+    the buckets in one launch."""
     ell, bt, yd, plan, meta = synth_inputs(f=f, seed=f, nonfinite=nonfinite)
     want = folded(ell, bt, yd, plan, meta)
     dev = cuda_device
@@ -462,5 +353,36 @@ def test_cuda_band_rows_carry_case_bitwise(cuda_device, f, nonfinite):
     plan = plan_to(plan, dev)
     ops.reset_launch_counts()
     got = folded(ell, bt.to(dev), yd.to(dev), plan, meta, device=dev)
-    assert ops.launch_counts()["ell_spmm"] == len(SYNTH_BANDS)
+    assert ops.launch_counts()["ell_spmm"] == 1
     assert_same_bits(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 7])
+def test_cuda_band_rows_at_the_labels_training_partition(cuda_device, f):
+    """cora reordered by labels, not padded to a class (the partition
+    training differentiates through): one bucket per K run, a dozen and
+    more of them, in one launch, bit for bit the per-bucket chains and
+    the ragged kernel."""
+    from repro_torch.core.reorder import reorder
+    dev = cuda_device
+    csr, _, _, _ = make_paper_dataset("cora", scale=1.0, seed=0)
+    csr = reorder(csr, "labels", labels=make_paper_dataset.last_labels)[0]
+    part, meta, _ = tc.analyze_and_partition(csr, tc.PartitionConfig(
+        tile=64))
+    assert len(meta.ell_segments) > 8
+    placed = tc.partition_to(TriPartition(*(
+        type(c)(*(np.asarray(x)[None] for x in c)) for c in part)), dev)
+    plan = plan_to(reduction_plan(part, meta), dev)
+    b = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (1, meta.n_cols, f)).astype(np.float32)).to(dev)
+    bt = b_tiles_of(b, meta).contiguous()
+    yd = ops.dense_tiles_matmul(placed, b, meta, plan)
+    ops.reset_launch_counts()
+    got = folded(placed.ell, bt, yd, plan, meta, device=dev)
+    assert ops.launch_counts()["ell_spmm"] == 1
+    for d in ("fused", "loop"):
+        assert_same_bits(got, parent_chain(
+            placed.ell, bt, yd, plan, meta, d,
+            per_band=lambda *a: ell_spmm(*a, device=dev)))
+    assert_same_bits(got, ops.ell_matmul(placed, b, meta, plan, yd.clone()))

@@ -374,3 +374,76 @@ def test_cuda_ell_rows_bitwise_at_paper_shapes(cuda_device, graph, g):
                                                     plan.ell, yd.clone()))
         assert torch.equal(per_unit, ragged_ell_spmm_ref(cols, vals, tcol,
                                                          uk, bt))
+
+
+def _labels_class(graph, dev):
+    """The class-padded partition of a paper graph at full size reordered
+    by its planted labels (several K bands), its meta and plan on
+    ``dev``."""
+    from repro_torch.core.reorder import reorder
+    csr, _, _, _ = make_paper_dataset(graph, scale=1.0, seed=0)
+    csr = reorder(csr, "labels", labels=make_paper_dataset.last_labels)[0]
+    part, meta, _ = tc.analyze_and_partition(csr, tc.PartitionConfig(
+        tile=64))
+    part, meta = pad_to_class(part, meta,
+                              ClassRegistry().classify(part, meta))
+    plan = plan_to(stack_plans([reduction_plan(part, meta)]), dev)
+    ell = [torch.from_numpy(np.asarray(x)[None]).to(dev) for x in part.ell]
+    return ell, meta, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["cora", "pubmed"])
+def test_cuda_banded_rows_bitwise_at_labels_shapes(cuda_device, graph):
+    """Each unit to its band's K on the card: at the labels-reordered
+    class (several bands), F = 128 and the class count, the kernel with
+    the meta's segments equals its plain version bit for bit in every
+    launch shape the autotuner may pick, and the Kmax pass
+    (``segments=()``) at finite B. With every lane past its unit's band
+    pointed at a B row of inf (col T - 1, which no lane inside a band
+    reads), the result keeps the finite bits: those lanes are never read,
+    where the Kmax pass turns rows to NaN."""
+    from repro_torch.data.graphs import PAPER_DATASETS
+    from repro_torch.kernels.autotune import candidates
+    from repro_torch.kernels.bands import _bands_of, unit_bounds
+    (cols, vals, _, tcol, uk), meta, plan = _labels_class(graph,
+                                                          cuda_device)
+    segs = meta.ell_segments
+    assert len(segs) > 1
+    _, u, _, kmax = cols.shape
+    t = meta.tile
+    bound = torch.from_numpy(unit_bounds(_bands_of(segs, u, kmax, 4))).to(
+        cuda_device)
+    inside = torch.arange(kmax, device=cuda_device) < bound[:, None, None]
+    past = cols.clone()
+    past[inside & (cols == t - 1)] = t - 2
+    past[~inside.expand_as(cols)] = t - 1
+    rng = np.random.default_rng(3)
+    for f in (128, PAPER_DATASETS[graph].n_classes):
+        bt = b_tiles_of(torch.from_numpy(rng.standard_normal(
+            (1, meta.n_cols, f)).astype(np.float32)).to(cuda_device), meta
+        ).contiguous()
+        yd = torch.from_numpy(rng.standard_normal(
+            (1, meta.n_padded_rows, f)).astype(np.float32)).to(cuda_device)
+        args = (cols, vals, tcol, uk, bt, plan.ell)
+        want = ragged_ell_rows_ref(*args, yd.clone(), segments=segs)
+        assert torch.equal(want, ragged_ell_rows(*args, yd.clone()))
+        for tune in candidates(f):
+            assert torch.equal(ragged_ell_rows(
+                *args, yd.clone(), segments=segs, tune=tune), want), tune
+        assert torch.equal(ragged_ell_spmm(cols, vals, tcol, uk, bt,
+                                           segments=segs),
+                           ragged_ell_spmm_ref(cols, vals, tcol, uk, bt,
+                                               segments=segs))
+        poisoned = bt.clone()
+        poisoned[:, :, t - 1, :] = float("inf")
+        pargs = (past, vals, tcol, uk)
+        clean = ragged_ell_rows(*pargs, bt, plan.ell, yd.clone(),
+                                segments=segs)
+        got = ragged_ell_rows(*pargs, poisoned, plan.ell, yd.clone(),
+                              segments=segs)
+        assert torch.equal(got, clean)
+        assert torch.equal(got, ragged_ell_rows_ref(
+            *pargs, poisoned, plan.ell, yd.clone(), segments=segs))
+        assert bool(torch.isnan(ragged_ell_rows(
+            *pargs, poisoned, plan.ell, yd.clone())).any())

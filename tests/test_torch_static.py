@@ -87,7 +87,8 @@ def _ragged(**kw):
 def _stand_ins(c, **override):
     vals = {"tile_col": np.zeros(c["shapes"]["tile_col"], np.int32),
             "cols": np.zeros(c["shapes"]["cols"], np.int32),
-            "unit_k": np.ones(c["shapes"].get("unit_k", (1,)), np.int32)}
+            "unit_k": np.ones(c["shapes"].get("unit_k", (1,)), np.int32),
+            "bucket_k": np.ones(c["shapes"].get("bucket_k", (1,)), np.int32)}
     vals.update(override)
     return tuple(vals[k] for k in c["index_bounds"])
 
@@ -210,7 +211,9 @@ class TestKernelPass:
         n_types = len(ELL_DTYPES)
         assert [c["vec"] for c in ragged] == [4] * n_types + [1] * n_types
         assert [c["dtypes"] for c in ragged] == list(ELL_DTYPES) * 2
-        assert len(pairs) == 2 * n_types * (1 + len(sc.bands))
+        # the ragged contract and the one fixed-K contract a layer
+        assert len(sc.bands) > 1
+        assert len(pairs) == 2 * n_types * 2
         for c, scalars in pairs:
             assert _errors(check_contract(c, scalar_args=scalars,
                                           ptxas_log=_log_for(c, 0))) == []
@@ -331,7 +334,8 @@ class TestLaunchPass:
         from repro_torch.core.formats import segment_sum
         from repro_torch.kernels.ref import _gather_b_tiles
 
-        def unmasked(cols, vals, tile_col, unit_k, b_tiles, plan, out):
+        def unmasked(cols, vals, tile_col, unit_k, b_tiles, plan, out,
+                     **bands):
             g, u, r, kmax = cols.shape
             f = b_tiles.shape[-1]
             bt = _gather_b_tiles(b_tiles, tile_col)
