@@ -62,13 +62,14 @@ repository's ``src/`` next to this file. It
  11. autotune: ``Engine.autotune`` on the classes of cora (citeseer's
      too), pubmed and cora@labels, each at the hidden width and at its
      output width, with the device timer (CUDA graphs of the tuned launch
-     on the graph's own class-padded rows); prints each sweep's
-     per-candidate device ms and the rejected candidates with their
-     audit findings, and the device ms of the GCN forward with each
-     graph's applied tuning (a config per width) against the defaults.
-     Gates: only candidates without an audit error are timed; each
-     timed candidate's ``ragged_ell_rows`` bitwise-equal to the
-     default's on the class's real inputs; each width's winner applied
+     on the graph's own class-padded rows), sweeping the launch shape and
+     ``max_bands`` 4 and 1; prints each sweep's time and per-candidate
+     device ms and the rejected candidates with their audit findings,
+     and the device ms of the GCN forward with each graph's applied
+     tuning (a config per width) against the defaults. Gates: only
+     candidates without an audit error are timed; each timed
+     candidate's ``ragged_ell_rows`` bitwise-equal to the default's on
+     the class's real inputs and bands; each width's winner applied
      at that width; tuned ``infer`` bitwise-equal to untuned; a second
      ``autotune`` a cache hit that times nothing;
  12. lint: the three passes of ``python -m repro_torch.analysis.static``
@@ -274,7 +275,17 @@ repository's ``src/`` next to this file. It
      (the forward's, on Aᵀ's partition) in the training backward, and
      one ``<kernel>_bf16`` entry per kernel: its bfloat16
      instances' ptxas lines, their launches on the bfloat16 path and
-     their times) and, last, the ``{"ok": true, "device": ...}`` line.
+     their times; the ragged entry also carries ``table_cases``: the
+     kernel past 4 K bands, where it reads each unit's band K from a
+     [U] table kept on the card, on the unpadded partitions of cora and
+     pubmed reordered by labels (23 and 52 K runs, as training runs
+     them), F = 128: bitwise its plain version and the 4-band launch at
+     max_bands 8 and every run, at float32 and with bfloat16 B and vals;
+     one table launch a call, the tables kept (none built again), the
+     launches captured into CUDA graphs;
+     device ms at 4 and 8 bands and every run beside the fixed-K kernel
+     and ``torch.sparse.mm`` + ``index_add_``, with the K trips of each)
+     and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
 without the repository's sources, it exits non-zero and prints no result.
@@ -1382,9 +1393,11 @@ def autotune_phase(torch, engine, graphs, names) -> tuple:
                                 "without an audit error was not timed")
             case = class_case(torch, engine, name, xs[name], f)
             dev = case[4].device
-            want = ragged_ell_rows(*case[:6], case[6].clone(), device=dev)
+            segs = tuple(h.sclass.bands)
+            want = ragged_ell_rows(*case[:6], case[6].clone(),
+                                   segments=segs, device=dev)
             diff = [r["config"] for r in timed if not torch.equal(
-                ragged_ell_rows(*case[:6], case[6].clone(),
+                ragged_ell_rows(*case[:6], case[6].clone(), segments=segs,
                                 tune=r["config"], device=dev), want)]
             applied = engine.executors.tuned_for(h.sclass, f)
             if applied != cfg:
@@ -1416,7 +1429,8 @@ def autotune_phase(torch, engine, graphs, names) -> tuple:
                                                if "ERROR" in x)
                         if r["ms"] is None else f"{r['ms']:.5f} ms")
                 print(f"    w={eff['w']:2d} vec={eff['vec']} kc={eff['kc']} "
-                      f"threads={eff['threads']:3d}  {what}")
+                      f"threads={eff['threads']:3d} max_bands="
+                      f"{eff['max_bands']} ({r['bands']} bands)  {what}")
             rows.append(dict(
                 graph=name, shape_class=h.sclass.summary(), f=f,
                 winner=cfg, winner_ms=winner_ms, default=default,
@@ -4653,7 +4667,7 @@ def bsr_case(torch, case):
 
 
 def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None,
-              bound=None) -> float:
+              bound=None, table=False) -> float:
     """Bytes an ELL function must move.
 
     Per unit (``plan`` None): its cols/vals lanes, tile_col, each distinct
@@ -4667,7 +4681,8 @@ def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None,
     bucket_k) of their units, the plan's order, the offsets and
     live-table entries of its live rows, each distinct B row those lanes
     address, and the live output rows, read once and written once (no
-    per-unit output).
+    per-unit output); with ``table`` (the ragged kernel past 4 bands)
+    also the band table's entry of each distinct unit index.
     """
     c = cols.cpu().numpy()
     tc = tcol.cpu().numpy()
@@ -4691,7 +4706,8 @@ def ell_bytes(cols, tcol, live, t, f, g, u, r, plan=None,
     used_offsets = len(np.unique(np.concatenate([segs, segs + 1])))
     return (int(kb.sum()) * 8 + len(np.unique(unit)) * 8
             + order.size * 8 + used_offsets * 8 + segs.size * 8
-            + used_rows * f * 4 + 2 * segs.size * f * 4)
+            + used_rows * f * 4 + 2 * segs.size * f * 4
+            + (len(np.unique(unit % u)) * 4 if table else 0))
 
 
 def band_bound(meta, u, kmax) -> np.ndarray:
@@ -4982,6 +4998,188 @@ def fixed_ell_case(torch, case):
         parent_loop_chain_kernels=profile_calls(
             torch, loop_chain, calls=1)["kernels_per_infer"],
         bound=bound(cost["hbm_bytes"], cost["flops"]))
+
+
+# -------------------------------------------------- past four K bands ----
+# The unpadded partitions reordered by labels (quickstart.prepare, as the
+# training phase runs them), and the caps the table cases time: 4 (by
+# value), 8 and every run ("all"), both past 4 read from the band table.
+TABLE_GRAPHS = ("cora", "pubmed")
+TABLE_CAPS = (("4", 4), ("8", 8), ("all", None))
+
+
+def ragged_registers(build_log) -> dict:
+    """Registers (lowest, highest) and spill bytes of the ragged kernel's
+    instances in the four ragged sources' ptxas logs, for the by-value
+    kernel and the table kernel apart."""
+    from repro_torch.kernels._build import ptxas_entries
+
+    out = {}
+    for kernel in ("ell_rows_kernel", "ell_rows_table_kernel"):
+        es = [e for src, entry in build_log.items()
+              if src.startswith("ragged_ell_spmm")
+              for e in ptxas_entries(entry["log"])
+              if f"{len(kernel)}{kernel}I" in e["name"]]
+        out[kernel] = dict(
+            instances=len(es),
+            registers=[min((e["registers"] for e in es), default=0),
+                       max((e["registers"] for e in es), default=0)],
+            spill_bytes=sum(e["spill_stores"] + e["spill_loads"]
+                            for e in es))
+    return out
+
+
+def table_case(torch, name, dev="cuda"):
+    """``ragged_ell_rows`` past 4 K bands on ``name``'s unpadded
+    partition reordered by labels, at F = 128 (B seeded; the dense
+    engine's rows to add onto): each unit to its band's K, the bands'
+    Ks read from the [U] table kept on the card.
+
+    Gates: at 8 bands and at every run, bit for bit its plain version
+    (``ragged_ell_rows_ref`` at every run) and the 4-band launch (finite
+    B: where a band stops a chain past ``unit_k`` adds only zeros); the
+    same with bfloat16 B, bfloat16 vals, and both; each such call one
+    table launch; the tables built by the first calls kept through every
+    later one (the same tensors, none built again: no copy or fill at
+    launch), the launches captured into the CUDA graphs of the times (a
+    host sync or a pageable copy fails a capture); where a profile of
+    warm calls records device events (``torch.profiler`` loses most
+    traces of the ctypes-launched kernels: ``kernels_per_call`` in the
+    kernel phase), one table kernel a call; the bound's bytes and
+    operations by ``contract_cost`` within ``COST_TOL`` of this
+    script's count. Times (device ms a call): the
+    kernel at 4, 8 and every run, its plain version, the fixed-K kernel
+    (one launch over the runs) and ``torch.sparse.mm`` over the live
+    rows' CSR + ``index_add_``; the K trips at each cap."""
+    import importlib
+
+    from repro_torch.core.formats import b_tiles_of
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bands import _bands_of, unit_bounds
+    from repro_torch.kernels.ref import ragged_ell_rows_ref
+
+    E = importlib.import_module("repro_torch.kernels.ell_spmm")
+    data = qs.prepare(name, reorder_by="labels", seed=SEED, device=dev)
+    meta, plan, part = data["meta"], data["plan"], data["part"]
+    segs = tuple(meta.ell_segments)
+    cols, vals, rows, tcol, uk = (x[None].contiguous() for x in part.ell)
+    g, u, r, kmax = cols.shape
+    nct, t, f, p = meta.n_col_tiles, meta.tile, HIDDEN, meta.n_padded_rows
+    caps = {k: len(segs) if mb is None else mb for k, mb in TABLE_CAPS}
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (1, meta.n_cols, f)).astype(np.float32)).to(dev)
+    bt = b_tiles_of(b, meta).contiguous()
+    placed = type(part)(*(type(c)(*(x[None] for x in c)) for c in part))
+    yd = ops.dense_tiles_matmul(placed, b, meta, plan)
+    ep = plan.ell
+
+    def rows_at(mb, out, bb=bt, vv=vals):
+        return E.ragged_ell_rows(cols, vv, tcol, uk, bb, ep, out,
+                                 segments=segs, max_bands=mb, device=dev)
+
+    def plain(out, bb=bt, vv=vals):
+        return ragged_ell_rows_ref(cols, vv, tcol, uk, bb, ep, out,
+                                   segments=segs, max_bands=len(segs))
+
+    types = {"float32": (vals, bt), "f32_bf16": (vals, bt.bfloat16()),
+             "bf16_bf16": (vals.bfloat16(), bt.bfloat16()),
+             "bf16_f32": (vals.bfloat16(), bt)}
+    bitwise, per_call = {}, []
+    for pair, (vv, bb) in types.items():
+        want = plain(yd.clone(), bb, vv)
+        four = torch.equal(rows_at(4, yd.clone(), bb, vv), want)
+        ok = four
+        for key in ("8", "all"):
+            before = sum(E.table_launches.values())
+            ok = ok and torch.equal(rows_at(caps[key], yd.clone(), bb, vv),
+                                    want)
+            per_call.append(sum(E.table_launches.values()) - before)
+        bitwise[pair] = ok
+    band_plans = {k: _bands_of(segs, u, kmax, mb) for k, mb in caps.items()}
+    trip = {k: trips(unit_bounds(bp), g, r, kmax)["bounded"]
+            for k, bp in band_plans.items()}
+    tables = {k: E.band_table(bp, dev) for k, bp in band_plans.items()
+              if len(bp) > E.VALUE_BANDS}
+    n_tables = len(E._tables)
+    buf, plain_buf, lib_buf = yd.clone(), yd.clone(), yd.clone()
+    prof = profile_calls(torch, lambda: rows_at(caps["all"], buf), calls=5,
+                         detail=True)
+    # None: the trace recorded no device event (a lost trace)
+    one_kernel = (None if not prof["kernels_per_infer"] else
+                  prof["kernels_per_infer"] == 1 and all(
+                      "ell_rows_table_kernel" in k
+                      for k in prof["per_kernel"]))
+    _, live_csr, live_ids = rows_csr(torch, cols, vals, tcol, uk, rows,
+                                     meta, nct, t)
+    b2 = bt.reshape(g * nct * t, f)
+    all_bound = unit_bounds(band_plans["all"])
+    lengths = plan.ell.lengths.cpu().numpy()
+    lanes = int(all_bound[(ep.order.cpu().numpy() // r) % u].sum())
+    flops = 2.0 * lanes * f + ep.order.shape[0] * f + (lengths > 0).sum() * f
+    cost = E.contract_cost(E.ragged_ell_contract(
+        g, u, r, kmax, nct, t, f, segments=segs, max_bands=caps["all"],
+        n_slots=int(ep.live.shape[1])), cols=cols, tile_col=tcol, plan=ep)
+    smoke = [float(ell_bytes(cols, tcol, None, t, f, g, u, r, plan=ep,
+                             bound=all_bound, table=True)), float(flops)]
+    counts_ok = (abs(cost["hbm_bytes"] - smoke[0]) <= COST_TOL * smoke[0]
+                 and abs(cost["flops"] - smoke[1]) <= COST_TOL * smoke[1])
+    ms = {k: device_ms(torch, lambda mb=mb: rows_at(mb, buf))
+          for k, mb in caps.items()}
+    kept = len(E._tables) == n_tables and all(
+        E.band_table(band_plans[k], dev) is t for k, t in tables.items())
+    return dict(
+        graph=f"{name}@labels (unpadded)", F=f, G=g, units=u, runs=len(segs),
+        bands={k: len(bp) for k, bp in band_plans.items()},
+        trips=dict(trip, kmax=g * u * r * kmax), ms=ms,
+        plain_ms=device_ms(torch, lambda: plain(plain_buf)),
+        fixed_k_ms=device_ms(torch, lambda: E.ell_spmm_rows(
+            cols, vals, tcol, bt, ep, buf, plan.ell_bucket_k, device=dev)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_ids, torch.sparse.mm(live_csr, b2))),
+        bound=bound(cost["hbm_bytes"], cost["flops"]),
+        counts=dict(contract_cost=[cost["hbm_bytes"], cost["flops"]],
+                    smoke=smoke),
+        bitwise=bitwise, table_launches_per_call=per_call,
+        tables_kept=kept, one_kernel_a_call=one_kernel,
+        profile_top=prof["top"][:2],
+        ok=(all(bitwise.values()) and set(per_call) == {1} and kept
+            and one_kernel is not False and counts_ok))
+
+
+def table_phase(torch, build_log, dev="cuda") -> tuple:
+    """``table_case`` on the labels-reordered cora and pubmed, and the
+    ragged kernel's registers (``ragged_registers``: no instance of
+    either kernel may spill). Returns (problems, records)."""
+    problems, records = [], []
+    regs = ragged_registers(build_log)
+    for kernel, rec in regs.items():
+        print(f"  ragged {kernel}: {rec['instances']} instances, "
+              f"{rec['registers'][0]}-{rec['registers'][1]} registers, "
+              f"{rec['spill_bytes']} spill bytes")
+        if rec["spill_bytes"] or not rec["instances"]:
+            problems.append(f"ragged {kernel}: {rec}")
+    for name in TABLE_GRAPHS:
+        res = table_case(torch, name, dev)
+        ms = res["ms"]
+        print(f"  ragged_ell_rows past 4 bands, {res['graph']} ({res['runs']}"
+              f" runs, {res['units']} units) F={res['F']}: max_bands 4 "
+              f"{ms['4']:.5f} ms, 8 {ms['8']:.5f} ms, all "
+              f"{ms['all']:.5f} ms; fixed-K {res['fixed_k_ms']:.5f} ms; "
+              f"library {res['library_ms']:.5f} ms; plain "
+              f"{res['plain_ms']:.4f} ms; bound {res['bound'][0]:.5f} ms "
+              f"({res['bound'][1]}); K trips {json.dumps(res['trips'])}; "
+              f"bitwise {json.dumps(res['bitwise'])}; tables kept "
+              f"{res['tables_kept']}; one kernel a call "
+              f"{res['one_kernel_a_call']} (None: the trace was lost)")
+        if not res["ok"]:
+            why = {k: res[k] for k in ("bitwise", "table_launches_per_call",
+                                       "tables_kept", "one_kernel_a_call",
+                                       "counts", "profile_top")}
+            problems.append(f"ragged_ell_rows past 4 bands at "
+                            f"{res['graph']}: {json.dumps(why)}")
+        records.append(res)
+    return problems, dict(registers=regs, cases=records)
 
 
 def matmul_case(torch, case):
@@ -5847,6 +6045,8 @@ def main() -> None:
     kproblems, entries = kernel_phase(torch, engine, graphs, launches,
                                       mm_cases, log, REORDERED)
     problems += kproblems
+    tb_problems, table_cases = table_phase(torch, log)
+    problems += tb_problems
     for entry in entries:
         back = bwd_kernels.get(entry["name"])
         entry.update(backward_launches=bwd_launches[entry["name"]],
@@ -5863,6 +6063,7 @@ def main() -> None:
                   + (f"  launches {v['launches_per_call']} for "
                      f"{v['buckets']} buckets" if "buckets" in v else ""))
         if entry["name"] == "ragged_ell_spmm":
+            entry["table_cases"] = table_cases
             entry["tuned"] = [dict(graph=r["graph"], f=r["f"],
                                    shape_class=r["shape_class"],
                                    config=r["winner"], ms=r["winner_ms"],

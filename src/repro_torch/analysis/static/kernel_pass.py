@@ -29,8 +29,10 @@ anything:
   Kmax``) lie in range.
 - **bands**: the ELL kernels' band table (the ragged kernel's K bands,
   the fixed-K kernel's buckets): Ks strictly descending, each in
-  [0, Kmax], the units' counts summing to U; the ragged kernel takes at
-  most ``MAX_BANDS`` bands (by value).
+  [0, Kmax], the units' counts summing to U; the ragged kernel's
+  ``max_bands`` at least 1, at most ``VALUE_BANDS`` bands by value
+  (``ell_rows_kernel``), and a plan of more as a [U] table
+  (``ell_rows_table_kernel``, ``band_k`` of length U).
 - **registers**: where the build's ``-Xptxas -v`` log holds the
   instance, its registers times the block's threads must fit the SM's
   64 K registers, and it must not spill: any spill store or spill load
@@ -54,7 +56,7 @@ from repro_torch.analysis.static.report import Finding
 from repro_torch.engine.shape_class import (ClassNeed, ShapeClass,
                                            ShapePolicy, class_fits)
 from repro_torch.kernels import _build
-from repro_torch.kernels.bands import MAX_BANDS, unit_bounds
+from repro_torch.kernels.bands import VALUE_BANDS, band_mode, unit_bounds
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
                                           ragged_ell_contract)
@@ -80,9 +82,11 @@ MATMUL_DTYPES = (torch.float32, torch.bfloat16)
 
 # The kernel instances each source is built with (the ELL kernels' launch
 # shapes followed by their (vals, B) type names).
+_RAGGED_BUILT = {shape + types for shape in itertools.product(
+    TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS) for types in ELL_DTYPES}
 BUILT = {
-    "ell_rows_kernel": {shape + types for shape in itertools.product(
-        TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS) for types in ELL_DTYPES},
+    "ell_rows_kernel": _RAGGED_BUILT,
+    "ell_rows_table_kernel": _RAGGED_BUILT,
     "ell_band_kernel": {shape + types for shape in itertools.product(
         TUNE_W, TUNE_VEC) for types in ELL_DTYPES},
     "matmul_kernel": set(TILES.values()),
@@ -194,8 +198,10 @@ def check_contract(contract: dict, *, scalar_args: Sequence = (),
 
 def check_bands(contract: dict) -> List[Finding]:
     """The band table of an ELL contract: Ks strictly descending, each
-    in [0, Kmax], counts summing to the units, and at most ``MAX_BANDS``
-    bands for the ragged kernel."""
+    in [0, Kmax], counts summing to the units; for the ragged kernel a
+    ``max_bands`` of at least 1, and the mode its band count takes: at
+    most ``VALUE_BANDS`` bands by value (``ell_rows_kernel``), more as a
+    [U] table (``ell_rows_table_kernel``) of one entry a unit."""
     _, u, _, kmax = contract["shapes"]["cols"]
     bands = tuple(contract["bands"])
     ks = [k for k, _ in bands]
@@ -208,9 +214,22 @@ def check_bands(contract: dict) -> List[Finding]:
     if sum(n for _, n in bands) != u or any(n <= 0 for _, n in bands):
         msgs.append(f"band counts {[n for _, n in bands]} do not cover "
                     f"the {u} units")
-    if contract["kernel"] == "ell_rows_kernel" and len(bands) > MAX_BANDS:
-        msgs.append(f"{len(bands)} bands: the ragged kernel takes at most "
-                    f"{MAX_BANDS}")
+    if contract["name"] == "ragged_ell_rows":
+        mb = contract.get("max_bands")
+        if mb is not None and mb < 1:
+            msgs.append(f"max_bands={mb}: the ragged kernel takes 1 or "
+                        "more K bands")
+        want = ("ell_rows_kernel" if band_mode(bands) == "value"
+                else "ell_rows_table_kernel")
+        if contract["kernel"] != want:
+            msgs.append(f"{len(bands)} bands launched by "
+                        f"{contract['kernel']}: the ragged kernel takes at "
+                        f"most {VALUE_BANDS} by value (ell_rows_kernel), "
+                        "more as a table (ell_rows_table_kernel)")
+        table = contract["shapes"].get("band_k")
+        if want == "ell_rows_table_kernel" and table != (u,):
+            msgs.append(f"band table {table} for {u} units: the kernel "
+                        "reads one entry a unit")
     return [Finding("kernel", "bands", "error", contract["name"], m)
             for m in msgs]
 

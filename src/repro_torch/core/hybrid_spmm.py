@@ -174,11 +174,12 @@ EVERY_WIDTH = 0
 
 
 def tune_at(ell_tune, f) -> dict:
-    """The ragged-kernel launch config for a launch of width ``f``.
+    """The ragged kernel's tuned config for a launch of width ``f``.
 
-    ``ell_tune`` is None, one config ({"w", "vec", "kc", "threads"}) for
-    every width, or a tuning table {width: config} (an executor's, one
-    config per width it was tuned at), where ``EVERY_WIDTH`` (0) covers
+    ``ell_tune`` is None, one config (any of "w", "vec", "kc",
+    "threads", "max_bands") for every width, or a tuning table {width:
+    config} (an executor's, one config per width it was tuned at),
+    where ``EVERY_WIDTH`` (0) covers
     the widths without their own entry. ``f`` None reads that entry.
     Returns the config ({} = the defaults)."""
     if not ell_tune:

@@ -15,7 +15,8 @@ any size costs the launches of one graph per layer: one of each kernel,
 with the ragged ELL dispatch or with "fused"/"loop" (one ``ell_spmm``
 for every class band).
 
-An autotuned ragged-kernel launch shape (``set_tuned``, fed by
+An autotuned ragged-kernel config, its launch shape and ``max_bands``
+(``set_tuned``, fed by
 ``Engine.autotune``, one per class and feature width) rides in every
 executor key of its class and is passed down the dispatch path as
 ``ell_tune``.
@@ -205,9 +206,9 @@ class ExecutorCache:
 
     # -------------------------------------------------------- autotune -----
     def set_tuned(self, sc: ShapeClass, cfg: dict, f: int = None) -> int:
-        """Apply an autotuned ragged-kernel config to the executors of
-        class ``sc`` (``repro_torch.kernels.autotune`` winners land
-        here).
+        """Apply an autotuned ragged-kernel config (launch shape and
+        ``max_bands``) to the executors of class ``sc``
+        (``repro_torch.kernels.autotune`` winners land here).
 
         ``f`` is the feature width the config was tuned at: it then
         applies to the class's ragged launches of that width only

@@ -27,8 +27,8 @@ cache over the shared graphs. The shape-class lifecycle
 ``execute_retirement``, which re-pads a retired class's members into
 tighter classes and invalidates every executor cache.
 
-``autotune`` sweeps the ragged ELL kernel's launch shape for a graph's
-shape class at one feature width (``repro_torch.kernels.autotune``:
+``autotune`` sweeps the ragged ELL kernel's launch shape and K-band cap
+for a graph's shape class at one feature width (``repro_torch.kernels.autotune``:
 contract-checked candidates, device-timed on the graph's own rows,
 cached on disk under ``autotune_cache``) and applies the winner to the
 class's launches of that width in every executor cache; tuned outputs
@@ -342,9 +342,9 @@ class Engine:
         return self._tuner
 
     def autotune(self, name: str, f: int, *, timer=None) -> dict:
-        """Tune the ragged ELL kernel for ``name``'s shape class at
-        feature width ``f`` and apply the winner to the class's launches
-        of that width.
+        """Tune the ragged ELL kernel (its launch shape and K-band cap
+        ``max_bands``) for ``name``'s shape class at feature width ``f``
+        and apply the winner to the class's launches of that width.
 
         Runs the sweep in ``repro_torch.kernels.autotune`` (candidates
         the contract audit rejects are never timed; a cached winner skips

@@ -1,12 +1,14 @@
 """Offline contract-checked autotuner for the ragged ELL kernel.
 
-Port of ``repro.kernels.autotune``. Sweeps the ragged kernel's launch
-shape per (device, shape class, feature width) — lanes per row ``w``,
-floats per lane ``vec``, K lanes in flight ``kc`` and ``threads`` per
-block, the instances ``csrc/ragged_ell_spmm.cu`` is built with — and
-caches the fastest *legal* configuration on disk, keyed by the device
-and the class signature, so a server process pays the sweep once per
-class ever.
+Port of ``repro.kernels.autotune``. Sweeps the ragged kernel's tunables
+per (device, shape class, feature width) — its launch shape (lanes per
+row ``w``, floats per lane ``vec``, K lanes in flight ``kc`` and
+``threads`` per block, the instances ``csrc/ragged_ell_spmm.cu`` is
+built with) and the K-band cap ``max_bands`` over ``SWEEP_MAX_BANDS``,
+as the reference sweeps it — and caches the fastest *legal*
+configuration on disk, keyed by the device, the tunable set and the
+class signature, so a server process pays the sweep once per class
+ever.
 
 Legality comes first: every candidate's launch contract is audited by
 the Hopper contract audit (``repro_torch.analysis.static.kernel_pass
@@ -19,9 +21,10 @@ of the tuned ``ragged_ell_rows`` launch on the rows of one registered
 member of the class (``member_operands``). A card is required for it:
 the plain version that runs on the CPU has no launch shape to time.
 
-Every legal configuration is bitwise-equal to the default (no knob
-changes a sum's order: ``csrc/ell_rows.cuh``), so the tuner optimizes
-time only.
+Every legal configuration is bitwise-equal to the default on finite B
+(no launch knob changes a sum's order, and where a band stops a chain
+past ``unit_k`` adds only zeros: ``csrc/ell_rows.cuh``), so the tuner
+optimizes time only.
 
 Consulted at dispatch: ``Engine.autotune`` feeds the winner to
 ``ExecutorCache.set_tuned``, which keys executors on the tuned config
@@ -40,34 +43,47 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import _build
-from .ell_spmm import (TUNE_KC, TUNE_KEYS, TUNE_THREADS, TUNE_VEC, TUNE_W,
-                       ragged_ell_contract, resolve_tune)
+from .bands import merge_bands
+from .ell_spmm import (LAUNCH_KEYS, TUNE_KC, TUNE_KEYS, TUNE_THREADS,
+                       TUNE_VEC, TUNE_W, ragged_ell_contract, resolve_tune)
 
 # CUDA-graph replay of the default timer: launches per graph, and the
 # graph's replays per candidate come from ``Autotuner.reps``.
 GRAPH_CALLS = 20
+# The K-band caps swept (the reference's ``SWEEP_MAX_BANDS``), the
+# default first.
+SWEEP_MAX_BANDS = (4, 1)
 
 
-def candidates(f: int) -> list:
-    """The deduplicated candidate list for feature width ``f``.
+def candidates(f: int, bands: tuple = None) -> list:
+    """The deduplicated candidate list for feature width ``f``: every
+    launch shape with every cap of ``SWEEP_MAX_BANDS``.
 
     Knobs that are illegal at ``f`` clamp to their nearest legal value
-    inside the contract (``vec`` 4 becomes 1 where ``f % 4 != 0``), so
-    duplicates are dropped on the *effective* config. The first
-    candidate is the kernel's default configuration, so a tie on
-    measured time keeps the default (ties broken by candidate order).
+    inside the contract (``vec`` 4 becomes 1 where ``f % 4 != 0``), and
+    a cap at or above a class's band count leaves its plan as it is, so
+    duplicates are dropped on the *effective* config: the clamped launch
+    shape and, given the class's band plan ``bands``, the plan each cap
+    merges it to (a class of one band times one candidate per launch
+    shape); without ``bands``, the cap itself. The first candidate is
+    the kernel's default configuration, so a tie on measured time keeps
+    the default (ties broken by candidate order).
     """
     seen = set()
     out = []
-    default = resolve_tune(f)
-    for cfg in itertools.chain([default], (
-            dict(zip(TUNE_KEYS, v)) for v in itertools.product(
+    default = {k: v for k, v in resolve_tune(f).items() if k in LAUNCH_KEYS}
+    for shape in itertools.chain([default], (
+            dict(zip(LAUNCH_KEYS, v)) for v in itertools.product(
                 TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS))):
-        eff = tuple(resolve_tune(f, cfg).values())
-        if eff in seen:
-            continue
-        seen.add(eff)
-        out.append(dict(cfg))
+        for mb in SWEEP_MAX_BANDS:
+            cfg = dict(shape, max_bands=mb)
+            eff = resolve_tune(f, cfg)
+            eff = (tuple(eff[k] for k in LAUNCH_KEYS),
+                   mb if bands is None else merge_bands(bands, mb))
+            if eff in seen:
+                continue
+            seen.add(eff)
+            out.append(cfg)
     return out
 
 
@@ -173,13 +189,15 @@ def device_seconds(fn, reps: int, calls: int = GRAPH_CALLS) -> float:
 class Autotuner:
     """Sweep -> contract audit -> time -> cache, per (class, width).
 
-    ``timer`` (injectable) maps a candidate config dict to seconds; the
-    default times the real kernel on the card (``device_seconds``) on a
-    registered member's operands (``tune(..., operands=)``). Counters: ``hits``/``misses``
+    ``timer`` (injectable) maps a candidate config dict (the tunables
+    ``TUNE_KEYS``) to seconds; the default times the real kernel on the
+    card (``device_seconds``) on a registered member's operands
+    (``tune(..., operands=)``). Counters: ``hits``/``misses``
     (cache), ``swept`` (candidates considered), ``rejected`` (audit
     errors, never timed), ``timed``. ``last_sweep`` lists the last
-    sweep's candidates: config, effective launch shape, measured ms
-    (None when rejected) and the audit's findings.
+    sweep's candidates: config, effective tunables, the number of bands
+    the class runs at its cap, measured ms (None when rejected) and the
+    audit's findings.
     """
 
     def __init__(self, cache_path: Optional[str] = None, *,
@@ -207,19 +225,23 @@ class Autotuner:
 
     # ------------------------------------------------------------ keys -----
     def cache_key(self, sc, f: int) -> str:
-        """Device + full class signature (bands included) + width."""
-        return (f"{self.backend}|{self.device_name}|{sc.summary()}"
-                f"|f={int(f)}")
+        """Device and the tunable set + full class signature (bands
+        included) + width: a winner cached over another set of tunables
+        (before ``max_bands`` was one) misses."""
+        return (f"{self.backend}[{','.join(TUNE_KEYS)}]|{self.device_name}"
+                f"|{sc.summary()}|f={int(f)}")
 
     # ----------------------------------------------------------- oracle -----
     def _audit(self, sc, f: int, cfg: dict) -> list:
         """Contract findings for one candidate (errors reject it).
 
-        Builds the contract the tuned launch of one member would use and
-        runs it through the contract audit with worst-case index
-        stand-ins, the path ``repro_torch.analysis.static`` lints the
-        defaults with. On a card the audit also reads the ptxas log of
-        the built kernels (registers, spills).
+        Builds the contract the tuned launch of one member would use
+        (the candidate's launch shape and ``max_bands``, from ``cfg``: an
+        illegal cap is the audit's to reject) and runs it through the
+        contract audit with worst-case index stand-ins, the path
+        ``repro_torch.analysis.static`` lints the defaults with. On a
+        card the audit also reads the ptxas log of the built kernels
+        (registers, spills).
         """
         from repro_torch.analysis.static.kernel_pass import check_contract
         c = ragged_ell_contract(1, sc.ell_units, sc.r_block, sc.ell_kmax,
@@ -230,12 +252,14 @@ class Autotuner:
     # ----------------------------------------------------------- timing -----
     def _measure(self, cfg: dict, data: tuple, segments: tuple) -> float:
         """Device seconds of one tuned ``ragged_ell_rows`` launch, with
-        the class's K bands ``segments``."""
+        the class's K bands ``segments`` merged to the candidate's
+        ``max_bands``."""
         from .ell_spmm import ragged_ell_rows
         cols, vals, tile_col, unit_k, b, plan, out = data
         return device_seconds(lambda: ragged_ell_rows(
             cols, vals, tile_col, unit_k, b, plan, out, segments=segments,
-            tune=cfg, device=self.device), self.reps)
+            max_bands=cfg.get("max_bands"), tune=cfg, device=self.device),
+            self.reps)
 
     # ------------------------------------------------------------ sweep -----
     def tune(self, sc, f: int, *, operands: Optional[Callable] = None
@@ -278,12 +302,13 @@ class Autotuner:
         data = None
         best = None                            # (seconds, config)
         self.last_sweep = []
-        for cfg in candidates(f):
+        for cfg in candidates(f, sc.bands):
             self.swept += 1
             findings = self._audit(sc, f, cfg)
             row = {"config": dict(cfg),
-                   "effective": resolve_tune(f, cfg), "ms": None,
-                   "findings": [x.render() for x in findings]}
+                   "effective": resolve_tune(f, cfg),
+                   "bands": len(merge_bands(sc.bands, cfg["max_bands"])),
+                   "ms": None, "findings": [x.render() for x in findings]}
             self.last_sweep.append(row)
             if any(x.severity == "error" for x in findings):
                 self.rejected += 1             # illegal: NEVER timed

@@ -4,19 +4,24 @@ reference's band helpers (``repro.kernels.ell_spmm.merge_bands``,
 
 Units arrive sorted by K descending; ``segments`` (a partition's
 ``ell_segments``) carries their (K, n_units) runs. The ragged kernel and
-its plain version merge the runs to at most ``max_bands`` bands and run
-each unit's chain only up to its band's K, as the TPU kernel
-``_ragged_ell_kernel`` does: lanes in [band K, Kmax) are never read.
-The port's shape classes plan their band slots with the same helpers.
+its plain version merge the runs to at most ``max_bands`` bands (any
+count from 1 up, as the reference takes it) and run each unit's chain
+only up to its band's K, as the TPU kernel ``_ragged_ell_kernel`` does:
+lanes in [band K, Kmax) are never read. The port's shape classes plan
+their band slots with the same helpers.
+
+The CUDA kernel takes a plan of at most ``VALUE_BANDS`` bands by value
+(``band_mode`` "value") and a longer one as a [U] table of each unit's
+band K (``unit_bounds``, mode "table").
 """
 from __future__ import annotations
 
 import numpy as np
 
-# Band-merge cap (the reference's value), and the most bands the ragged
-# kernel takes: it receives the band table by value.
+# Band-merge cap (the reference's default), and the most bands the
+# ragged kernel receives by value; a plan of more goes as a [U] table.
 DEFAULT_MAX_BANDS = 4
-MAX_BANDS = 4
+VALUE_BANDS = 4
 
 
 def merge_bands(runs, max_bands: int) -> tuple:
@@ -76,11 +81,19 @@ def _band_tables(bands) -> tuple:
 
 
 def check_max_bands(max_bands: int) -> int:
-    """``max_bands`` as the ragged kernel takes it: 1 to ``MAX_BANDS``."""
-    if not 1 <= int(max_bands) <= MAX_BANDS:
+    """``max_bands`` as the reference's ``merge_bands`` takes it: any
+    count from 1 up (at 0 or below its merge has no pair to choose)."""
+    if int(max_bands) < 1:
         raise ValueError(f"max_bands={max_bands}: the ragged ELL kernel "
-                         f"takes 1 to {MAX_BANDS} K bands")
+                         "takes 1 or more K bands")
     return int(max_bands)
+
+
+def band_mode(bands) -> str:
+    """How the ragged kernel takes the band plan ``bands``: "value" (at
+    most ``VALUE_BANDS`` bands, ``ell_rows::Bands``) or "table" (a [U]
+    int32 of each unit's band K on the card)."""
+    return "value" if len(bands) <= VALUE_BANDS else "table"
 
 
 def unit_bounds(bands) -> np.ndarray:

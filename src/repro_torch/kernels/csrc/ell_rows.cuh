@@ -2,9 +2,10 @@
 // a padded row's unit rows that computes each unit row's product and adds
 // it onto the row's sum. Both ELL sources include it:
 //
-//   ragged_ell_spmm.cu  the ragged unit array [G, U, R, Kmax] (kBanded): each
-//                       unit to the K of its band, the values masked by the
-//                       per-unit live K (`unit_k`): the main path;
+//   ragged_ell_spmm.cu  the ragged unit array [G, U, R, Kmax] (kBanded, or
+//                       kTable past 4 bands): each unit to the K of its
+//                       band, the values masked by the per-unit live K
+//                       (`unit_k`): the main path;
 //   ell_spmm.cu         the same array with each unit to the K of its fixed-K
 //                       bucket (kBucketed, `bucket_k`, no value mask): the
 //                       "fused"/"loop" dispatches, one launch a layer; and
@@ -21,18 +22,22 @@
 // contracted into an FMA); the mask sits on the values, so a masked lane
 // still multiplies 0 by its B row (a non-finite B row propagates, as in the
 // reference). kb(u) is, for kBanded, the K of u's band: the partition's
-// descending (K, n_units) runs merged to at most 4 bands (the reference's
-// `_bands_of`), passed by value (`Bands`), u's band being sum(u >= off), as
-// the TPU kernel `_ragged_ell_kernel` selects its chain; lanes in [band K,
-// Kmax) are never read, exactly as there. For kBucketed kb(u) = bucket_k[u]
-// and every lane below it is live (unit_k <= K_b and the slab's lanes past
-// unit_k hold 0); for kView it is the view's K_b. The row's sum is acc =
-// acc + p_e over its unit rows in plan order, from +0.
+// descending (K, n_units) runs merged to at most max_bands bands (the
+// reference's `_bands_of`), at most 4 of them passed by value (`Bands`), u's
+// band being sum(u >= off), as the TPU kernel `_ragged_ell_kernel` selects
+// its chain; lanes in [band K, Kmax) are never read, exactly as there. For
+// kTable (a plan of more than 4 bands) kb(u) = bound_k[u], the same band K
+// read from a [U] table, with the same value mask. For kBucketed kb(u) =
+// bound_k[u], the K of u's bucket, and every lane below it is live (unit_k
+// <= K_b and the slab's lanes past unit_k hold 0); for kView it is the
+// view's K_b. The row's sum is acc = acc + p_e over its unit rows in plan
+// order, from +0.
 //
 // Bits. With finite B a lane past unit_k adds 0 * x = +-0 to a chain that
 // starts at +0 and is never -0 (x + y is -0 only when both are), so where
 // the chain stops past unit_k does not change its bits: the banded chain,
-// the Kmax chain and the bucket's chain agree bit for bit on finite B.
+// the Kmax chain and the bucket's chain agree bit for bit on finite B, and
+// so do kBanded and kTable at any number of bands.
 //
 // What bounds it on the H100: bytes. An entry does K multiply-adds per
 // feature on K gathered B rows, about a quarter of an operation per byte,
@@ -46,8 +51,8 @@
 // Design. A group of W lanes owns one padded row; lanes run over features,
 // VEC contiguous elements each (one 16-byte load of 4 floats, or one
 // 8-byte load of 4 bfloat16, when the row stride allows; else one
-// element). For each unit row the group reads its tile_col (and unit_k or
-// bucket_k), then, W lanes of the K axis at a time up to kb(u), lane i
+// element). For each unit row the group reads its tile_col (and unit_k,
+// bound_k or both), then, W lanes of the K axis at a time up to kb(u), lane i
 // loads cols/vals of K lane k1+i (one coalesced load) and passes them
 // round with shuffles in chunks of KC; every lane issues a chunk's KC
 // independent B-row loads before its multiply-add chain, so KC loads are
@@ -68,7 +73,8 @@
 // threads. The ragged kernel takes all four as launch knobs (its
 // autotuner sweeps them); the fixed-K kernel runs the defaults. The band
 // table adds seven ints to the ragged kernel's arguments and three
-// compares a unit row, read from the parameter bank, not loaded.
+// compares a unit row, read from the parameter bank, not loaded; past 4
+// bands it is one 4-byte load a unit row from the [U] table instead.
 //
 // Types. vals (VT) and B (BT) are float or __nv_bfloat16, template
 // arguments of the row loop. A bfloat16 value is widened to float where it
@@ -169,6 +175,8 @@ enum Mode {
   kBanded = 0,    // the ragged array, each unit to its band's K, masked
   kBucketed = 1,  // the ragged array, each unit to its bucket's K
   kView = 2,      // one bucket's strided view, its K the bound
+  kTable = 3,     // the ragged array, each unit to its band's K from a
+                  // [U] table (more than 4 bands), masked
 };
 
 // The ragged kernel's K bands (at most 4), by value: the K of each band
@@ -188,8 +196,10 @@ struct Units {
   const int* cols;      // [G, U, R, K...] tile-local columns
   const VT* vals;       // same layout as cols
   const int* tile_col;  // [G, U]
-  const int* unit_k;    // kBanded: [G, U] live K per unit (the value mask)
-  const int* bucket_k;  // kBucketed: [U] the K of each unit's bucket
+  const int* unit_k;    // kBanded, kTable: [G, U] live K per unit (the
+                        // value mask)
+  const int* bound_k;   // [U] the K of each unit's bucket (kBucketed) or
+                        // band (kTable)
   Bands bands;          // kBanded: the band table
   long long s_g;        // kView: member stride of cols/vals (elements)
   long long tc_sg;      // kView: member stride of tile_col
@@ -221,7 +231,7 @@ __device__ __forceinline__ void add_vec(float* p, const float (&x)[VEC]) {
 // (order null: the entries begin..end themselves) in that order, and is
 // added onto dst[f..] (ADD) or stored there. KC K lanes have their B rows
 // in flight at once.
-// kBanded / kBucketed: entries e number the unit rows over the group
+// kBanded / kTable / kBucketed: entries e number the unit rows over the group
 // (g*U*R + u*R + r) of a contiguous ragged array. kView: entries number
 // member g's unit rows (u*R + r) of a bucket view with member stride s_g
 // and row stride s_r. MODE and ADD are template arguments, not flags, so
@@ -263,8 +273,11 @@ __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
       if constexpr (MODE == kBanded) {
         kb = a.bands.bound(unit - u0);
         ku = a.unit_k[unit];
+      } else if constexpr (MODE == kTable) {
+        kb = a.bound_k[unit - u0];
+        ku = a.unit_k[unit];
       } else if constexpr (MODE == kBucketed) {
-        kb = a.bucket_k[unit - u0];
+        kb = a.bound_k[unit - u0];
         ku = kb;
       } else {
         kb = ku = a.K;

@@ -8,18 +8,16 @@
 
 namespace ragged_ell {
 
-// W lanes per segment, VEC features per lane, KC K lanes in flight,
-// THREADS per block. `live` null = unit mode. Minimum one block per SM:
-// ptxas then allocates what the row loop needs and spills nothing
-// (ell_rows.cuh).
-template <int W, int VEC, int KC, int THREADS, class VT, class BT>
-__global__ void __launch_bounds__(THREADS, 1)
-ell_rows_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
-                const long long* __restrict__ order,
-                const long long* __restrict__ offsets,
-                const long long* __restrict__ live, float* __restrict__ out,
-                int n_slots, int nct, int T, int F) {
-  const int slot = blockIdx.x * (THREADS / W) + threadIdx.x / W;
+// One grid row: a live segment of the plan (row mode) or a unit row (unit
+// mode, `live` null), walked in MODE (kBanded or kTable).
+template <int MODE, int W, int VEC, int KC, class VT, class BT>
+__device__ __forceinline__ void rows(const ell_rows::Units<VT>& a,
+                                     const BT* __restrict__ b,
+                                     const long long* __restrict__ order,
+                                     const long long* __restrict__ offsets,
+                                     const long long* __restrict__ live,
+                                     float* __restrict__ out, int slot,
+                                     int n_slots, int nct, int T, int F) {
   const long long g = blockIdx.y;
   if (slot >= n_slots) return;
   long long s;
@@ -35,30 +33,66 @@ ell_rows_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
     end = begin + 1;
   }
   if (live)
-    ell_rows::row<W, VEC, KC, ell_rows::kBanded, true>(
-        a, b, order, begin, end, g, nct, T, F, out + s * F);
+    ell_rows::row<W, VEC, KC, MODE, true>(a, b, order, begin, end, g, nct, T,
+                                          F, out + s * F);
   else
-    ell_rows::row<W, VEC, KC, ell_rows::kBanded, false>(
-        a, b, order, begin, end, g, nct, T, F, out + s * F);
+    ell_rows::row<W, VEC, KC, MODE, false>(a, b, order, begin, end, g, nct,
+                                           T, F, out + s * F);
 }
 
-// One launch (the C entries' arguments, ragged_ell_spmm.cu); `bands` is a
-// host array of 7 ints: the bands' Ks, then the offsets (ell_rows::Bands).
+// W lanes per segment, VEC features per lane, KC K lanes in flight,
+// THREADS per block. `live` null = unit mode. Minimum one block per SM:
+// ptxas then allocates what the row loop needs and spills nothing
+// (ell_rows.cuh). ell_rows_kernel takes at most 4 bands by value (`a.bands`,
+// kBanded); ell_rows_table_kernel reads each unit's band K from the [U]
+// table `a.bound_k` (kTable), for a plan of more bands.
+template <int W, int VEC, int KC, int THREADS, class VT, class BT>
+__global__ void __launch_bounds__(THREADS, 1)
+ell_rows_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
+                const long long* __restrict__ order,
+                const long long* __restrict__ offsets,
+                const long long* __restrict__ live, float* __restrict__ out,
+                int n_slots, int nct, int T, int F) {
+  rows<ell_rows::kBanded, W, VEC, KC>(
+      a, b, order, offsets, live, out,
+      blockIdx.x * (THREADS / W) + threadIdx.x / W, n_slots, nct, T, F);
+}
+
+template <int W, int VEC, int KC, int THREADS, class VT, class BT>
+__global__ void __launch_bounds__(THREADS, 1)
+ell_rows_table_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
+                      const long long* __restrict__ order,
+                      const long long* __restrict__ offsets,
+                      const long long* __restrict__ live,
+                      float* __restrict__ out, int n_slots, int nct, int T,
+                      int F) {
+  rows<ell_rows::kTable, W, VEC, KC>(
+      a, b, order, offsets, live, out,
+      blockIdx.x * (THREADS / W) + threadIdx.x / W, n_slots, nct, T, F);
+}
+
+// One launch (the C entries' arguments, ragged_ell_spmm.cu). `band_k` null:
+// `bands` is a host array of 7 ints, the bands' Ks, then the offsets
+// (ell_rows::Bands); else `band_k` is the [U] table of each unit's band K on
+// the card and `bands` is not read.
 template <class VT, class BT>
 cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
                    const void* unit_k, const void* b, const void* order,
                    const void* offsets, const void* live, void* out,
-                   const int* bands, int G, int n_slots, int U, int R,
-                   int Kmax, int nct, int T, int F, int w, int vec, int kc,
-                   int threads, void* stream) {
-  ell_rows::Bands bd;
-  for (int i = 0; i < 4; ++i) bd.k[i] = bands[i];
-  for (int i = 0; i < 3; ++i) bd.off[i] = bands[4 + i];
+                   const int* bands, const void* band_k, int G, int n_slots,
+                   int U, int R, int Kmax, int nct, int T, int F, int w,
+                   int vec, int kc, int threads, void* stream) {
+  ell_rows::Bands bd{};
+  if (!band_k) {
+    for (int i = 0; i < 4; ++i) bd.k[i] = bands[i];
+    for (int i = 0; i < 3; ++i) bd.off[i] = bands[4 + i];
+  }
   ell_rows::Units<VT> a{static_cast<const int*>(cols),
                         static_cast<const VT*>(vals),
                         static_cast<const int*>(tile_col),
                         static_cast<const int*>(unit_k),
-                        nullptr, bd, 0, 0, 0, U, R, Kmax};
+                        static_cast<const int*>(band_k), bd, 0, 0, 0, U, R,
+                        Kmax};
   const auto* bb = static_cast<const BT*>(b);
   const auto* od = static_cast<const long long*>(order);
   const auto* of = static_cast<const long long*>(offsets);
@@ -74,9 +108,14 @@ cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
         constexpr int THREADS = decltype(threads_)::value;
         constexpr int per_block = THREADS / W;
         const dim3 grid((n_slots + per_block - 1) / per_block, G);
-        ell_rows_kernel<W, VEC, KC, THREADS, VT, BT>
-            <<<grid, THREADS, 0, st>>>(a, bb, od, of, lv, o, n_slots, nct,
-                                       T, F);
+        if (band_k)
+          ell_rows_table_kernel<W, VEC, KC, THREADS, VT, BT>
+              <<<grid, THREADS, 0, st>>>(a, bb, od, of, lv, o, n_slots, nct,
+                                         T, F);
+        else
+          ell_rows_kernel<W, VEC, KC, THREADS, VT, BT>
+              <<<grid, THREADS, 0, st>>>(a, bb, od, of, lv, o, n_slots, nct,
+                                         T, F);
         return cudaGetLastError();
       });
 }
@@ -92,11 +131,13 @@ cudaError_t launch(const void* cols, const void* vals, const void* tile_col,
       const void* cols, const void* vals, const void* tile_col,              \
       const void* unit_k, const void* b, const void* order,                  \
       const void* offsets, const void* live, void* out, const int* bands,    \
-      int G, int n_slots, int U, int R, int Kmax, int nct, int T, int F,     \
-      int w, int vec, int kc, int threads, void* stream) {                   \
+      const void* band_k, int G, int n_slots, int U, int R, int Kmax,        \
+      int nct, int T, int F, int w, int vec, int kc, int threads,            \
+      void* stream) {                                                        \
     return static_cast<int>(ragged_ell::launch<VT, BT>(                      \
         cols, vals, tile_col, unit_k, b, order, offsets, live, out, bands,   \
-        G, n_slots, U, R, Kmax, nct, T, F, w, vec, kc, threads, stream));    \
+        band_k, G, n_slots, U, R, Kmax, nct, T, F, w, vec, kc, threads,      \
+        stream));                                                            \
   }                                                                          \
   const char* cuda_error_string(int err) {                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(err));                \

@@ -12,10 +12,14 @@
 //            * B[g, tile_col[g,u], cols[e,kk], :]
 //
 // where K_band(u) is the K of u's band: the partition's descending
-// (K, n_units) runs merged to at most 4 bands, the TPU kernel's band switch
-// (`_bands_of`, `_band_tables`; one band of Kmax without runs). The bands
-// come by value (`bands`: their Ks, then the first unit of each band past
-// the first); unit u's band is sum(u >= off), as the reference selects it.
+// (K, n_units) runs merged to at most max_bands bands (any count from 1),
+// the TPU kernel's band switch (`_bands_of`, `_band_tables`; one band of
+// Kmax without runs). Up to 4 bands come by value (`bands`: their Ks, then
+// the first unit of each band past the first; unit u's band is
+// sum(u >= off), as the reference selects it); a plan of more comes as
+// `band_k`, a [U] int32 table of each unit's band K on the card, one load a
+// unit row (ell_rows_table_kernel). Both give the same bits on finite B
+// (ell_rows.cuh).
 //
 // Row mode (the main path, `ragged_ell_rows`): for every live segment s of
 // the host-built reduction plan (entries stably sorted by output row, the
@@ -47,8 +51,8 @@
 // chunks of KC cols/vals shuffled round, KC B-row loads in flight): see
 // ell_rows.cuh. Grid: (live slots / segments per block, G), so one launch
 // covers the group. W, VEC, KC and the threads per block are launch knobs,
-// one kernel instance for each of their 54 combinations; every instance
-// gives the same bits (ell_rows.cuh).
+// one instance of each of the two kernels for each of their 54
+// combinations; every instance gives the same bits (ell_rows.cuh).
 //
 // This source builds the float32 instances (float vals and B); those
 // for vals or B or both in bfloat16 (widened where they are loaded:
@@ -60,8 +64,10 @@
 
 // ragged_ell_rows_f32: cols/vals [G,U,R,Kmax], tile_col/unit_k [G,U], b
 // [G,nct,T,F], all contiguous, cols[...] < T and tile_col[...] < nct; vals
-// and b float; bands (host memory) the 4 band Ks (0 past the last, each at
-// most Kmax) and the 3 offsets (INT_MAX past the last).
+// and b float; band_k null: bands (host memory) the 4 band Ks (0 past the
+// last, each at most Kmax) and the 3 offsets (INT_MAX past the last);
+// else band_k (device memory) [U] the band K of each unit, each at most
+// Kmax, and bands is not read.
 //   live != null (row mode): order/offsets/live are the ELL plan (entries
 //     g*U*R + u*R + r onto segments g*P + row; live [G, n_slots], -1
 //     padded) and out [G,P,F] holds the rows to add onto, in place;

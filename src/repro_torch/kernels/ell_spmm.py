@@ -28,10 +28,14 @@ tensors each function runs its plain version in
 
 K bands, as the TPU kernel runs them: the ragged functions take the
 reference's ``segments`` (the partition's descending (K, n_units) runs)
-and ``max_bands``, merge the runs to at most ``max_bands`` bands
-(``kernels.bands``, the port's copy of ``_bands_of`` and
-``_band_tables``) and run each unit only to its band's K, with the
+and ``max_bands`` (any count from 1), merge the runs to at most
+``max_bands`` bands (``kernels.bands``, the port's copy of ``_bands_of``
+and ``_band_tables``) and run each unit only to its band's K, with the
 values masked by ``unit_k`` inside it; ``segments=()`` is one Kmax band.
+The kernel takes up to ``VALUE_BANDS`` (4) bands by value and a plan of
+more as a [U] int32 table of each unit's band K (``band_table``, built
+once per plan and device and kept on the card); both give the same
+bits.
 The fixed-K row kernel runs each unit to its bucket's K
 (``ReductionPlan.ell_bucket_k``), unmasked. With finite B all of them
 give the bits of the masked Kmax pass; with a non-finite B row at a lane
@@ -48,10 +52,11 @@ ones of each pair with a bfloat16 operand from
 ``csrc/ragged_ell_spmm_<vals>_<B>.cu`` (``ragged_source``; the four
 compile in parallel), the fixed-K ones all from ``csrc/ell_spmm.cu``.
 
-The ragged kernel's launch shape is a knob (``tune``: lanes per row
-``w``, floats per lane ``vec``, K lanes in flight ``kc``, ``threads``
-per block), swept by ``repro_torch.kernels.autotune``; every value gives
-the same bits. ``ragged_ell_contract`` and ``ell_contract`` return the
+The ragged kernel's tunables (``tune``: the launch shape, lanes per
+row ``w``, floats per lane ``vec``, K lanes in flight ``kc``,
+``threads`` per block, and the band cap ``max_bands``) are swept by
+``repro_torch.kernels.autotune``; every value gives the same bits on
+finite B. ``ragged_ell_contract`` and ``ell_contract`` return the
 launch contracts the wrappers launch from (grid, threads, shape knobs,
 alignment, shared memory, the band table, the extents numbered in 32
 bits, the index bounds the kernels trust), which ``repro_torch.analysis
@@ -60,6 +65,7 @@ bits, the index bounds the kernels trust), which ``repro_torch.analysis
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -68,14 +74,17 @@ from repro_torch.core.formats import SegmentPlan, bucket_runs
 from repro_torch.device import resolve_device
 
 from . import _build
-from .bands import (DEFAULT_MAX_BANDS, MAX_BANDS, _band_tables, _bands_of,
-                    check_max_bands, merge_bands, unit_bounds)  # noqa: F401
+from .bands import (DEFAULT_MAX_BANDS, VALUE_BANDS, _band_tables,  # noqa: F401
+                    _bands_of, band_mode, check_max_bands, merge_bands,
+                    unit_bounds)
 from .ref import (ell_spmm_ref, ell_spmm_rows_ref, ragged_ell_rows_ref,
                   ragged_ell_spmm_ref)
 
-# The ragged kernel's launch knobs: one kernel instance per combination
-# (csrc/ragged_ell_spmm.cu); the fixed-K kernel runs the defaults.
-TUNE_KEYS = ("w", "vec", "kc", "threads")
+# The ragged kernel's launch shape: one instance of each of its kernels per
+# combination (csrc/ragged_ell_spmm.cu); the fixed-K kernel runs the
+# defaults. Its tunables add the K-band cap, as the reference's do.
+LAUNCH_KEYS = ("w", "vec", "kc", "threads")
+TUNE_KEYS = LAUNCH_KEYS + ("max_bands",)
 TUNE_W = (8, 16, 32)            # lanes per row
 TUNE_VEC = (1, 4)               # floats per lane
 TUNE_KC = (2, 4, 8)             # K lanes whose B rows are in flight
@@ -86,13 +95,19 @@ INDEX_LIMIT = 2 ** 31           # what the kernels number in 32 bits
 
 # Launches of the CUDA kernels since the last reset
 # (ops.reset_launch_counts): ``launches`` counts the ragged kernel
-# (ragged_ell_rows and ragged_ell_spmm), ``fixed_k_launches`` the fixed-K
-# one (ell_spmm_rows and ell_spmm), each split into float32 instances and
-# bfloat16 ones (vals, B or both bfloat16).
+# (ragged_ell_rows and ragged_ell_spmm), ``table_launches`` those of its
+# launches that read the band table (more than VALUE_BANDS bands),
+# ``fixed_k_launches`` the fixed-K kernel (ell_spmm_rows and ell_spmm),
+# each split into float32 instances and bfloat16 ones (vals, B or both
+# bfloat16).
 launches = {"float32": 0, "bfloat16": 0}
+table_launches = {"float32": 0, "bfloat16": 0}
 fixed_k_launches = {"float32": 0, "bfloat16": 0}
 
 _fns: dict = {}
+# (band plan, device) -> the [U] int32 band table on the card (band_table)
+_tables: dict = {}
+_tables_lock = threading.Lock()
 
 
 def default_lanes(f: int) -> int:
@@ -103,12 +118,13 @@ def default_lanes(f: int) -> int:
 
 def resolve_tune(f: int, tune: dict = None, *, aligned: bool = True
                  ) -> dict:
-    """The launch shape a ``tune`` dict gives at feature width ``f``,
-    each missing (or None) knob at its default; ``aligned``: B and the
-    output are 16-byte aligned. A knob that is illegal at this F is
-    clamped to its nearest legal value: ``vec`` 4 becomes 1 where
-    ``f % 4 != 0`` or a pointer is unaligned. Values outside the
-    instance set pass through, for the contract audit to reject."""
+    """The tunables a ``tune`` dict gives at feature width ``f``: the
+    launch shape and ``max_bands``, each missing (or None) one at its
+    default; ``aligned``: B and the output are 16-byte aligned. A knob
+    that is illegal at this F is clamped to its nearest legal value:
+    ``vec`` 4 becomes 1 where ``f % 4 != 0`` or a pointer is unaligned.
+    Values outside the instance set, and a ``max_bands`` below 1, pass
+    through, for the contract audit to reject."""
     tune = dict(tune or {})
     unknown = set(tune) - set(TUNE_KEYS)
     if unknown:
@@ -119,8 +135,23 @@ def resolve_tune(f: int, tune: dict = None, *, aligned: bool = True
     vec = int(tune.get("vec") or (4 if w == 32 and vec_ok else 1))
     if vec == 4 and not vec_ok:
         vec = 1
+    mb = tune.get("max_bands")
     return {"w": w, "vec": vec, "kc": int(tune.get("kc") or DEFAULT_KC),
-            "threads": int(tune.get("threads") or DEFAULT_THREADS)}
+            "threads": int(tune.get("threads") or DEFAULT_THREADS),
+            "max_bands": DEFAULT_MAX_BANDS if mb is None else int(mb)}
+
+
+def band_cap(max_bands: int = None, tune: dict = None) -> int:
+    """The K-band cap a ragged launch runs at: ``max_bands``, else
+    ``tune``'s, else ``DEFAULT_MAX_BANDS``. ValueError below 1, or where
+    both are given and differ."""
+    tuned = (tune or {}).get("max_bands")
+    if max_bands is None:
+        max_bands = DEFAULT_MAX_BANDS if tuned is None else tuned
+    elif tuned is not None and int(tuned) != int(max_bands):
+        raise ValueError(f"max_bands={max_bands} but tune has max_bands="
+                         f"{tuned}")
+    return check_max_bands(max_bands)
 
 
 def instance_dtypes(vals_dtype, b_dtype) -> tuple:
@@ -157,7 +188,8 @@ def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
               else ragged_source(dtypes)[0])
     band_ks, band_counts, band_offs = _band_tables(bands)
     return dict(
-        name=name, source=source, kernel=kernel, **knobs,
+        name=name, source=source, kernel=kernel,
+        **{k: knobs[k] for k in LAUNCH_KEYS},
         instance=instance + dtypes, dtypes=dtypes,
         ptxas_name=kernel + _build.mangled_args(instance + dtypes),
         grid=(max(-(-n_slots // per_block), 1), g, 1), f=f,
@@ -169,7 +201,7 @@ def _rows_contract(name, kernel, knobs, instance, g, n_slots, shapes, f,
 
 def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
                         f: int, *, segments: tuple = (),
-                        max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
+                        max_bands: int = None, tune: dict = None,
                         n_slots: int = None, aligned: bool = True,
                         vals_dtype=torch.float32,
                         b_dtype=torch.float32) -> dict:
@@ -181,25 +213,37 @@ def ragged_ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int,
     bytes; ``vec`` 4 needs it), shared memory (none), the operand
     ``shapes``, the band table (``bands`` ((K, n_units), ...) from
     ``segments`` and ``max_bands`` as the reference's ``_bands_of`` merges
-    them, and its ``band_ks``, ``band_counts``, ``band_offs``), the
-    ``extents`` the kernel numbers in 32 bits, and ``index_bounds``
-    {operand: exclusive bound of its values}. ``n_slots`` is the grid's
-    rows per member: the plan's live rows, at most (and by default) every
-    unit row ``u*r``. ``tune`` is clamped at this F (``resolve_tune``).
-    ``vals_dtype``/``b_dtype`` pick the instance (``instance`` ends with
-    their names, ``dtypes``) and its source."""
+    them, and its ``band_ks``, ``band_counts``, ``band_offs``), how the
+    kernel takes it (``band_mode`` "value", the ``ell_rows_kernel``, or
+    "table" past ``VALUE_BANDS`` bands, the ``ell_rows_table_kernel``
+    reading the [U] ``band_k`` table of ``shapes``), the ``extents`` the
+    kernel numbers in 32 bits, and ``index_bounds`` {operand: exclusive
+    bound of its values}. ``n_slots`` is the grid's rows per member: the
+    plan's live rows, at most (and by default) every unit row ``u*r``.
+    ``tune`` is clamped at this F (``resolve_tune``); its ``max_bands``
+    is recorded as given (one below 1 merges as 1, for the audit to
+    reject), while a ``max_bands`` argument below 1 raises as the
+    wrappers do. ``vals_dtype``/``b_dtype`` pick the instance
+    (``instance`` ends with their names, ``dtypes``) and its source."""
     knobs = resolve_tune(f, tune, aligned=aligned)
+    if max_bands is not None:
+        knobs["max_bands"] = band_cap(max_bands, tune)
+    bands = _bands_of(segments, u, kmax, max(knobs["max_bands"], 1))
+    mode = band_mode(bands)
+    shapes = {"cols": (g, u, r, kmax), "vals": (g, u, r, kmax),
+              "tile_col": (g, u), "unit_k": (g, u), "b_tiles": (g, nct, t, f)}
+    if mode == "table":
+        shapes["band_k"] = (u,)
     n_slots = u * r if n_slots is None else n_slots
-    return _rows_contract(
-        "ragged_ell_rows", "ell_rows_kernel", knobs,
-        tuple(knobs[k] for k in TUNE_KEYS), g, n_slots,
-        {"cols": (g, u, r, kmax), "vals": (g, u, r, kmax),
-         "tile_col": (g, u), "unit_k": (g, u), "b_tiles": (g, nct, t, f)},
+    return dict(_rows_contract(
+        "ragged_ell_rows",
+        "ell_rows_kernel" if mode == "value" else "ell_rows_table_kernel",
+        knobs, tuple(knobs[k] for k in LAUNCH_KEYS), g, n_slots, shapes,
         f, aligned, {"unit rows": g * u * r, "plan entries": g * u * r,
                      "grid rows": g * n_slots},
         {"tile_col": nct, "cols": t, "unit_k": kmax + 1},
-        instance_dtypes(vals_dtype, b_dtype),
-        _bands_of(segments, u, kmax, check_max_bands(max_bands)))
+        instance_dtypes(vals_dtype, b_dtype), bands),
+        max_bands=knobs["max_bands"], band_mode=mode)
 
 
 def ell_contract(g: int, u: int, r: int, kmax: int, nct: int, t: int, f: int,
@@ -236,6 +280,8 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None) -> dict:
 
     Each unit's chain reads the lanes below its band's K (ragged) or its
     bucket's K (fixed K), ``c["bands"]``; the lanes past it are not read.
+    A ragged launch of more than ``VALUE_BANDS`` bands (``band_mode``
+    "table") also reads its band table, 4 bytes a distinct unit index.
     Given the launch's data (``cols``, ``tile_col`` and ``plan``, the ELL
     ``SegmentPlan``; read on the host), it counts what this launch's plan
     sums: for each unit row in the plan, cols and vals of the lanes its
@@ -256,11 +302,13 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None) -> dict:
     _, nct, t, f = c["shapes"]["b_tiles"]
     n_slots = c["extents"]["grid rows"] // g
     bound = unit_bounds(c["bands"]).astype(np.int64)       # [U] lanes read
+    table = c.get("band_mode") == "table"
     if plan is None:
         e, units, live = g * u * r, g * u, g * n_slots
         lanes = g * r * int(bound.sum())
         b_rows, out_rows = min(g * nct * t, lanes), live
         index = (2 * live + 1) * 8
+        table_units = u
     else:
         cv = cols.cpu().numpy().reshape(-1, kmax)
         tc = tile_col.cpu().numpy().reshape(-1)
@@ -276,10 +324,12 @@ def contract_cost(c: dict, *, cols=None, tile_col=None, plan=None) -> dict:
         out_rows = live
         index = (np.unique(np.concatenate([segs, segs + 1])).size
                  + live) * 8
+        table_units = np.unique(unit % u).size
     vb, bb = (torch.empty((), dtype=getattr(torch, d)).element_size()
               for d in c["dtypes"])
     nbytes = (lanes * (4 + vb) + units * 8 + e * 8 + index
-              + b_rows * f * bb + out_rows * f * 8)
+              + b_rows * f * bb + out_rows * f * 8
+              + (table_units * 4 if table else 0))
     flops = 2.0 * lanes * f + e * f + out_rows * f
     return {"hbm_bytes": float(nbytes), "flops": float(flops)}
 
@@ -305,18 +355,55 @@ def _entry(source: str, entry: str, argtypes: list):
 def _kernel(vals_dtype, b_dtype):
     """The ragged kernel's C entry for these types."""
     return _entry(*ragged_source(instance_dtypes(vals_dtype, b_dtype)),
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12
+                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
                   + [ctypes.c_void_p])
 
 
 def band_args(bands) -> ctypes.Array:
-    """The band table as the ragged kernel takes it (``ell_rows::Bands``):
-    seven ints, the bands' Ks (0 past the last), then the first unit of
-    each band past the first (INT_MAX past the last)."""
+    """A band plan of at most ``VALUE_BANDS`` bands as the ragged kernel
+    takes it by value (``ell_rows::Bands``): seven ints, the bands' Ks (0
+    past the last), then the first unit of each band past the first
+    (INT_MAX past the last)."""
     ks, _, offs = _band_tables(bands)
-    ks = list(ks) + [0] * (MAX_BANDS - len(ks))
-    offs = list(offs) + [INDEX_LIMIT - 1] * (MAX_BANDS - 1 - len(offs))
+    ks = list(ks) + [0] * (VALUE_BANDS - len(ks))
+    offs = list(offs) + [INDEX_LIMIT - 1] * (VALUE_BANDS - 1 - len(offs))
     return (ctypes.c_int * 7)(*ks, *offs)
+
+
+def band_table(bands, device) -> torch.Tensor:
+    """The band plan ``bands`` as the ragged kernel reads a plan of more
+    than ``VALUE_BANDS`` bands: [U] int32, each unit's band K
+    (``unit_bounds``), on ``device``. Built once per (plan, device), one
+    fill a band on the device (no copy from the host) and one wait for
+    the stream, then kept: every later launch reads the kept table, with
+    no copy and no wait. It cannot be built while the stream is captured
+    into a CUDA graph (the fills would only be recorded), so a first
+    launch inside a capture raises; one launch before the capture builds
+    it, as a graph's warm-up call does."""
+    dev = resolve_device(device)
+    key = (tuple(bands), str(dev))
+    table = _tables.get(key)
+    if table is not None:
+        return table
+    with _tables_lock:
+        table = _tables.get(key)
+        if table is None:
+            cuda = dev.type == "cuda"
+            if cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"band_table: the table of {len(bands)} bands is not "
+                    "built yet and the stream is being captured; launch "
+                    "once before the capture")
+            table = torch.empty(sum(n for _, n in bands), dtype=torch.int32,
+                                device=dev)
+            at = 0
+            for k, n in bands:
+                table[at:at + n].fill_(k)
+                at += n
+            if cuda:
+                torch.cuda.current_stream(dev).synchronize()
+            _tables[key] = table
+    return table
 
 
 def _check(cond: bool, msg: str, what: str = "ragged_ell_spmm") -> None:
@@ -369,22 +456,27 @@ def _launch(cols, vals, tile_col, unit_k, b_tiles, plan, out, n_slots,
     idx = ((None,) * 3 if plan is None else
            (plan.order.data_ptr(), plan.offsets.data_ptr(),
             plan.live.data_ptr()))
+    table = band_table(bands, dev) if band_mode(bands) == "table" else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
                  unit_k.data_ptr(), b_tiles.data_ptr(), *idx, out.data_ptr(),
-                 band_args(bands), g, n_slots, u, r, kmax, nct, t, f,
-                 *(knobs[k] for k in TUNE_KEYS), stream)
+                 band_args(() if table is not None else bands),
+                 None if table is None else table.data_ptr(),
+                 g, n_slots, u, r, kmax, nct, t, f,
+                 *(knobs[k] for k in LAUNCH_KEYS), stream)
     _build.check(lib, err, "ragged_ell_spmm launch")
     with _build.count_lock:
         launches["float32" if f32 else "bfloat16"] += 1
+        if table is not None:
+            table_launches["float32" if f32 else "bfloat16"] += 1
 
 
 def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
                     b_tiles: torch.Tensor, plan: SegmentPlan,
                     out: torch.Tensor, *, segments: tuple = (),
-                    max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
+                    max_bands: int = None, tune: dict = None,
                     device="cuda") -> torch.Tensor:
     """The sparse engine's rows, added onto ``out`` in place.
 
@@ -399,12 +491,14 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     Returns ``out``.
 
     ``segments`` (the partition's descending (K, n_units) runs,
-    ``meta.ell_segments``) and ``max_bands`` (1 to 4) give the K bands,
-    as the reference's kernel takes them: each unit's product runs to its
-    band's K, the values masked by ``unit_k`` inside it; ``segments=()``
-    is one Kmax band. ``tune`` is the kernel's launch shape
-    (``resolve_tune``; None = the defaults); every value gives the same
-    bits.
+    ``meta.ell_segments``) and ``max_bands`` (any count from 1; None:
+    ``tune``'s, else ``DEFAULT_MAX_BANDS``, ``band_cap``) give the K
+    bands, as the reference's kernel takes them: each unit's product runs
+    to its band's K, the values masked by ``unit_k`` inside it;
+    ``segments=()`` is one Kmax band. Past ``VALUE_BANDS`` bands the
+    kernel reads each unit's band K from the kept ``band_table``.
+    ``tune`` is the kernel's tunables (``resolve_tune``; None = the
+    defaults); at finite B every value gives the same bits.
 
     Every tensor must lie on ``device``. CPU tensors take the plain
     version (``ragged_ell_spmm_ref``, ``segment_sum``, then the add);
@@ -418,7 +512,8 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     g, u, r, kmax = cols.shape
     f = b_tiles.shape[-1]
     resolve_tune(f, tune)          # unknown knobs raise on every device
-    bands = _bands_of(segments, u, kmax, check_max_bands(max_bands))
+    max_bands = band_cap(max_bands, tune)
+    bands = _bands_of(segments, u, kmax, max_bands)
     n_seg = plan.lengths.shape[0]
     _check(out.dim() == 3 and out.shape[0] == g and out.shape[2] == f
            and out.shape[0] * out.shape[1] == n_seg
@@ -449,7 +544,7 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
 def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
                     b_tiles: torch.Tensor, *, segments: tuple = (),
-                    max_bands: int = DEFAULT_MAX_BANDS, tune: dict = None,
+                    max_bands: int = None, tune: dict = None,
                     device="cuda") -> torch.Tensor:
     """Per-unit ELL products over the concatenated ragged unit array.
 
@@ -469,7 +564,8 @@ def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
         cols, vals, tile_col, unit_k, b_tiles, dev, "ragged_ell_spmm")
     resolve_tune(b_tiles.shape[-1], tune)
     g, u, r, kmax = cols.shape
-    bands = _bands_of(segments, u, kmax, check_max_bands(max_bands))
+    max_bands = band_cap(max_bands, tune)
+    bands = _bands_of(segments, u, kmax, max_bands)
     if dev.type == "cpu":
         out = ragged_ell_spmm_ref(cols, vals, tile_col, unit_k, b_tiles,
                                   segments=segments, max_bands=max_bands)

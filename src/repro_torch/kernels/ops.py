@@ -115,9 +115,11 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     concatenated unit array of the whole group: the products, each unit
     to the K of its band of ``meta.ell_segments`` (as the reference's
     ``ops.ell_matmul`` passes ``segments=meta.ell_segments``), their sum
-    onto rows and the add onto ``yd``, in the launch shape ``ell_tune``
-    (an autotuned config; None = the defaults; the same bits either
-    way).
+    onto rows and the add onto ``yd``, in the launch shape and band cap
+    ``ell_tune`` (an autotuned config; its ``max_bands`` merges the
+    runs, as the reference's ``ops.ell_matmul`` passes
+    ``ell_tune["max_bands"]``; None = the defaults; the same bits either
+    way on finite B).
     ``"fused"``/``"loop"`` are the per-K A/B dispatches: ONE
     ``ell_spmm_rows`` launch for every bucket of ``meta.ell_segments`` and
     the whole group, each unit to its bucket's K (``plan.ell_bucket_k``),
@@ -136,6 +138,8 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
                                     part.ell.tile_col, part.ell.unit_k, bt,
                                     plan.ell, yd,
                                     segments=tuple(meta.ell_segments),
+                                    max_bands=(ell_tune or {}).get(
+                                        "max_bands", _ell.DEFAULT_MAX_BANDS),
                                     tune=ell_tune, device=b.device)
     if plan.ell_bucket_k is None:
         raise ValueError("the plan has no bucket table (ell_bucket_k): "

@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.formats import SegmentPlan, segment_sum
 from repro_torch.device import pin_ieee_f32
 
-from .bands import DEFAULT_MAX_BANDS, _band_tables, _bands_of
+from .bands import (DEFAULT_MAX_BANDS, _band_tables, _bands_of,
+                    check_max_bands)
 
 
 def tile_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,7 +147,8 @@ def band_bounds(u: int, kmax: int, segments=(), max_bands: int = None,
     ``sum(u >= off)``), built on the device from the band table's
     constants (no copy from the host), and ``lanes`` the widest band's
     K, past which no unit reads."""
-    max_bands = DEFAULT_MAX_BANDS if max_bands is None else max_bands
+    max_bands = check_max_bands(DEFAULT_MAX_BANDS if max_bands is None
+                                else max_bands)
     bands = _bands_of(segments, u, kmax, max_bands)
     ks, _, offs = _band_tables(bands)
     unit = torch.arange(u, device=device)

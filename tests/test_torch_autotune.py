@@ -32,10 +32,12 @@ from repro_torch.core import csr_from_dense
 from repro_torch.engine import Engine
 from repro_torch.engine.shape_class import ShapeClass
 from repro_torch.kernels import _build
-from repro_torch.kernels.autotune import (AutotuneCache, Autotuner,
-                                          candidates, class_stand_ins)
-from repro_torch.kernels.ell_spmm import (TUNE_KC, TUNE_KEYS, TUNE_THREADS,
-                                          TUNE_VEC, TUNE_W, resolve_tune)
+from repro_torch.kernels.autotune import (SWEEP_MAX_BANDS, AutotuneCache,
+                                          Autotuner, candidates,
+                                          class_stand_ins)
+from repro_torch.kernels.ell_spmm import (LAUNCH_KEYS, TUNE_KC, TUNE_KEYS,
+                                          TUNE_THREADS, TUNE_VEC, TUNE_W,
+                                          resolve_tune)
 from repro_torch.obs.trace import Tracer
 
 from conftest import make_heterogeneous_matrix
@@ -121,7 +123,10 @@ class TestDeterminism:
     def test_key_embeds_device_class_and_width(self):
         t = _tuner(_timer())
         k = t.cache_key(SMALL, 32)
-        assert k == f"cpu|cpu|{SMALL.summary()}|f=32"
+        assert k == (f"cpu[w,vec,kc,threads,max_bands]|cpu|"
+                     f"{SMALL.summary()}|f=32")
+        assert k != f"cpu|cpu|{SMALL.summary()}|f=32", \
+            "a key written without max_bands must miss"
         assert k != t.cache_key(SMALL, 64)
         rebanded = dataclasses.replace(SMALL, ell_bands=())
         assert k != t.cache_key(rebanded, 32), \
@@ -145,7 +150,8 @@ class TestCandidates:
         assert cands[0] == resolve_tune(f)
         eff = [tuple(resolve_tune(f, c).values()) for c in cands]
         assert len(eff) == len(set(eff))
-        assert len(cands) == (54 if f % 4 == 0 else 27)
+        assert len(cands) == len(SWEEP_MAX_BANDS) * (54 if f % 4 == 0
+                                                     else 27)
 
     def test_vec4_clamps_where_rows_do_not_allow_it(self):
         cfg = {"w": 32, "vec": 4, "kc": 4, "threads": 256}
@@ -178,7 +184,7 @@ class TestOracleGate:
                    for r in rows.values())
 
     def test_a_spilling_default_is_rejected_too(self, ptxas_log):
-        default = tuple(resolve_tune(128).values())
+        default = tuple(resolve_tune(128)[k] for k in LAUNCH_KEYS)
         ptxas_log(lambda inst: 8 if inst == default else 0)
         log = []
         t = _tuner(_timer(log))
@@ -186,8 +192,11 @@ class TestOracleGate:
         assert [(x.rule, x.severity) for x in findings] == [
             ("registers", "error")]
         winner = t.tune(SMALL, 128)
-        assert t.rejected == 1 and resolve_tune(128) not in log
-        assert winner and tuple(winner.values()) != default
+        # the default launch shape at each swept band cap (SMALL has two
+        # bands, so both caps are candidates of their own)
+        assert t.rejected == len(SWEEP_MAX_BANDS)
+        assert all(tuple(c[k] for k in LAUNCH_KEYS) != default for c in log)
+        assert winner and tuple(winner[k] for k in LAUNCH_KEYS) != default
 
     def test_without_a_log_registers_are_not_checked(self, monkeypatch):
         monkeypatch.delitem(_build.BUILD_LOG, "ragged_ell_spmm",
@@ -214,7 +223,8 @@ class TestOracleGate:
                             lambda sc: (np.zeros((1, 1), np.int32),) * 3)
         t = _tuner(_boom)
         assert t.tune(HUGE, 32) == {}
-        assert t.rejected == t.swept == len(candidates(32)) and t.timed == 0
+        assert t.rejected == t.swept == len(candidates(32, HUGE.bands))
+        assert t.timed == 0
 
     def test_default_timer_needs_a_card(self):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -192,13 +192,21 @@ def test_labels_classes_have_several_bands():
 
 def test_max_bands_out_of_range_raises_on_every_device():
     cols, vals, tcol, unit_k, b, segments = synth(seed=0)
-    for mb in (0, 5):
+    for mb in (0, -1):
         with pytest.raises(ValueError, match="max_bands"):
             ragged_ell_spmm(cols, vals, tcol, unit_k, b, segments=segments,
                             max_bands=mb, device="cpu")
         with pytest.raises(ValueError, match="max_bands"):
             ragged_ell_contract(1, 12, 4, 9, 3, 16, 8, segments=segments,
                                 max_bands=mb)
+    # past 4 bands the runs merge as the reference merges them
+    got = ragged_ell_spmm(cols, vals, tcol, unit_k, b, segments=segments,
+                          max_bands=5, device="cpu")
+    torch.testing.assert_close(got, _pallas(cols, vals, tcol, unit_k, b,
+                                            segments, 5), **KERNEL_TOL)
+    assert ragged_ell_contract(1, 14, 4, 9, 3, 16, 8, segments=segments,
+                               max_bands=5)["bands"] == ref_ell._bands_of(
+        segments, 14, 9, 5)
 
 
 # ------------------------------------------------- synthetic unit arrays ----

@@ -16,7 +16,8 @@ The kernel leaves rows without an ELL entry untouched, which equals
 ``yd + 0`` only because the dense engine never writes -0: that premise is
 tested here too, on graphs with negative weights.
 
-Tests marked ``cuda`` launch the kernel; they skip without a card.
+Tests marked ``cuda`` launch the kernel (also past 4 K bands, where it
+reads each unit's band K from the kept table); they skip without a card.
 """
 import numpy as np
 import pytest
@@ -447,3 +448,88 @@ def test_cuda_banded_rows_bitwise_at_labels_shapes(cuda_device, graph):
             *pargs, poisoned, plan.ell, yd.clone(), segments=segs))
         assert bool(torch.isnan(ragged_ell_rows(
             *pargs, poisoned, plan.ell, yd.clone())).any())
+
+
+def _labels_training(graph, dev):
+    """A paper graph at full size reordered by its planted labels and
+    not padded to a class (the partition training runs: every K run its
+    own, 23 at cora, 52 at pubmed), its meta and plan on ``dev``."""
+    from repro_torch.core.reorder import reorder
+    csr, _, _, _ = make_paper_dataset(graph, scale=1.0, seed=0)
+    csr = reorder(csr, "labels", labels=make_paper_dataset.last_labels)[0]
+    part, meta, _ = tc.analyze_and_partition(csr, tc.PartitionConfig(
+        tile=64))
+    plan = plan_to(stack_plans([reduction_plan(part, meta)]), dev)
+    ell = [torch.from_numpy(np.asarray(x)[None]).to(dev) for x in part.ell]
+    return ell, meta, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("bfloat16", "float32")])
+@pytest.mark.parametrize("graph", ["cora", "pubmed"])
+def test_cuda_table_mode_bitwise_at_every_launch_shape(cuda_device, graph,
+                                                       dtypes):
+    """More than 4 K bands on the card (the kernel reads each unit's band
+    K from the kept [U] table): bit for bit its plain version and the
+    4-band launch, at every launch shape, F = 128 and 7, each type of
+    vals and B; one table launch a call; the per-unit kernel likewise."""
+    import importlib
+
+    from repro_torch.kernels.autotune import candidates
+    ell = importlib.import_module("repro_torch.kernels.ell_spmm")
+    (cols, vals, _, tcol, uk), meta, plan = _labels_training(graph,
+                                                             cuda_device)
+    segs = meta.ell_segments
+    assert len(segs) > 8
+    vals = vals.to(getattr(torch, dtypes[0]))
+    rng = np.random.default_rng(4)
+    for f in (128, 7):
+        b = torch.from_numpy(rng.standard_normal(
+            (1, meta.n_cols, f)).astype(np.float32)).to(cuda_device)
+        bt = b_tiles_of(b.to(getattr(torch, dtypes[1])), meta).contiguous()
+        yd = torch.from_numpy(rng.standard_normal(
+            (1, meta.n_padded_rows, f)).astype(np.float32)).to(cuda_device)
+        args = (cols, vals, tcol, uk, bt, plan.ell)
+        want = ragged_ell_rows_ref(*args, yd.clone(), segments=segs,
+                                   max_bands=len(segs))
+        assert torch.equal(ragged_ell_rows(*args, yd.clone(), segments=segs),
+                           want)
+        for cfg in candidates(f):
+            if cfg["max_bands"] != 4:
+                continue
+            for mb in (8, len(segs)):
+                before = sum(ell.table_launches.values())
+                got = ragged_ell_rows(*args, yd.clone(), segments=segs,
+                                      tune=dict(cfg, max_bands=mb))
+                assert sum(ell.table_launches.values()) == before + 1
+                assert torch.equal(got, want), (cfg, mb)
+        assert torch.equal(
+            ragged_ell_spmm(cols, vals, tcol, uk, bt, segments=segs,
+                            max_bands=len(segs)),
+            ragged_ell_spmm_ref(cols, vals, tcol, uk, bt, segments=segs,
+                                max_bands=len(segs)))
+
+
+@pytest.mark.cuda
+def test_cuda_table_mode_replays_in_a_graph(cuda_device):
+    """The table mode captured into a CUDA graph after one eager launch
+    (which builds the table): the replay reads the kept table, with no
+    copy, and gives the eager launch's bits."""
+    (cols, vals, _, tcol, uk), meta, plan = _labels_training("cora",
+                                                             cuda_device)
+    segs = meta.ell_segments
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, meta.n_cols, 16)).astype(np.float32)).to(cuda_device)
+    bt = b_tiles_of(b, meta).contiguous()
+    out = torch.zeros((1, meta.n_padded_rows, 16), device=cuda_device)
+    args = (cols, vals, tcol, uk, bt, plan.ell)
+    want = ragged_ell_rows(*args, out.clone(), segments=segs, max_bands=64)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ragged_ell_rows(*args, out, segments=segs, max_bands=64)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
