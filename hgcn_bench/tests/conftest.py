@@ -1,0 +1,7 @@
+"""The benchmark's tests import the program from ``src/`` beside it."""
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[2] / "src"
+if str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
