@@ -317,14 +317,17 @@ class HybridSpmmFn(torch.autograd.Function):
 
 
 def _product(source, part, b, meta, plan, backend, ell_dispatch,
-             ell_tune=None):
+             ell_tune=None, chain=None):
     """``_hybrid`` through ``HybridSpmmFn`` when B needs a gradient;
     ``source`` is the caller's partition. A grouped one runs each
     member alone (its own group axis of 1 and plan) and stacks the
     results: the bits of each member's own call. The gradient is float32
-    only: a bfloat16 B that needs one raises (training runs in float32)."""
+    only: a bfloat16 B that needs one raises (training runs in float32).
+    ``chain`` (an ``obs.device.DeviceChain``) is marked without a
+    gradient only."""
     if not (torch.is_grad_enabled() and b.requires_grad):
-        return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune)
+        return _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune,
+                       chain)
     if b.dtype != torch.float32:
         raise NotImplementedError(
             f"hybrid_spmm differentiates a float32 B only, not {b.dtype}: "
@@ -359,18 +362,29 @@ def hybrid_spmm(part: TriPartition, b, *, meta: PartitionMeta,
     return y[0] if squeeze else y
 
 
-def _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune=None):
+def _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune=None,
+            chain=None):
+    """The three engines; ``chain`` marks the end of each engine's work
+    (``dense``, ``ell``, ``coo``)."""
     if backend == "cuda":
         yd = kops.dense_tiles_matmul(part, b, meta, plan)
+        if chain is not None:
+            chain.mark("dense")
         y = kops.ell_matmul(part, b, meta, plan, yd, dispatch=ell_dispatch,
                             ell_tune=tune_at(ell_tune, b.shape[-1]) or None)
     elif backend == "torch":
-        y = (dense_tiles_matmul(part, b, meta, plan)
-             + ell_matmul(part, b, meta, plan, dispatch=ell_dispatch))
+        yd = dense_tiles_matmul(part, b, meta, plan)
+        if chain is not None:
+            chain.mark("dense")
+        y = yd + ell_matmul(part, b, meta, plan, dispatch=ell_dispatch)
     else:
         raise ValueError(f"unknown backend {backend!r}; choose from "
                          f"{BACKENDS}")
+    if chain is not None:
+        chain.mark("ell")
     y = y + coo_matmul(part, b, meta, plan)
+    if chain is not None:
+        chain.mark("coo")
     return y[:, : meta.n_rows].to(b.dtype)
 
 
@@ -407,23 +421,32 @@ def member_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(source, part, x, w, meta, plan, backend, block_cols, activation,
-           ell_dispatch, ell_tune=None):
+           ell_dispatch, ell_tune=None, chain=None):
     """One GCN layer on grouped tensors: x [G, N, F_in], w [G, F_in, H];
-    X·W in the promoted type of the two."""
+    X·W in the promoted type of the two. ``chain`` marks the end of each
+    X·W (``xw``) and of the engines; the caller marks the layer's
+    ``out``."""
     h = w.shape[-1]
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
+
+    def xw(wb):
+        y = member_matmul(x, wb)
+        if chain is not None:
+            chain.mark("xw")
+        return y
+
     if block_cols and block_cols < h:
         nblk = -(-h // block_cols)
         wp = torch.nn.functional.pad(w, (0, nblk * block_cols - h))
-        outs = [_product(source, part, member_matmul(
-                    x, wp[..., i * block_cols:(i + 1) * block_cols]),
-                    meta, plan, backend, ell_dispatch, ell_tune)
+        outs = [_product(source, part, xw(
+                    wp[..., i * block_cols:(i + 1) * block_cols]),
+                    meta, plan, backend, ell_dispatch, ell_tune, chain)
                 for i in range(nblk)]
         y = torch.cat(outs, dim=-1)[..., :h]
     else:
-        y = _product(source, part, member_matmul(x, w), meta, plan, backend,
-                     ell_dispatch, ell_tune)
+        y = _product(source, part, xw(w), meta, plan, backend,
+                     ell_dispatch, ell_tune, chain)
     return activation(y) if activation is not None else y
 
 
@@ -451,7 +474,8 @@ def gcn_layer(part: TriPartition, x, w, *, meta: PartitionMeta,
 def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
                 backend: str = "cuda", block_cols: int = 0,
                 ell_dispatch: str = "ragged", plan: ReductionPlan = None,
-                ell_tune: dict = None, device="cuda") -> torch.Tensor:
+                ell_tune: dict = None, device="cuda",
+                chain=None) -> torch.Tensor:
     """The paper's 2-layer vanilla GCN:  softmax-free inference logits
     X2 = A·relu(A·X·W1)·W2   (activation on hidden layer only).
 
@@ -465,13 +489,24 @@ def gcn_forward(part: TriPartition, x, weights, *, meta: PartitionMeta,
     members one by one, each with the bits of its own G = 1 call. X·W's
     gradients are ``torch.matmul``'s own. In float32 only: bfloat16
     inputs that need a gradient raise ``NotImplementedError``.
+
+    ``chain`` (an ``obs.device.DeviceChain``, the engine's while a
+    tracer is on) is marked at each engine boundary of each layer and
+    after each layer but the last, whose ``out`` the caller marks once
+    it has unpadded the logits.
     """
     dev = resolve_device(device)
     source = part
     part, h, plan, squeeze = _grouped(part, x, plan, meta, dev)
     for i, w in enumerate(weights):
         w = as_operand(w).to(dev)
-        act = torch.relu if i < len(weights) - 1 else None
+        last = i == len(weights) - 1
+        act = None if last else torch.relu
+        if chain is not None:
+            chain.layer = i
         h = _layer(source, part, h, w if w.dim() == 3 else w[None], meta,
-                   plan, backend, block_cols, act, ell_dispatch, ell_tune)
+                   plan, backend, block_cols, act, ell_dispatch, ell_tune,
+                   chain)
+        if chain is not None and not last:
+            chain.mark("out")
     return h[0] if squeeze else h

@@ -294,17 +294,21 @@ class ExecutorCache:
         block_cols, dispatch = self.block_cols, self.ell_dispatch
         ell_tune = self._table(sc) or None
 
-        def fwd(part, x, weights, plan):
+        def fwd(part, x, weights, plan, chain=None):
             return gcn_forward(part, x, weights, meta=meta, backend=backend,
                                block_cols=block_cols, ell_dispatch=dispatch,
-                               plan=plan, ell_tune=ell_tune, device=device)
+                               plan=plan, ell_tune=ell_tune, device=device,
+                               chain=chain)
         return fwd
 
     def gcn(self, sc: ShapeClass, f_in: int, w_shapes: tuple):
         """Executor for the 2+-layer GCN forward over one padded graph.
 
-        Signature: fn(part, x[n_cols_padded, f_in], weights, plan) ->
-        logits[n_rows_padded, w_shapes[-1][-1]].
+        Signature: fn(part, x[n_cols_padded, f_in], weights, plan,
+        chain=None) -> logits[n_rows_padded, w_shapes[-1][-1]]; ``chain``
+        is the caller's ``obs.device.DeviceChain`` for this call, so an
+        executor built before a tracer was attached is timed once one
+        is.
         """
         with self._lock:
             return self._get(self._gcn_key(sc, f_in, w_shapes),

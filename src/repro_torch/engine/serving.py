@@ -37,6 +37,7 @@ are bitwise-equal to the defaults.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -54,6 +55,8 @@ from repro_torch.core.partition import PartitionConfig, analyze_and_partition
 from repro_torch.core.reorder import reorder as reorder_csr
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import check_ell_dispatch
+from repro_torch.obs.device import (DeviceChain, DeviceClock, capturing,
+                                    enter_range, exit_range, timed)
 from repro_torch.obs.metrics import Counter, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.chaos import NULL_INJECTOR, InjectedFault
@@ -80,6 +83,10 @@ class GraphHandle:
     weights: Optional[list]     # per-graph GCN weights (tensors), or None
     preprocess_s: float = 0.0
     need: Optional[ClassNeed] = None
+    # host seconds of register's phases: "reorder", "partition"
+    # (analyze_and_partition), "place" (class fit, padding, plan and
+    # placement); they sum to at most preprocess_s
+    phases: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_rows(self) -> int:
@@ -210,6 +217,10 @@ class Engine:
         self._autotune_cache = autotune_cache
         self._tuner = None
         self._tune_lock = threading.Lock()
+        # prepare_x's device stage pairs while a tracer is on, per
+        # thread, keyed by the id of the prepared tensor until the
+        # dispatch that stacks it picks them up
+        self._staged = threading.local()
 
     @property
     def stack_hits(self) -> int:
@@ -234,23 +245,47 @@ class Engine:
         skips). ``weights`` (list of [f_in, f_out] arrays) enables
         ``infer`` / ``serve_batch``. ``part_meta=(part, meta)`` skips
         partitioning for callers that already ran Algorithm 2.
+
+        The handle's ``phases`` holds each phase's host seconds; with a
+        tracer attached they are also child spans of a ``register``
+        span.
         """
         t0 = time.perf_counter()
+        tr = self.tracer
+        sp_reg = tr.begin("register", "engine", args={"name": name}) \
+            if tr.enabled else -1
+        phases = {"reorder": 0.0, "partition": 0.0, "place": 0.0}
+
+        @contextlib.contextmanager
+        def phase(what):
+            sid = tr.begin(what, "engine", parent=sp_reg) \
+                if sp_reg >= 0 else -1
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                phases[what] += time.perf_counter() - t
+                tr.end(sid)
+
         perm = inv_perm = None
         if part_meta is not None:
             part, meta = part_meta
         else:
             if reorder is not None:
-                kw = {"labels": labels} if reorder == "labels" else {}
-                csr, perm, _ = reorder_csr(csr, reorder, **kw)
-                inv = np.empty_like(perm)
-                inv[perm] = np.arange(len(perm))
-                inv_perm = torch.from_numpy(inv).to(self.device)
-            part, meta, _ = analyze_and_partition(csr, self.partition_cfg)
-        need = class_requirements(part, meta, self.policy)
-        sc = self.registry.classify_need(need)
-        padded, pmeta = pad_to_class(part, meta, sc)
-        placed, plan, host_plan = self._place(padded, pmeta)
+                with phase("reorder"):
+                    kw = {"labels": labels} if reorder == "labels" else {}
+                    csr, perm, _ = reorder_csr(csr, reorder, **kw)
+                    inv = np.empty_like(perm)
+                    inv[perm] = np.arange(len(perm))
+                    inv_perm = torch.from_numpy(inv).to(self.device)
+            with phase("partition"):
+                part, meta, _ = analyze_and_partition(csr,
+                                                      self.partition_cfg)
+        with phase("place"):
+            need = class_requirements(part, meta, self.policy)
+            sc = self.registry.classify_need(need)
+            padded, pmeta = pad_to_class(part, meta, sc)
+            placed, plan, host_plan = self._place(padded, pmeta)
         handle = GraphHandle(
             name=name, part=placed, meta=meta, padded_meta=pmeta, sclass=sc,
             plan=plan, host_plan=host_plan,
@@ -260,7 +295,8 @@ class Engine:
             weights=None if weights is None else [
                 torch.as_tensor(np.asarray(to_numpy(w), np.float32)).to(
                     self.device) for w in weights],
-            preprocess_s=time.perf_counter() - t0, need=need)
+            preprocess_s=time.perf_counter() - t0, need=need, phases=phases)
+        tr.end(sp_reg)
         self._graphs[name] = handle
         with self._stack_lock:
             self._stacks = collections.OrderedDict(
@@ -423,8 +459,34 @@ class Engine:
     def prepare_x(self, name: str, x) -> torch.Tensor:
         """Stage one request's features: permute + pad to the graph's
         class input rows on the device. Feeds ``serve_group_async``'s
-        ``prepared`` argument."""
-        return self._pad_x(self._graphs[name], x)
+        ``prepared`` argument. While a tracer is on, the staging's device
+        interval goes to the chain of the dispatch that stacks it (on
+        this thread)."""
+        h = self._graphs[name]
+        if not self.tracer.enabled or capturing():
+            return self._pad_x(h, x)
+        xp, pair = timed(self.tracer.clock, self.device,
+                         lambda: self._pad_x(h, x))
+        staged = getattr(self._staged, "pairs", None)
+        if staged is None or len(staged) > 256:   # a failed plan's leftovers
+            staged = self._staged.pairs = {}
+        staged[id(xp)] = pair
+        return xp
+
+    def _chain(self, prepared) -> Optional[DeviceChain]:
+        """A dispatch's device chain while a tracer is on and the stream
+        is not capturing a graph, holding the stage pairs of the
+        ``prepared`` features."""
+        if not self.tracer.enabled or capturing():
+            return None
+        chain = DeviceChain(self.tracer.clock, self.device)
+        staged = getattr(self._staged, "pairs", None)
+        if staged and prepared is not None:
+            for xp in prepared:
+                pair = staged.pop(id(xp), None)
+                if pair is not None:
+                    chain.staged.append(pair)
+        return chain
 
     def _stack(self, padded) -> tuple:
         """The cached (part, weights, plan) stack of a padded member list."""
@@ -470,7 +532,23 @@ class Engine:
         (``prepare_x``, aligned with ``requests``). ``executors``
         substitutes a per-replica ``ExecutorCache`` (what
         ``replica_view`` dispatches through); None uses the engine's own.
+
+        While a tracer is on, the call is an ``enqueue`` span, and
+        ``meta["chain"]`` is the dispatch's ``obs.device.DeviceChain``,
+        for whoever waits on ``complete`` to resolve and emit.
         """
+        tr = self.tracer
+        if not tr.enabled:
+            return self._serve_group_async(requests, prepared, executors)
+        sid = tr.begin("enqueue", "engine", args={"n": len(requests)})
+        rng = enter_range("enqueue")
+        try:
+            return self._serve_group_async(requests, prepared, executors)
+        finally:
+            exit_range(rng)
+            tr.end(sid)
+
+    def _serve_group_async(self, requests, prepared, executors) -> tuple:
         ex = executors if executors is not None else self.executors
         if not requests:
             return [], {"cold": False, "ready": lambda: True,
@@ -500,21 +578,20 @@ class Engine:
             members.append((i, h, x, xp))
         sc, f_in, w_shapes = key0
         misses0 = ex.stats.misses
+        chain = self._chain(prepared)
 
         def pad(h, x, xp):
             return xp if xp is not None else self._pad_x(h, x)
 
-        tr = self.tracer
         if len(members) == 1:
             i, h, x, xp = members[0]
-            sp_pad = -1
-            if tr.enabled:
-                sp_pad = tr.begin("pad", "engine", args={"n": 1})
             fn = ex.gcn(sc, f_in, w_shapes)
             xpad = pad(h, x, xp)
-            tr.end(sp_pad)
-            outs = [self._unpad_y(h, fn(h.part, xpad, h.weights, h.plan))]
-            meta = self._completion_meta(misses0, ex)
+            if chain is not None:
+                chain.mark("stage")
+            outs = [self._unpad_y(h, fn(h.part, xpad, h.weights, h.plan,
+                                        chain=chain))]
+            meta = self._completion_meta(misses0, ex, chain)
             if inj.enabled:
                 outs, meta = self._inject_async(inj, requests, outs, meta)
             return outs, meta
@@ -524,19 +601,16 @@ class Engine:
         members.sort(key=lambda m: m[1].name)
         bs = 1 << (len(members) - 1).bit_length()
         padded = members + [members[-1]] * (bs - len(members))
-        sp_pad = -1
-        if tr.enabled:
-            sp_pad = tr.begin("pad", "engine",
-                              args={"n": len(members), "batch": bs})
         fn = ex.gcn_batched(sc, f_in, w_shapes, bs)
         part_stack, w_stack, plan = self._stack(padded)
         x_stack = torch.stack([pad(h, x, xp) for _, h, x, xp in padded])
-        tr.end(sp_pad)
-        ys = fn(part_stack, x_stack, w_stack, plan)
+        if chain is not None:
+            chain.mark("stage")
+        ys = fn(part_stack, x_stack, w_stack, plan, chain=chain)
         results: list = [None] * len(members)
         for j, (i, h, _, _) in enumerate(members):
             results[i] = self._unpad_y(h, ys[j])
-        meta = self._completion_meta(misses0, ex)
+        meta = self._completion_meta(misses0, ex, chain)
         if inj.enabled:
             results, meta = self._inject_async(inj, requests, results, meta)
         return results, meta
@@ -561,19 +635,26 @@ class Engine:
             meta["complete"] = hung_complete
         return outs, meta
 
-    def _completion_meta(self, misses0: int, ex: ExecutorCache) -> dict:
+    def _completion_meta(self, misses0: int, ex: ExecutorCache,
+                         chain: Optional[DeviceChain] = None) -> dict:
         """Completion hooks for the work enqueued so far on the current
         stream (a CUDA event recorded after it), or trivially complete
         hooks on the CPU. ``cold`` is the miss-counter delta of the cache
-        ``ex`` that served the dispatch."""
+        ``ex`` that served the dispatch. A traced dispatch's chain is
+        closed here (the last layer's ``out``, after the unpadding) and
+        handed on as ``chain``."""
         cold = ex.stats.misses > misses0
+        meta = {"cold": cold}
+        if chain is not None:
+            chain.mark("out")
+            meta["chain"] = chain
         if self.device.type != "cuda":
-            return {"cold": cold, "ready": lambda: True,
-                    "complete": lambda: None}
+            meta.update(ready=lambda: True, complete=lambda: None)
+            return meta
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
-        return {"cold": cold, "ready": event.query,
-                "complete": event.synchronize}
+        meta.update(ready=event.query, complete=event.synchronize)
+        return meta
 
     # --------------------------------------------------------- latency -----
     def latency_prior(self, key: tuple, batch: int) -> Optional[float]:
@@ -623,7 +704,13 @@ class Engine:
         engine-side spans and instants land in the same ring as the
         serving frontend's; the autotuner too, when it exists.
         ``RequestQueue(..., tracer=...)`` calls this; passing
-        ``NULL_TRACER`` turns engine tracing back off."""
+        ``NULL_TRACER`` turns engine tracing back off. On a card an
+        enabled tracer gets its clock anchor (``obs.device.DeviceClock``:
+        one synchronize) here, once, so the dispatches' device segments
+        land on its clock."""
+        if tracer.enabled and self.device.type == "cuda" \
+                and getattr(tracer, "device_clock", None) is None:
+            tracer.device_clock = DeviceClock(tracer.clock, self.device)
         self.tracer = tracer
         self.executors.tracer = tracer
         for cache in self._replica_caches:

@@ -21,6 +21,12 @@ Track layout:
   begin args carry ``"replica": r`` lands on its own per-replica
   device track (``device[r]``), so 4-replica runs render four stacked
   device timelines and cross-replica overlap is visually checkable.
+- ``pid 2 / tid SEGMENT_TID`` — the port's measured device segments
+  (``obs.device``, category ``device_segment``): what the card ran, on
+  the host spans' axis through the tracer's clock anchor. A tracer with
+  an anchor takes a second one at ``write_chrome_trace`` and records
+  the drift between the clocks in ``otherData.anchor_drift_ms`` (over
+  ``otherData.anchor_span_s``).
 
 Timestamps are microseconds relative to the earliest event (Chrome
 format convention). The source clock is whatever the tracer was built
@@ -36,6 +42,10 @@ from typing import Dict, List, Optional
 DEVICE_PID = 2
 DEVICE_TID = 1
 HOST_PID = 1
+# the category of the port's measured device segments (obs/device.py)
+# and the device track they export to
+SEGMENT_CAT = "device_segment"
+SEGMENT_TID = 1000
 
 
 def _thread_names() -> Dict[int, str]:
@@ -83,6 +93,9 @@ def chrome_trace(events: List[dict], *, metadata: Optional[dict] = None,
     device_tids = {DEVICE_TID: "device window"}
 
     def track(ev: dict):
+        if ev["cat"] == SEGMENT_CAT:
+            device_tids[SEGMENT_TID] = "device (measured)"
+            return DEVICE_PID, SEGMENT_TID
         if ev["cat"] == "device":
             replica = (ev["args"] or {}).get("replica", -1)
             if isinstance(replica, int) and replica >= 0:
@@ -148,6 +161,11 @@ def write_chrome_trace(path: str, tracer, *,
     other = dict(metadata or {})
     other["ring_capacity"] = tracer.capacity
     other["ring_wrapped"] = tracer.wrapped()
+    dc = getattr(tracer, "device_clock", None)
+    if dc is not None:
+        drift_s, span_s = dc.drift_s()
+        other["anchor_drift_ms"] = drift_s * 1e3
+        other["anchor_span_s"] = span_s
     doc = chrome_trace(tracer.events(), metadata=other)
     with open(path, "w") as fh:
         json.dump(doc, fh)

@@ -67,6 +67,9 @@ class Tracer:
         self._ids = itertools.count(1)    # span id sequence (0 unused)
         self._rejects = itertools.count(1)  # synthetic req ids, negated
         self._lock = threading.Lock()     # export/clear only
+        # the CUDA events' anchor on ``clock`` (``obs.device.DeviceClock``),
+        # set when the tracer is attached to an engine on a card
+        self.device_clock = None
 
     # -- hot path ---------------------------------------------------------
 
@@ -107,6 +110,22 @@ class Tracer:
         self._slots[i % self.capacity] = (
             i, "i", sid, parent, req, name, cat, self.clock(),
             threading.get_ident(), args)
+
+    def span_at(self, name: str, cat: str, t0: float, t1: float, *,
+                parent: int = -1, args=None) -> None:
+        """Record a closed span whose begin and end were taken apart from
+        the call: ``t0`` and ``t1`` on this tracer's clock (a dispatch's
+        device segments, resolved after the device ran them)."""
+        if not self.enabled:
+            return
+        sid = next(self._ids)
+        tid = threading.get_ident()
+        i = next(self._next)
+        self._slots[i % self.capacity] = (
+            i, "B", sid, parent, -1, name, cat, t0, tid, args)
+        i = next(self._next)
+        self._slots[i % self.capacity] = (
+            i, "E", sid, -1, -1, None, None, t1, tid, None)
 
     def reject_id(self) -> int:
         """A synthetic (negative) request id for rejected submissions,

@@ -48,10 +48,12 @@ backlog.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import threading
 import time
 from typing import Optional
 
+from repro_torch.obs.device import enter_range, exit_range
 from repro_torch.obs.trace import NULL_TRACER, label
 
 from .latency import LatencyModel
@@ -429,11 +431,13 @@ class RequestQueue:
         try:
             pairs = [(r.name, r.x) for r in members]
             async_fn = getattr(self.engine, "serve_group_async", None)
+            chain = None
             if async_fn is None:       # engine without the async surface
                 outs, complete = self.engine.serve_group(pairs), None
             else:
                 outs, meta = async_fn(pairs)
                 complete = meta["complete"]
+                chain = meta.get("chain")
             # the serial device window: enqueue returned → results ready
             if sp_batch >= 0:
                 sp_dev = tr.begin("device", "device", parent=sp_batch)
@@ -492,6 +496,9 @@ class RequestQueue:
             if r.span_request >= 0:
                 tr.end(r.span_request,
                        args={"missed": now > r.deadline_s})
+        if chain is not None:
+            # the completion hook returned: the events resolve at once
+            chain.emit(tr, parent=sp_dev, live=len(members), padded=padded)
         tr.end(sp_batch)
 
     def pump(self) -> int:
@@ -671,11 +678,30 @@ class RequestQueue:
                     return
                 due = self.scheduler.next_due_s(self.clock())
                 if due is None:
-                    self._wake.wait(timeout=0.1)
+                    with self._waiting("idle"):
+                        self._wake.wait(timeout=0.1)
                 else:
                     delay = due - self.clock()
                     if delay > 0:
-                        self._wake.wait(timeout=delay)
+                        with self._waiting("linger"):
+                            self._wake.wait(timeout=delay)
+
+    @contextlib.contextmanager
+    def _waiting(self, what: str):
+        """The pump's wait as a traced span (and profiler range):
+        ``linger`` while requests are queued for the scheduler's close,
+        ``idle`` while none is."""
+        tr = self.tracer
+        if not tr.enabled:
+            yield
+            return
+        sid = tr.begin(what, "serving", args={"depth": self.scheduler.depth()})
+        rng = enter_range(what)
+        try:
+            yield
+        finally:
+            exit_range(rng)
+            tr.end(sid)
 
     def stop(self, drain: bool = True) -> None:
         """Stop the worker; by default flush pending work first."""

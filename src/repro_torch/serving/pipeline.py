@@ -67,6 +67,7 @@ import threading
 import time
 from typing import Optional
 
+from repro_torch.obs.device import enter_range, exit_range
 from repro_torch.obs.trace import NULL_TRACER, label
 
 from .resilience import WatchdogTimeout, outputs_finite, sync_dispatch_fn
@@ -89,6 +90,8 @@ class InflightBatch:
     done_hint_s: Optional[float] = None   # modeled finish (simulation)
     span: int = -1             # device-window span id (-1 = untraced);
                                # begun at enqueue, ended by the drainer
+    chain: object = None       # the dispatch's obs.device.DeviceChain
+                               # (traced), emitted once it completed
 
     @property
     def padded(self) -> int:
@@ -239,10 +242,12 @@ class DispatchPipeline:
             self._staging += 1
         tr = self.tracer
         sp_stage = -1
+        rg_stage = None
         if tr.enabled and any(r.span_request >= 0 for r in plan.members):
             sp_stage = tr.begin(
                 "staging", "serving",
                 args={"reqs": [r.seq for r in plan.members]})
+            rg_stage = enter_range("staging")
         try:
             try:
                 groups = self._regroup(plan)
@@ -256,11 +261,14 @@ class DispatchPipeline:
                 # (a host-side wait — exactly the backpressure that
                 # keeps device memory and queue-delay exposure bounded)
                 # BEFORE the next enqueue, never after
+                slot = self._slot_wait_begin(members, sp_stage)
                 while self.depth_inflight() >= self.max_inflight:  # lint: racy-ok(single-int window bound; any published value is in [1, cap])
                     self._drain_one(block=True)
+                self._slot_wait_end(slot)
                 self._enqueue_group(key, members, plan.reason,
                                     prepared.get(key), span_parent=sp_stage)
         finally:
+            exit_range(rg_stage)
             tr.end(sp_stage)
             with self._lock:
                 self._staging -= 1
@@ -269,6 +277,20 @@ class DispatchPipeline:
                 self._turn = seq + 1
                 self._turn_cv.notify_all()
                 self._idle.notify_all()
+
+    def _slot_wait_begin(self, members, parent: int) -> tuple:
+        """Open the ``slot_wait`` span (and its profiler range) of a
+        traced batch about to wait for a free in-flight slot."""
+        tr = self.tracer
+        if parent < 0:
+            return -1, None
+        return (tr.begin("slot_wait", "serving", parent=parent,
+                         args={"reqs": [r.seq for r in members]}),
+                enter_range("slot_wait"))
+
+    def _slot_wait_end(self, slot: tuple) -> None:
+        exit_range(slot[1])
+        self.tracer.end(slot[0])
 
     def _prepare(self, groups) -> dict:
         """Per-member feature staging (pad-to-class + device placement):
@@ -320,7 +342,7 @@ class DispatchPipeline:
             key=key, members=members, reason=reason, outs=outs,
             cold=bool(meta.get("cold")), ready=meta["ready"],
             complete=meta["complete"], staging_s=now - t0, t_enqueued=now,
-            done_hint_s=meta.get("done_s"))
+            done_hint_s=meta.get("done_s"), chain=meta.get("chain"))
         tr = self.tracer
         if tr.enabled and any(r.span_request >= 0 for r in members):
             # the device window opens HERE (enqueue returned); it closes
@@ -382,10 +404,12 @@ class DispatchPipeline:
         device segment; resolve the member futures."""
         tr = self.tracer
         sp_wait = -1
+        rg_wait = None
         if batch.span >= 0:
             # host blocked on the device window: trace_report recomputes
             # the overlap ratio from exactly these wait/device pairs
             sp_wait = tr.begin("wait_device", "drain", parent=batch.span)
+            rg_wait = enter_range("wait_device")
         t0 = self.clock()
         err = None
         timed_out = False
@@ -397,6 +421,7 @@ class DispatchPipeline:
             except Exception as e:     # noqa: BLE001 — futures carry it
                 err = e
         now = self.clock()
+        exit_range(rg_wait)
         if err is not None:
             tr.end(sp_wait, args={"error": True})
             tr.end(batch.span, args={"error": True})
@@ -443,6 +468,10 @@ class DispatchPipeline:
             if r.span_request >= 0:
                 tr.end(r.span_request,
                        args={"missed": now > r.deadline_s})
+        if batch.chain is not None:
+            # the device ran it: its events resolve without a wait
+            batch.chain.emit(tr, parent=batch.span, live=len(batch.members),
+                             padded=batch.padded)
 
     def _watch(self, batch: InflightBatch):
         """Wait for the batch's readiness under the watchdog deadline.
@@ -647,11 +676,13 @@ class DispatchPipeline:
             seq, plan = item
             tr = self.tracer
             sp_stage = -1
+            rg_stage = None
             if tr.enabled and any(r.span_request >= 0
                                   for r in plan.members):
                 sp_stage = tr.begin(
                     "staging", "serving",
                     args={"reqs": [r.seq for r in plan.members]})
+                rg_stage = enter_range("staging")
             # parallel part: regroup + pad happen per-worker; the
             # enqueue-order turnstile below serializes device submission
             # in plan-close order so no key can ever reorder internally.
@@ -663,12 +694,15 @@ class DispatchPipeline:
             except Exception as e:     # noqa: BLE001 — futures carry it
                 groups, prepared, err = {}, {}, e
             sp_turn = -1
+            rg_turn = None
             if sp_stage >= 0:
                 sp_turn = tr.begin("turnstile", "serving",
                                    parent=sp_stage)
+                rg_turn = enter_range("turnstile")
             with self._turn_cv:
                 while self._turn != seq and not self._stop:
                     self._turn_cv.wait(0.05)
+            exit_range(rg_turn)
             tr.end(sp_turn)
             try:
                 with self._lock:
@@ -678,15 +712,18 @@ class DispatchPipeline:
                     self._fail(plan.members, err)
                 else:
                     for key, members in groups.items():
+                        slot = self._slot_wait_begin(members, sp_stage)
                         with self._room:
                             while (len(self._inflight) + self._completing
                                    >= self.max_inflight
                                    and not self._stop):
                                 self._room.wait(0.05)
+                        self._slot_wait_end(slot)
                         self._enqueue_group(key, members, plan.reason,
                                             prepared.get(key),
                                             span_parent=sp_stage)
             finally:
+                exit_range(rg_stage)
                 tr.end(sp_stage)
                 with self._lock:
                     self._turn += 1

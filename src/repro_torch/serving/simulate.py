@@ -286,8 +286,9 @@ class StubEngine:
         self._lifecycle = manager
 
     def attach_tracer(self, tracer) -> None:
-        """Same hook the real Engine exposes; the stub records no spans
-        of its own (the frontend instruments around it) but keeping the
+        """Same hook the real Engine exposes; the stub records the real
+        engine's host span, ``enqueue`` around ``serve_group_async``
+        (the frontend instruments the rest around it), and keeping the
         attribute lets `LifecycleManager` emit retire/skip instants
         against stub-driven simulations too."""
         self.tracer = tracer
@@ -309,6 +310,18 @@ class StubEngine:
 
     def serve_group_async(self, requests, prepared=None, *,
                           replica: int = 0) -> tuple:
+        """Non-blocking dispatch against the modeled device timeline
+        (``_serve_group_async``), an ``enqueue`` span while traced."""
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return self._serve_group_async(requests, replica)
+        sid = tr.begin("enqueue", "engine", args={"n": len(requests)})
+        try:
+            return self._serve_group_async(requests, replica)
+        finally:
+            tr.end(sid)
+
+    def _serve_group_async(self, requests, replica: int) -> tuple:
         """Non-blocking dispatch against the modeled device timeline.
 
         Host-side cost (compile if cold, plus ``stage_s`` of staging)

@@ -154,6 +154,37 @@ def _traced_queue_doc(serving, trace_mod, export_mod, pipelined):
                                    metadata=queue.stats.snapshot())
 
 
+# spans the port's tracer records and the reference's does not: the pump's
+# waits, the wait for an in-flight slot, the engine's enqueue (the
+# reference's engine has a pad span instead, which its stub never
+# records) and the measured device segments
+PORT_ONLY = ("linger", "idle", "slot_wait", "enqueue")
+
+
+def port_only(event) -> bool:
+    return event.get("name") in PORT_ONLY \
+        or event.get("cat") == p_export.SEGMENT_CAT
+
+
+def _reference_view(doc):
+    """``doc`` without the port-only spans, its span ids renumbered in
+    order (the port-only spans take ids from the same sequence) and
+    every parent link mapped with them; every other event and field as
+    it was."""
+    out = json.loads(json.dumps(doc))
+    out["traceEvents"] = [e for e in out["traceEvents"] if not port_only(e)]
+    sids = sorted(e["args"]["sid"] for e in out["traceEvents"]
+                  if e.get("ph") in ("X", "i"))
+    rank = {sid: k + 1 for k, sid in enumerate(sids)}
+    for e in out["traceEvents"]:
+        a = e.get("args")
+        if e.get("ph") in ("X", "i"):
+            a["sid"] = rank[a["sid"]]
+            if a["parent"] in rank:
+                a["parent"] = rank[a["parent"]]
+    return out
+
+
 def _device_opened_at_enqueue(doc):
     """The serial ``device`` spans without their timing. The port's
     serial dispatch opens the span when ``serve_group_async`` returns and
@@ -174,12 +205,13 @@ def test_traced_queue_exports_match_reference(pipelined):
     doc_r = _traced_queue_doc(r_serving, r_trace, r_export, pipelined)
     doc_p = _traced_queue_doc(p_serving, p_trace, p_export, pipelined)
     assert p_report.check_complete(doc_p) == []
+    assert any(e.get("name") == "enqueue" for e in doc_p["traceEvents"])
     if pipelined:
-        assert doc_p == doc_r
+        assert _reference_view(doc_p) == _reference_view(doc_r)
         assert p_report.overlap_check(doc_p) == r_report.overlap_check(doc_r)
     else:
-        assert _device_opened_at_enqueue(doc_p) == \
-            _device_opened_at_enqueue(doc_r)
+        assert _device_opened_at_enqueue(_reference_view(doc_p)) == \
+            _device_opened_at_enqueue(_reference_view(doc_r))
         dev = [e["dur"] for e in doc_p["traceEvents"]
                if e.get("name") == "device"]
         assert dev and min(dev) > 0

@@ -24,6 +24,8 @@ Tests marked ``cuda`` need a card and skip without one; the JAX
 package's engine is imported only inside the CPU tests, so they run on
 a card machine without JAX.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -50,13 +52,41 @@ def test_serving_exports_match_reference():
     assert p_serving.__all__ == r_serving.__all__
 
 
+# the smokes that export a trace and return its event count
+TRACED_SMOKES = ("run_pipeline_smoke", "run_trace_smoke")
+# spans the port's tracer records and the reference's does not (as in
+# test_torch_obs.py): the pump's waits, the wait for an in-flight slot,
+# the engine's enqueue and the measured device segments
+PORT_ONLY = ("linger", "idle", "slot_wait", "enqueue")
+
+
+def _less_events(out, n):
+    """``out`` with every ``events`` count lowered by ``n``."""
+    if not isinstance(out, dict):
+        return out
+    return {k: (v - n if k == "events" else _less_events(v, n))
+            for k, v in out.items()}
+
+
 @pytest.mark.parametrize("smoke", SMOKES)
-def test_simulation_smoke_matches_reference(smoke):
+def test_simulation_smoke_matches_reference(smoke, tmp_path):
     # Every field is virtual time, a count or a ratio on a SimClock: no
     # wall clock or temp path reaches the returned dicts, so they must be
-    # equal as they are.
+    # equal as they are, except that a traced smoke's event count holds
+    # the spans only the port records (PORT_ONLY), counted
+    # out of its exported trace.
     want = getattr(r_serving, smoke)(verbose=False)
-    got = getattr(p_serving, smoke)(verbose=False)
+    if smoke not in TRACED_SMOKES:
+        got = getattr(p_serving, smoke)(verbose=False)
+    else:
+        from repro_torch.obs.export import SEGMENT_CAT
+        path = tmp_path / "trace.json"
+        got = getattr(p_serving, smoke)(verbose=False, trace_path=str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        extra = sum(1 for e in events if e.get("name") in PORT_ONLY
+                    or e.get("cat") == SEGMENT_CAT)
+        assert extra > 0
+        got = _less_events(got, extra)
     assert got == want
 
 
