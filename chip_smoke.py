@@ -20,7 +20,7 @@ repository's ``src/`` next to this file. It
      kernel per layer;
      profiles one ``infer`` per graph (``torch.profiler``): kernels and
      device ms per infer, the card's busy share, and the launches of the
-     kernels named in ``PROFILE_NAMES`` (the ELL and BSR row kernels,
+     kernels named in ``PROFILE_NAMES`` (the ELL, BSR and COO row kernels,
      gathers, ``segment_reduce`` and its scans, elementwise kernels);
   5. the serving front end over the main path's engine
      (``repro_torch.serving.RequestQueue``, host features as a user
@@ -284,7 +284,17 @@ repository's ``src/`` next to this file. It
      one table launch a call, the tables kept (none built again), the
      launches captured into CUDA graphs;
      device ms at 4 and 8 bands and every run beside the fixed-K kernel
-     and ``torch.sparse.mm`` + ``index_add_``, with the K trips of each)
+     and ``torch.sparse.mm`` + ``index_add_``, with the K trips of each;
+     and the ``coo_rows`` entry: the COO row kernel held bit for bit
+     against its plain version (the unfused gather, product,
+     ``segment_sum`` and add), with its own long-row length and with
+     every row on each path, at the main path's COO shapes (cora,
+     citeseer, pubmed; F = 128 and the class count; G = 1 and 4) and at
+     synthetic ones shaped like the Reddit- and Flickr-sized graphs'
+     COO (``COO_SHAPES``), timed beside its plain version, ``torch.sparse.mm`` over the live
+     rows' CSR + ``index_add_``, its bound, every row on the short path
+     and other long-row lengths, with its long rows and their
+     entries; a spill of any of its instances fails the smoke)
      and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check exits non-zero without the last line. Without CUDA, or
@@ -292,6 +302,7 @@ without the repository's sources, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -342,6 +353,7 @@ GRAPH_CALLS = 20
 PROFILE_NAMES = {"bsr_rows_kernel": "bsr_rows_kernel",
                  "ell_rows_kernel": "ell_rows_kernel",
                  "ell_band_kernel": "ell_band_kernel",
+                 "coo_rows_kernel": "coo_rows_kernel",
                  "segment_reduce": "segment_reduce",
                  "scan": "scan",
                  "index_select": "vectorized_gather",
@@ -515,9 +527,11 @@ def check_main_path(torch, engine, graphs, counts) -> list:
                 problems.append(f"{name}: logits shape {tuple(y.shape)}")
             if not bool(torch.isfinite(y).all()):
                 problems.append(f"{name}: non-finite logits")
+        coo = layers if engine.handle(name).sclass.coo_nnz else 0
         for kind in ("infer_launches", "group_launches"):
             if g[kind] != {"bsr_spmm": layers, "ragged_ell_spmm": layers,
-                           "ell_spmm": 0, "tile_matmul": 0}:
+                           "ell_spmm": 0, "tile_matmul": 0,
+                           "coo_rows": coo}:
                 problems.append(f"{name}: {kind} {g[kind]}, want one of "
                                 f"each kernel per layer")
         y_ref = ref.infer(name, g["xs"][0])
@@ -545,7 +559,7 @@ def check_main_path(torch, engine, graphs, counts) -> list:
         g["infer_ms"] = wall_ms(torch, lambda: engine.infer(name, g["xs"][0]))
         g["infer_dev_ms"] = wall_ms(torch, lambda: engine.infer(name, x_dev))
         g["group_ms"] = wall_ms(torch, lambda: engine.serve_group(reqs))
-    for k in ("bsr_spmm", "ragged_ell_spmm"):
+    for k in ("bsr_spmm", "ragged_ell_spmm", "coo_rows"):
         if counts[k] == 0:
             problems.append(f"{k} never launched on the main path")
     return problems
@@ -655,12 +669,15 @@ def serving_phase(torch, engine, graphs, smi: str) -> tuple:
     reqs = [(name, x) for name in names for x in graphs[name]["xs"]]
     dense = {name: bool(engine.handle(name).sclass.n_dense_tiles)
              for name in names}
+    coo = {name: bool(engine.handle(name).sclass.coo_nnz) for name in names}
 
     def launch_problems(mode, counts, batches_by_graph):
         want = {"bsr_spmm": sum(LAYERS * n for g, n in
                                 batches_by_graph.items() if dense[g]),
                 "ragged_ell_spmm": LAYERS * sum(batches_by_graph.values()),
-                "ell_spmm": 0, "tile_matmul": 0}
+                "ell_spmm": 0, "tile_matmul": 0,
+                "coo_rows": sum(LAYERS * n for g, n in
+                                batches_by_graph.items() if coo[g])}
         if counts != want:
             return [f"serving {mode}: launches {counts}, want {want}"]
         return []
@@ -888,7 +905,8 @@ def reordered_phase(torch, engine, graphs) -> tuple:
         sc = engine.handle(name).sclass
         want = {"bsr_spmm": LAYERS if sc.n_dense_tiles else 0,
                 "ragged_ell_spmm": LAYERS if sc.ell_units else 0,
-                "ell_spmm": 0, "tile_matmul": 0}
+                "ell_spmm": 0, "tile_matmul": 0,
+                "coo_rows": LAYERS if sc.coo_nnz else 0}
         if counts != want or counts["ragged_ell_spmm"] == 0:
             problems.append(f"{name}: launches {counts}, want {want}")
         if tuple(y.shape) != (g["n"], g["classes"]) or not bool(
@@ -1073,9 +1091,11 @@ def dispatch_ab(torch, graphs) -> tuple:
         outs = {}
         ops.reset_launch_counts()
         for name, g in graphs.items():
-            bands = len(engine.handle(name).sclass.bands)
+            sc = engine.handle(name).sclass
+            bands = len(sc.bands)
             want = {"bsr_spmm": LAYERS, "ragged_ell_spmm": 0,
-                    "ell_spmm": LAYERS, "tile_matmul": 0}
+                    "ell_spmm": LAYERS, "tile_matmul": 0,
+                    "coo_rows": LAYERS if sc.coo_nnz else 0}
             c0 = ops.launch_counts()
             y = engine.infer(name, g["xs"][0])
             torch.cuda.synchronize()
@@ -1611,7 +1631,7 @@ def _want_launches(meta, dispatch: str) -> dict:
     return {"bsr_spmm": LAYERS * (meta.n_dense_tiles > 0),
             "ragged_ell_spmm": LAYERS * (dispatch == "ragged" and ell),
             "ell_spmm": LAYERS * (dispatch != "ragged" and ell),
-            "tile_matmul": 0}
+            "tile_matmul": 0, "coo_rows": LAYERS * (meta.nnz_coo > 0)}
 
 
 def asymmetric_pubmed(torch, dev):
@@ -5322,9 +5342,9 @@ def bf16_phase(torch, engine, graphs) -> tuple:
                 and rec["dispatches_bitwise"] and rec["repeat_bitwise"]
                 and rec["composed_bitwise"] and rec["xw"]["within_bound"]):
             problems.append(f"bf16 GCN {name}: {rec}")
-    runs = {"ragged": ("ragged_ell_spmm", "bsr_spmm"),
-            "fused": ("ell_spmm", "bsr_spmm"),
-            "loop": ("ell_spmm", "bsr_spmm"),
+    runs = {"ragged": ("ragged_ell_spmm", "bsr_spmm", "coo_rows"),
+            "fused": ("ell_spmm", "bsr_spmm", "coo_rows"),
+            "loop": ("ell_spmm", "bsr_spmm", "coo_rows"),
             "ops.matmul": ("tile_matmul",)}
     for w, kernels in runs.items():
         counts = windows[w]
@@ -5648,6 +5668,273 @@ def bf16_kernel_entries(torch, engine, graphs, launches, build_log) -> tuple:
             ptxas=[ln for ln in ptxas_summary(log) if mark in ln],
             cases=rs))
     return problems, entries
+
+
+# ------------------------------------------------------------ COO kernel ----
+# Synthetic COO leaves shaped like the COO engine's share of the
+# Reddit- and Flickr-sized GCN graphs (registered with the labels
+# reorder): output rows, rows with entries, entries, entries after class
+# padding, the longest rows, the entries in rows of at least
+# ``COO_TAIL`` entries, and the two layers' widths (hidden, classes).
+# Short rows are geometric (a median of 6 and a p99 of 40 Reddit-like,
+# against the graph's 7 and 46; 2 and 8 Flickr-like, against 2 and 11);
+# columns are uniform over the graph, so gathered B rows hit the L2 less
+# often than on a label-ordered graph.
+COO_TAIL = 256
+COO_SHAPES = {
+    "reddit-like": dict(rows=233_024, live=232_609, entries=2_176_039,
+                        padded=2_720_256, tail=193_000, widths=(128, 41),
+                        longest=(11_308, 8_213, 6_474, 5_472, 4_814)),
+    "flickr-like": dict(rows=89_280, live=62_222, entries=137_982,
+                        padded=172_544, tail=2_717, widths=(128, 7),
+                        longest=(740,)),
+}
+# The long-row lengths the COO cases time besides the kernel's own.
+COO_LONG_ROWS = (64, 512, 2048)
+
+
+def coo_leaves(torch, h, g: int) -> tuple:
+    """A registered graph's class-padded COO leaves and its plan, stacked
+    ``g`` times, on the card: (cols, vals, plan)."""
+    from repro_torch.core.formats import plan_to, stack_plans
+
+    cols, vals = (torch.stack([x] * g).contiguous()
+                  for x in (h.part.coo.cols, h.part.coo.vals))
+    return cols, vals, plan_to(stack_plans([h.host_plan] * g), cols.device)
+
+
+def coo_cases(torch, engine, graphs):
+    """(label, case) at the main path's COO shapes: each graph's
+    class-padded COO against B of width 128 (layer 1) and n_classes
+    (layer 2), alone and stacked G = 4; case = (cols, vals, b_tiles,
+    plan, padded rows)."""
+    from repro_torch.core.formats import b_tiles_of
+
+    for name, g in graphs.items():
+        h = engine.handle(name)
+        if not h.sclass.coo_nnz:
+            continue
+        meta = h.sclass.to_meta()
+        b1 = torch.matmul(engine.prepare_x(name, g["xs"][0]), h.weights[0])
+        b2 = torch.matmul(torch.relu(b1), h.weights[1])
+        for b in (b1, b2):
+            for G in (1, GROUP):
+                cols, vals, plan = coo_leaves(torch, h, G)
+                bt = b_tiles_of(b[None].expand(G, -1, -1), meta).contiguous()
+                yield dict(graph=name, F=int(b.shape[1]), G=G), (
+                    cols, vals, bt, plan, meta.n_padded_rows)
+
+
+def coo_lengths(rng, shape: dict) -> np.ndarray:
+    """Entries a live row: ``longest``, then rows drawn log-uniform from
+    ``COO_TAIL`` up to the shortest of them until the rows of at least
+    ``COO_TAIL`` hold about ``tail`` entries, then short rows, geometric
+    and under ``COO_TAIL``, that bring the total to ``entries``."""
+    long = list(shape["longest"])
+    while shape["tail"] - sum(long) >= COO_TAIL:
+        hi = min(long[-1], shape["tail"] - sum(long))
+        long.append(max(COO_TAIL, int(np.exp(rng.uniform(
+            np.log(COO_TAIL), np.log(hi + 1))))))
+    n = shape["live"] - len(long)
+    left = shape["entries"] - sum(long)
+    short = np.clip(rng.geometric(n / left, n), 1, COO_TAIL - 1)
+    diff = left - int(short.sum())
+    room = np.flatnonzero(short < COO_TAIL - 1 if diff > 0 else short > 1)
+    short[rng.choice(room, abs(diff), replace=False)] += np.sign(diff)
+    return np.concatenate([long, short]).astype(np.int64)
+
+
+def shaped_coo_cases(torch, dev="cuda"):
+    """(label, case) at the ``COO_SHAPES``: a COO-only partition of the
+    shape's rows, its entries on random live rows in shuffled order and
+    then class padding's (0, 0, +0) triples, at both layer widths, G = 1
+    and the served group of 4; B is seeded normal (the kernel's time does
+    not depend on its values). As ``coo_cases``."""
+    from repro_torch.core import empty_ragged_ell
+    from repro_torch.core.formats import (CooResidual, DenseTiles,
+                                          PartitionMeta, TriPartition,
+                                          b_tiles_of, plan_to,
+                                          reduction_plan, stack_plans)
+
+    t = 64
+    for name, shape in COO_SHAPES.items():
+        rng = np.random.default_rng(SEED)
+        lengths = coo_lengths(rng, shape)
+        n, pad = int(lengths.sum()), shape["padded"] - int(lengths.sum())
+        rows = np.repeat(rng.choice(shape["rows"], lengths.size,
+                                    replace=False), lengths)
+        perm = rng.permutation(n)
+        rows = np.concatenate([rows[perm], np.zeros(pad, np.int64)])
+        cols = np.concatenate([rng.integers(0, shape["rows"], n),
+                               np.zeros(pad, np.int64)])
+        vals = np.concatenate([rng.standard_normal(n),
+                               np.zeros(pad)]).astype(np.float32)
+        nt = shape["rows"] // t
+        meta = PartitionMeta(shape["rows"], shape["rows"], t, (), nt, nt,
+                             0, 0, 0, 0, rows.size, (0.5, 0.01))
+        leaves = CooResidual(*(torch.from_numpy(a.astype(np.int32))
+                               for a in (rows, cols)),
+                             torch.from_numpy(vals))
+        member = reduction_plan(TriPartition(
+            DenseTiles(np.zeros((0, t, t), np.float32),
+                       np.zeros(0, np.int32), np.zeros(0, np.int32)),
+            empty_ragged_ell(device="cpu"), leaves), meta)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for f in shape["widths"]:
+            for G in (1, GROUP):
+                cols_d, vals_d = (torch.stack([x] * G).to(dev)
+                                  for x in (leaves.cols, leaves.vals))
+                plan = plan_to(stack_plans([member] * G), dev)
+                b = torch.randn((G, shape["rows"], f), generator=gen,
+                                device=dev)
+                yield dict(graph=name, F=f, G=G), (
+                    cols_d, vals_d, b_tiles_of(b, meta), plan,
+                    meta.n_padded_rows)
+
+
+def coo_case(torch, case):
+    """The flexible engine as the main path runs it: one ``coo_rows``
+    launch, each live row's messages summed in plan order and added onto
+    the rows it is given (here seeded normal rows, as the dense + ELL
+    rows).
+
+    Gates: bit for bit equal to its plain version (``coo_rows_ref``,
+    which is the unfused ``hybrid_spmm.coo_matmul`` followed by the
+    add), with the kernel's long-row threshold, with every row on the
+    short path and with every row on the long path. Yardsticks: the
+    plain version (the unfused chain, one CUDA graph) and
+    ``torch.sparse.mm`` over a CSR of the live rows' entries, then
+    ``index_add_`` onto those rows (``library_ms``). Also timed: every
+    row on the short path (``short_only_ms``) and the long-row lengths
+    of ``COO_LONG_ROWS`` (``long_row_ms``) in place of the kernel's own
+    (``long_row``)."""
+    from repro_torch.kernels import coo_spmm
+    from repro_torch.kernels.coo_spmm import coo_rows, coo_rows_cost
+    from repro_torch.kernels.ref import coo_rows_ref
+
+    cols, vals, bt, plan, p = case
+    g, nnz = cols.shape
+    nct, t, f = bt.shape[1:]
+    dev = bt.device
+    rows = plan.coo_rows
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    y = torch.randn((g, p, f), generator=gen, device=dev)
+    b3 = bt.reshape(g, nct * t, f)
+
+    def kernel(out):
+        return coo_rows(cols, vals, bt, plan.coo, rows, out, device=dev)
+
+    def at(n, fn):
+        own = coo_spmm.long_row
+        coo_spmm.long_row = lambda entries: n
+        try:
+            return fn()
+        finally:
+            coo_spmm.long_row = own
+
+    want = coo_rows_ref(cols, vals, b3, plan.coo, y.clone())
+    got = kernel(y.clone())
+    bitwise = torch.equal(got, want)
+    short_bitwise = torch.equal(at(1 << 30, lambda: kernel(y.clone())), want)
+    long_bitwise = torch.equal(at(1, lambda: kernel(y.clone())), want)
+    # torch.sparse.mm over the live rows' CSR (int32 indices), built on
+    # the host outside any timed region
+    order = plan.coo.order.cpu().numpy()
+    lengths = plan.coo.lengths.cpu().numpy()
+    seg = np.repeat(np.arange(lengths.size), lengths)
+    c = cols.cpu().numpy().reshape(-1).astype(np.int64)
+    v = vals.float().cpu().numpy().reshape(-1)
+    live_ids, pos = np.unique(seg, return_inverse=True)
+    m = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([pos, (order // nnz) * nct * t
+                                   + c[order]])),
+        torch.from_numpy(v[order]), (live_ids.size, g * nct * t),
+        check_invariants=False).coalesce().to_sparse_csr()
+    csr = torch.sparse_csr_tensor(m.crow_indices().int(),
+                                  m.col_indices().int(), m.values(),
+                                  m.shape).to(dev)
+    live_t = torch.from_numpy(live_ids).to(dev)
+    b2 = b3.reshape(g * nct * t, f).float()
+    buf, plain_buf, lib_buf = y.clone(), y.clone(), y.clone()
+    length = coo_spmm.long_row(order.size)
+    n_long = rows.n_at_least(length)
+    top = np.sort(lengths)[::-1]
+    cost = coo_rows_cost(cols, plan.coo, f, (
+        str(vals.dtype).removeprefix("torch."),
+        str(bt.dtype).removeprefix("torch.")))
+    return dict(
+        ok=bitwise and short_bitwise and long_bitwise, err=max_err(got, want),
+        bitwise=bitwise, short_bitwise=short_bitwise,
+        long_bitwise=long_bitwise, entries=int(order.size),
+        live_rows=int(live_ids.size), long_row=length, long_rows=n_long,
+        long_entries=int(top[:n_long].sum()), top=top[:4].tolist(),
+        ms=device_ms(torch, lambda: kernel(buf)),
+        call_ms=call_ms(torch, lambda: kernel(buf)),
+        short_only_ms=at(1 << 30, lambda: device_ms(torch,
+                                                    lambda: kernel(buf))),
+        long_row_ms={n: at(n, lambda: device_ms(torch, lambda: kernel(buf)))
+                     for n in COO_LONG_ROWS},
+        plain_ms=device_ms(torch, lambda: coo_rows_ref(
+            cols, vals, b3, plan.coo, plain_buf)),
+        library_ms=device_ms(torch, lambda: lib_buf.view(g * p, f).index_add_(
+            0, live_t, torch.sparse.mm(csr, b2))),
+        bound=bound(cost["hbm_bytes"], cost["flops"]))
+
+
+def coo_phase(torch, engine, graphs, launches: int, build_log) -> tuple:
+    """Hold the COO row kernel against its plain version at the main
+    path's shapes (cora, citeseer, pubmed; the first, cora at F = 128 and
+    G = 1, heads the kernel table) and at the ``COO_SHAPES``, and time
+    it; ``launches`` is the main path's count. Fails on a disagreement or
+    on a spill of any instance. Returns (problems, the kernel table's
+    entry)."""
+    from repro_torch.kernels._build import ptxas_entries
+
+    problems, rows = [], []
+    print("COO row kernel (device ms a call, as the kernels below; long "
+          "rows: at least long_row(entries) entries):")
+    for label, case in itertools.chain(coo_cases(torch, engine, graphs),
+                                       shaped_coo_cases(torch)):
+        res = coo_case(torch, case)
+        row = dict(label, **{k: res[k] for k in (
+            "ms", "call_ms", "plain_ms", "library_ms", "short_only_ms",
+            "long_row_ms", "bitwise", "short_bitwise", "long_bitwise",
+            "entries", "live_rows", "long_row", "long_rows", "long_entries",
+            "top")},
+            bound_ms=res["bound"][0], bound_by=res["bound"][1],
+            max_abs_err=res["err"])
+        rows.append(row)
+        print(f"  coo_rows {json.dumps(label):44s} kernel {res['ms']:.4f} ms "
+              f"(call {res['call_ms']:.4f}; short rows only "
+              f"{res['short_only_ms']:.4f}; long rows from "
+              f"{json.dumps(res['long_row_ms'])})  plain "
+              f"{res['plain_ms']:.4f} ms  library {res['library_ms']:.4f} "
+              f"ms  bound {res['bound'][0]:.5f} ms ({res['bound'][1]})  "
+              f"{res['entries']} entries onto {res['live_rows']} rows, "
+              f"{res['long_rows']} long from {res['long_row']} "
+              f"({res['long_entries']} entries), "
+              f"longest {res['top']}  bitwise {res['bitwise']} / short "
+              f"{res['short_bitwise']} / long {res['long_bitwise']}")
+        if not res["ok"]:
+            problems.append(f"coo_rows {label}: disagrees with its plain "
+                            f"version ({res['err']}; {row})")
+    log = build_log["coo_rows"]["log"]
+    for e in ptxas_entries(log):
+        if e["spill_stores"] or e["spill_loads"]:
+            problems.append(f"coo_rows: {e['name']} spills "
+                            f"{e['spill_stores']} / {e['spill_loads']} bytes")
+    head = rows[0]   # cora: layer 1, G=1
+    return problems, dict(
+        name="coo_rows", route="cuda",
+        source="src/repro_torch/kernels/csrc/coo_rows.cu",
+        replaces="none (src/repro/core/hybrid_spmm.py coo_matmul: jnp.take "
+                 "+ segment_sum)",
+        launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=head["library_ms"],
+        shape=", ".join(f"{k}={v}" for k, v in head.items()
+                        if k in ("graph", "F", "G")),
+        ptxas=ptxas_summary(log), cases=rows)
 
 
 KERNELS = (
@@ -6073,6 +6360,10 @@ def main() -> None:
         torch, engine, graphs, bf16_launches, log)
     problems += b16k_problems
     entries += bf16_entries
+    coo_problems, coo_entry = coo_phase(torch, engine, graphs,
+                                        counts["coo_rows"], log)
+    problems += coo_problems
+    entries.append(coo_entry)
     print(json.dumps({"e2e": e2e, "reordered": reordered,
                       "dispatch_ab": ab_rows, "lifecycle": lifecycle,
                       "xw": xw, "autotune": autotune,

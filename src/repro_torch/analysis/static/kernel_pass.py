@@ -4,8 +4,8 @@ Port of ``repro.analysis.static.kernel_pass``. The reference audits
 Pallas launch contracts against a TPU core's VMEM; the port's kernels
 are CUDA C++ for sm_90a, so the contract is a CUDA launch's: the dicts
 ``repro_torch.kernels`` launches from (``ragged_ell_contract``,
-``ell_contract``, ``matmul_contract``), audited WITHOUT launching
-anything:
+``ell_contract``, ``coo_rows_contract``, ``matmul_contract``), audited
+WITHOUT launching anything:
 
 - **grid**: every dimension >= 1, ``grid.x`` < 2^31, ``grid.y`` and
   ``grid.z`` <= 65535 (the ELL kernels put the group G on ``grid.y``);
@@ -15,8 +15,8 @@ anything:
   (a chunk's cols/vals are spread over the row's lanes).
 - **instance**: the launch shape is one of the kernel instances the
   source is built with (a candidate outside them would fail to launch);
-  the ELL kernels' instances end with their (vals, B) types, and the
-  pass audits every pair (float32 or bfloat16 each) and both matmul
+  the ELL and COO kernels' instances end with their (vals, B) types, and
+  the pass audits every pair (float32 or bfloat16 each) and both matmul
   types, so the bfloat16 instances' registers and spills are read too.
 - **index-extent**: what the kernel numbers in 32 bits (entries, units,
   plan positions, M/N/K) stays below 2^31.
@@ -57,6 +57,8 @@ from repro_torch.engine.shape_class import (ClassNeed, ShapeClass,
                                            ShapePolicy, class_fits)
 from repro_torch.kernels import _build
 from repro_torch.kernels.bands import VALUE_BANDS, band_mode, unit_bounds
+from repro_torch.kernels.coo_spmm import SHAPES as COO_SHAPES
+from repro_torch.kernels.coo_spmm import coo_rows_contract
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
                                           ragged_ell_contract)
@@ -89,6 +91,8 @@ BUILT = {
     "ell_rows_table_kernel": _RAGGED_BUILT,
     "ell_band_kernel": {shape + types for shape in itertools.product(
         TUNE_W, TUNE_VEC) for types in ELL_DTYPES},
+    "coo_rows_kernel": {shape + types for shape in COO_SHAPES
+                        for types in ELL_DTYPES},
     "matmul_kernel": set(TILES.values()),
     "wgmma_matmul_kernel": set(WG_TILES.values()),
 }
@@ -311,14 +315,22 @@ def contracts_for_class(sc: ShapeClass, f_widths: Sequence[int],
     """(contract, scalar_args) pairs the engine would launch for one
     member of ``sc`` at each feature width, with worst-case index
     stand-ins (``repro_torch.kernels.autotune.class_stand_ins``: every
-    unit on the LAST column tile at its band slot's FULL K): the ragged
-    kernel with the class's bands in the launch shape ``tune`` (clamped
-    at each width; None = the defaults), which is how the autotuner
-    audits its candidates, and the fixed-K kernel over the class's
-    buckets (one launch a layer); for each (vals, B) type pair of
-    ``ELL_DTYPES``."""
+    unit on the LAST column tile at its band slot's FULL K): the COO row
+    kernel over the class's COO capacity (every entry on B's last row,
+    every output row live), the ragged kernel with the class's bands in
+    the launch shape ``tune`` (clamped at each width; None = the
+    defaults), which is how the autotuner audits its candidates, and the
+    fixed-K kernel over the class's buckets (one launch a layer); for
+    each (vals, B) type pair of ``ELL_DTYPES``."""
     from repro_torch.kernels.autotune import class_stand_ins
     out = []
+    nb = sc.n_col_tiles * sc.tile
+    for f, (vt, bt) in itertools.product(f_widths, ELL_DTYPES):
+        if sc.coo_nnz:
+            out.append((coo_rows_contract(
+                1, sc.coo_nnz, nb, sc.n_row_tiles * sc.tile, f,
+                vals_dtype=getattr(torch, vt), b_dtype=getattr(torch, bt)),
+                (np.full((1, sc.coo_nnz), nb - 1, np.int32),)))
     if not (sc.ell_units and sc.ell_kmax):
         return out
     tile_col, cols, unit_k = class_stand_ins(sc)
@@ -341,8 +353,9 @@ def run_kernel_pass(engine=None, *, device="cuda",
                     ) -> List[Finding]:
     """Repo-level entry: audit every contract the engine's registered
     classes imply at each of ``f_widths`` (ragged kernel in each class's
-    applied tuning at that width, fixed-K kernel over the buckets; each for
-    every (vals, B) type pair of ``ELL_DTYPES``), the dense matmul
+    applied tuning at that width, fixed-K kernel over the buckets, the COO
+    row kernel over the class's COO capacity; each for every (vals, B)
+    type pair of ``ELL_DTYPES``), the dense matmul
     contract in every configuration and operand type, and every
     (member, class) fit in the engine.
     ``engine`` None builds the fixture engine on ``device``; on a card

@@ -10,10 +10,13 @@ every aten op the forward dispatches (a ``TorchDispatchMode``), and, on
 a card, a ``torch.profiler`` trace of the device. It checks:
 
 - **single-launch**: the "ragged" dispatch makes, per GCN layer, exactly
-  ONE ``ragged_ell_rows`` call and one dense-engine (``bsr_spmm_rows``)
-  call, and no fixed-K ELL call (counters); on a card also exactly one
-  ``ell_rows_kernel`` and one ``bsr_rows_kernel`` per layer, and no
-  ``ell_band_kernel``, in the profile.
+  ONE ``ragged_ell_rows`` call, one dense-engine (``bsr_spmm_rows``)
+  call and one COO-engine (``coo_rows``) call where the class holds COO
+  entries, and no fixed-K ELL call (counters); on a card also exactly
+  one ``ell_rows_kernel``, one ``bsr_rows_kernel`` and one
+  ``coo_rows_kernel`` per layer, no ``ell_band_kernel``, and none of the
+  ops the COO engine ran before its kernel (``segment_reduce``, a
+  ``gather``), in the profile.
 - **no-host-sync**: no op that reads a device value on the host
   (``item``, ``nonzero``, ``masked_select``, ``unique``, a copy to the
   CPU) inside the forward; on a card also no stream/device/event
@@ -58,10 +61,15 @@ FLOAT_OK = frozenset({torch.float32})
 
 RAGGED_WRAPPER = "ragged_ell_rows"
 DENSE_WRAPPER = "bsr_spmm_rows"
+COO_WRAPPER = "coo_rows"
 FIXED_WRAPPERS = ("ell_spmm_rows", "ell_spmm")
 RAGGED_KERNEL = "ell_rows_kernel"
 DENSE_KERNEL = "bsr_rows_kernel"
+COO_KERNEL = "coo_rows_kernel"
 FIXED_KERNEL = "ell_band_kernel"
+# the library kernels of the COO engine's plain chain (torch.gather,
+# index_select, segment_reduce), which the served forward no longer runs
+COO_PLAIN_KERNELS = ("segment_reduce", "gather")
 
 
 class OpRecorder(TorchDispatchMode):
@@ -87,10 +95,11 @@ class OpRecorder(TorchDispatchMode):
 
 # --------------------------------------------------------------- checks -----
 
-def check_single_launch(counts: dict, n_layers: int,
-                        label: str = "gcn") -> List[Finding]:
-    """Ragged dispatch: per layer one ragged ELL call and one dense-engine
-    call, and no fixed-K call (wrapper call counters)."""
+def check_single_launch(counts: dict, n_layers: int, label: str = "gcn",
+                        *, has_coo: bool = False) -> List[Finding]:
+    """Ragged dispatch: per layer one ragged ELL call, one dense-engine
+    call and, where the class holds COO entries (``has_coo``), one
+    COO-engine call, and no fixed-K call (wrapper call counters)."""
     findings: List[Finding] = []
 
     def err(msg):
@@ -103,6 +112,10 @@ def check_single_launch(counts: dict, n_layers: int,
     if counts.get(DENSE_WRAPPER, 0) != n_layers:
         err(f"expected {n_layers} dense-engine {DENSE_WRAPPER} call(s), "
             f"counted {counts.get(DENSE_WRAPPER, 0)}: {counts}")
+    want = n_layers if has_coo else 0
+    if counts.get(COO_WRAPPER, 0) != want:
+        err(f"expected {want} COO-engine {COO_WRAPPER} call(s), counted "
+            f"{counts.get(COO_WRAPPER, 0)}: {counts}")
     fixed = sum(counts.get(k, 0) for k in FIXED_WRAPPERS)
     if fixed:
         err(f"{fixed} fixed-K ELL call(s) in ragged mode: {counts}")
@@ -110,14 +123,17 @@ def check_single_launch(counts: dict, n_layers: int,
 
 
 def check_profile(kernels: dict, runtime: dict, n_layers: int, calls: int,
-                  has_dense: bool, label: str = "gcn") -> List[Finding]:
+                  has_dense: bool, label: str = "gcn", *,
+                  has_coo: bool = False) -> List[Finding]:
     """A card's profile of ``calls`` forwards: kernel launches by name
     (``kernels``), and the host's CUDA runtime calls inside the forwards
-    and the device's copies by name (``runtime``)."""
+    and the device's copies by name (``runtime``). ``has_coo``: the
+    class holds COO entries, one ``coo_rows_kernel`` a layer."""
     findings: List[Finding] = []
     want = {RAGGED_KERNEL: n_layers * calls,
             DENSE_KERNEL: n_layers * calls if has_dense else 0,
-            FIXED_KERNEL: 0}
+            COO_KERNEL: n_layers * calls if has_coo else 0,
+            FIXED_KERNEL: 0, **dict.fromkeys(COO_PLAIN_KERNELS, 0)}
     got = {k: sum(n for name, n in kernels.items() if k in name)
            for k in want}
     if got != want:
@@ -326,7 +342,8 @@ def run_launch_pass(engine=None, name: str = "lint-fixture", *,
     with rec:
         y = fn(h.part, x, h.weights, h.plan)
     counts = ops.entry_counts()
-    findings = check_single_launch(counts, n_layers)
+    has_coo = bool(h.sclass.coo_nnz)
+    findings = check_single_launch(counts, n_layers, has_coo=has_coo)
     findings += check_no_host_sync(rec.ops, label)
     findings += check_dtype_flow(
         rec.ops, x, y, n_in_rows=h.sclass.n_col_tiles * h.sclass.tile,
@@ -340,5 +357,6 @@ def run_launch_pass(engine=None, name: str = "lint-fixture", *,
         kernels, runtime = profile_forward(
             lambda: fn(h.part, x, h.weights, h.plan), calls)
         findings += check_profile(kernels, runtime, n_layers, calls,
-                                  bool(h.sclass.n_dense_tiles), label)
+                                  bool(h.sclass.n_dense_tiles), label,
+                                  has_coo=has_coo)
     return findings

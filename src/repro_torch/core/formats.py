@@ -347,19 +347,56 @@ def segment_live(member_lengths) -> np.ndarray:
     return out
 
 
+class RowOrder(NamedTuple):
+    """The live segments of a plan in launch order: the segments with the
+    most entries first, ties in ascending id (``row_order``). The COO row
+    kernel walks its rows in this order, so the longest chains start
+    first; the order changes no sum.
+
+    ``at_least[k]`` counts the segments with at least ``2**k`` entries
+    (up to the longest segment's power of two), so the first
+    ``at_least[k]`` of ``rows`` are exactly those: the kernel's wrapper
+    reads how many rows are long without reading the device.
+    """
+
+    rows: torch.Tensor   # [n_live] int64 segment ids over the group
+    at_least: tuple      # segments with >= 2**k entries, k = 0, 1, ...
+
+    def n_at_least(self, n: int) -> int:
+        """The segments with at least ``n`` entries (``n`` a power of two
+        from 1)."""
+        k = int(n).bit_length() - 1
+        if n < 1 or 1 << k != n:
+            raise ValueError(f"n_at_least: {n} is not a power of two")
+        return self.at_least[k] if k < len(self.at_least) else 0
+
+
+def row_order(lengths) -> RowOrder:
+    """The ``RowOrder`` of a plan's ``lengths`` (host numpy)."""
+    lengths = np.asarray(lengths, np.int64).reshape(-1)
+    live = np.flatnonzero(lengths)
+    rows = live[np.argsort(-lengths[live], kind="stable")]
+    top = int(lengths.max(initial=0))
+    return RowOrder(rows.astype(np.int64), tuple(
+        int((lengths >= 1 << k).sum()) for k in range(top.bit_length())))
+
+
 class ReductionPlan(NamedTuple):
     """The per-partition reductions onto output rows.
 
     ``ell_bucket_k`` [U] int32 is the K of each ELL unit's bucket of
     ``meta.ell_segments`` (``bucket_bounds``; every member of a group
     shares it): the per-K dispatches' kernel reads each unit to it.
-    Hand-built plans may leave it None.
+    ``coo_rows`` is the COO plan's ``RowOrder``, the COO row kernel's
+    launch order over the whole group. Hand-built plans may leave either
+    None (``stack_plans`` builds ``coo_rows`` from the COO plan).
     """
 
     dense: SegmentPlan   # dense tile products -> row tiles (over tile_row)
     ell: SegmentPlan     # ELL unit rows -> padded rows (sentinel dropped)
     coo: SegmentPlan     # COO products -> padded rows
     ell_bucket_k: object = None   # [U] int32 bucket K ("fused"/"loop")
+    coo_rows: object = None       # RowOrder of ``coo`` (the COO kernel)
 
 
 def segment_plan(dest: np.ndarray, n_segments: int,
@@ -476,9 +513,10 @@ def _stack_segments(segs) -> SegmentPlan:
 
 def stack_plans(plans) -> ReductionPlan:
     """Concatenate members' plans into one plan over a group axis."""
-    return ReductionPlan(
-        *(_stack_segments([p[i] for p in plans]) for i in range(3)),
-        ell_bucket_k=plans[0].ell_bucket_k)
+    dense, ell, coo = (_stack_segments([p[i] for p in plans])
+                       for i in range(3))
+    return ReductionPlan(dense, ell, coo, ell_bucket_k=plans[0].ell_bucket_k,
+                         coo_rows=row_order(coo.lengths))
 
 
 def reduction_plan(part: TriPartition, meta: PartitionMeta,
@@ -489,13 +527,12 @@ def reduction_plan(part: TriPartition, meta: PartitionMeta,
     whole group. With ``device`` the plan's index tensors are placed
     there (else they stay numpy).
     """
+    members = [part]
     if part.dense.tiles.ndim == 4:
         g = part.dense.tiles.shape[0]
         members = [TriPartition(*(type(c)(*(a[i] for a in c)) for c in part))
                    for i in range(g)]
-        plan = stack_plans([_member_plan(m, meta) for m in members])
-    else:
-        plan = _member_plan(part, meta)
+    plan = stack_plans([_member_plan(m, meta) for m in members])
     return plan if device is None else plan_to(plan, device)
 
 
@@ -508,10 +545,13 @@ def _segments_to(seg: SegmentPlan, device) -> SegmentPlan:
 
 
 def plan_to(plan: ReductionPlan, device) -> ReductionPlan:
+    rows = plan.coo_rows
     return ReductionPlan(
         *(_segments_to(s, device) for s in plan[:3]),
         ell_bucket_k=(None if plan.ell_bucket_k is None else _to_tensor(
-            plan.ell_bucket_k, np.int32, device)))
+            plan.ell_bucket_k, np.int32, device)),
+        coo_rows=None if rows is None else RowOrder(
+            _to_tensor(rows.rows, np.int64, device), rows.at_least))
 
 
 class IdentityCache:

@@ -11,7 +11,10 @@ TriPartition, dispatching each component to its engine:
                  the ``cuda`` backend the kernels also sum the unit rows
                  onto output rows and add them onto the dense engine's
                  rows (one launch a layer)
-  COO residual-> take + segment sum        (flexible engine)
+  COO residual-> take + segment sum        (flexible engine; on the
+                 ``cuda`` backend one kernel that also sums the
+                 messages onto rows and adds them onto the dense + ELL
+                 rows, one launch a layer)
 
 The three partial products add as ``(dense + ell) + coo`` on both
 backends.
@@ -27,8 +30,9 @@ layers multiply X·W in the type of X and W promoted, as the reference's
 
 Two backends:
   * ``torch`` — plain PyTorch (mirrors the reference's ``xla``).
-  * ``cuda``  — dense tiles and ELL units through the hand-written CUDA
-                kernels in ``repro_torch.kernels`` (mirrors ``pallas``);
+  * ``cuda``  — dense tiles, ELL units and the COO residual through the
+                hand-written CUDA kernels in ``repro_torch.kernels``
+                (mirrors ``pallas``, whose COO engine is plain JAX);
                 on CPU tensors the kernel wrappers run their plain
                 versions.
 
@@ -382,7 +386,10 @@ def _hybrid(part, b, meta, plan, backend, ell_dispatch, ell_tune=None,
                          f"{BACKENDS}")
     if chain is not None:
         chain.mark("ell")
-    y = y + coo_matmul(part, b, meta, plan)
+    if backend == "cuda":
+        y = kops.coo_matmul(part, b, meta, plan, y)
+    else:
+        y = y + coo_matmul(part, b, meta, plan)
     if chain is not None:
         chain.mark("coo")
     return y[:, : meta.n_rows].to(b.dtype)

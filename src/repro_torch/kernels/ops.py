@@ -6,8 +6,9 @@ kernels run for the whole group at once (CUDA tensors), or their plain
 versions run (CPU tensors). The dense engine's sum onto row tiles runs
 inside its kernel. The ELL sum onto output rows, and its add onto the
 dense engine's rows, run inside the ELL kernels too: one launch a layer
-on every dispatch. All of them add in the order of the host-built
-``ReductionPlan``.
+on every dispatch; and so do the COO engine's sum and its add onto the
+dense + ELL rows, inside the COO row kernel. All of them add in the
+order of the host-built ``ReductionPlan``.
 
 The module also reads and resets the kernels' launch counters: each
 kernel wrapper adds one to its counter where it launches its kernel,
@@ -23,6 +24,7 @@ from repro_torch.core.formats import (PartitionMeta, ReductionPlan,
 
 from . import _build
 from . import bsr_spmm as _bsr
+from . import coo_spmm as _coo
 from . import ell_spmm as _ell
 from . import tile_matmul as _mm
 
@@ -42,13 +44,14 @@ def launch_counts_by_dtype() -> dict:
         return {"bsr_spmm": dict(_bsr.launches),
                 "ragged_ell_spmm": dict(_ell.launches),
                 "ell_spmm": dict(_ell.fixed_k_launches),
-                "tile_matmul": dict(_mm.launches)}
+                "tile_matmul": dict(_mm.launches),
+                "coo_rows": dict(_coo.launches)}
 
 
 def reset_launch_counts() -> None:
     with _build.count_lock:
         for counts in (_bsr.launches, _ell.launches, _ell.fixed_k_launches,
-                       _mm.launches):
+                       _mm.launches, _coo.launches):
             for k in counts:
                 counts[k] = 0
 
@@ -147,3 +150,19 @@ def ell_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
     return _ell.ell_spmm_rows(part.ell.cols, part.ell.vals,
                               part.ell.tile_col, bt, plan.ell, yd,
                               plan.ell_bucket_k, device=b.device)
+
+
+def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
+               plan: ReductionPlan, y: torch.Tensor) -> torch.Tensor:
+    """Flexible-engine partial product added onto the dense + ELL rows
+    ``y`` [G, n_padded_rows, F] in place; returns ``y``: ONE
+    ``coo_rows`` launch for the whole group, each row's messages summed
+    from +0 in the order of ``plan.coo`` (walked in the order of
+    ``plan.coo_rows``) and added onto ``y``. That is
+    ``y + hybrid_spmm.coo_matmul(...)`` bit for bit: a row without an
+    entry keeps its bits, since the dense and ELL engines never write -0
+    (``ell_matmul``). No COO entry: ``y`` itself, no launch."""
+    if part.coo.vals.shape[-1] == 0:
+        return y
+    return _coo.coo_rows(part.coo.cols, part.coo.vals, b_tiles_of(b, meta),
+                         plan.coo, plan.coo_rows, y, device=b.device)

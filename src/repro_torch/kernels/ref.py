@@ -256,3 +256,23 @@ def ell_spmm_rows_ref(cols: torch.Tensor, vals: torch.Tensor,
     prod = _chains(cols, vals, tile_col, b_tiles, kmax, bucket_k)
     rows = segment_sum(prod.reshape(g * u * r, f), plan)
     return out.add_(rows.reshape(out.shape))
+
+
+def coo_rows_ref(cols: torch.Tensor, vals: torch.Tensor, b: torch.Tensor,
+                 plan: SegmentPlan, out: torch.Tensor) -> torch.Tensor:
+    """The flexible engine's rows added onto ``out`` in place.
+
+    cols/vals [G, nnz] (int32 B rows / float32 or bfloat16), b [G, N, F]
+    (B's rows, float32 or bfloat16), ``plan`` the COO ``SegmentPlan``
+    (entries ``g*nnz + i`` onto segments ``g*P + row``) and ``out``
+    [G, P, F] float32: each entry's message ``vals[e] * B[cols[e]]``
+    (both upcast to float32, one rounded multiply), ``segment_sum`` of
+    the messages over the plan in its order, then ``out += `` the sum.
+    Returns ``out``.
+    """
+    g, nnz = cols.shape
+    f = b.shape[-1]
+    idx = cols.long()[..., None].expand(g, nnz, f)
+    msgs = vals[..., None].float() * torch.gather(b, 1, idx).float()
+    rows = segment_sum(msgs.reshape(g * nnz, f), plan)
+    return out.add_(rows.reshape(out.shape))

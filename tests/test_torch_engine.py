@@ -127,7 +127,8 @@ def test_group_launches_counted_once_per_layer_on_cuda_only(engines):
     port.serve_batch(reqs)
     # CPU tensors take the plain versions: nothing is launched
     assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0,
-                                   "ell_spmm": 0, "tile_matmul": 0}
+                                   "ell_spmm": 0, "tile_matmul": 0,
+                                   "coo_rows": 0}
 
 
 def test_spmm_matches_reference(engines):

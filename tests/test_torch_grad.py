@@ -367,8 +367,8 @@ def test_backward_runs_the_kernel_wrappers():
     logits.square().sum().backward()
     total = kops.entry_counts()
     bwd = {k: total[k] - fwd.get(k, 0) for k in total}
-    assert fwd == {"bsr_spmm_rows": 2, "ragged_ell_rows": 2}
-    assert bwd == {"bsr_spmm_rows": 2, "ragged_ell_rows": 2}
+    assert fwd == {"bsr_spmm_rows": 2, "ragged_ell_rows": 2, "coo_rows": 2}
+    assert bwd == {"bsr_spmm_rows": 2, "ragged_ell_rows": 2, "coo_rows": 2}
 
 
 # ------------------------------------------------------------- card ----
@@ -400,3 +400,5 @@ def test_card_backward_kernels_match_the_plain_backend(name):
         p.ell.cols.shape[0] > 0 for p in both)
     assert counts["bsr_spmm"] == 2 * sum(
         p.dense.tiles.shape[0] > 0 for p in both)
+    assert counts["coo_rows"] == 2 * sum(
+        p.coo.vals.shape[0] > 0 for p in both)

@@ -147,7 +147,8 @@ def test_cpu_tensors_never_count_launches():
     bsr_spmm(*_t(*bsr_inputs(0)), device="cpu")
     ragged_ell_spmm(*_t(*ell_inputs(0)), device="cpu")
     assert ops.launch_counts() == {"bsr_spmm": 0, "ragged_ell_spmm": 0,
-                                   "ell_spmm": 0, "tile_matmul": 0}
+                                   "ell_spmm": 0, "tile_matmul": 0,
+                                   "coo_rows": 0}
 
 
 def test_default_device_raises_without_cuda():
@@ -190,7 +191,8 @@ def test_cuda_kernels_match_plain(cuda_device, f, g):
     # multiply and add rounded separately in both: bit-identical
     assert torch.equal(got, ragged_ell_spmm_ref(*eargs))
     assert ops.launch_counts() == {"bsr_spmm": 1, "ragged_ell_spmm": 1,
-                                   "ell_spmm": 0, "tile_matmul": 0}
+                                   "ell_spmm": 0, "tile_matmul": 0,
+                                   "coo_rows": 0}
 
 
 @pytest.mark.cuda
@@ -250,8 +252,8 @@ def test_cuda_fused_and_loop_launch_once_per_band(cuda_device):
         ops.reset_launch_counts()
         y = tc.hybrid_spmm(part, b, meta=meta, ell_dispatch=d)
         torch.cuda.synchronize()
-        # one fixed-K launch for all the buckets
+        # one fixed-K launch for all the buckets, one COO row launch
         assert ops.launch_counts() == {
             "bsr_spmm": 1, "ragged_ell_spmm": 0, "ell_spmm": 1,
-            "tile_matmul": 0}
+            "tile_matmul": 0, "coo_rows": int(meta.nnz_coo > 0)}
         assert torch.equal(y, ragged)

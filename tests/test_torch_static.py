@@ -211,9 +211,12 @@ class TestKernelPass:
         n_types = len(ELL_DTYPES)
         assert [c["vec"] for c in ragged] == [4] * n_types + [1] * n_types
         assert [c["dtypes"] for c in ragged] == list(ELL_DTYPES) * 2
-        # the ragged contract and the one fixed-K contract a layer
-        assert len(sc.bands) > 1
-        assert len(pairs) == 2 * n_types * 2
+        # the ragged contract and the one fixed-K contract a layer, and
+        # the COO row kernel's, at each width and type pair
+        assert len(sc.bands) > 1 and sc.coo_nnz > 0
+        coo = [c for c, _ in pairs if c["name"] == "coo_rows"]
+        assert [c["dtypes"] for c in coo] == list(ELL_DTYPES) * 2
+        assert len(pairs) == 2 * n_types * 2 + len(coo)
         for c, scalars in pairs:
             assert _errors(check_contract(c, scalar_args=scalars,
                                           ptxas_log=_log_for(c, 0))) == []
