@@ -3,9 +3,11 @@
 ``Session`` builds what a configuration serves: the graph (from the
 frozen generator), the weights and the feature pool (on the device,
 from the seed), and ``repro_torch``'s ``Engine`` with the graph
-registered. ``closed_loop`` and ``open_loop`` drive a started
-``RequestQueue`` with a mix of ``traffic``. ``run_cell`` puts these
-together as a run of the benchmark does and returns its result line.
+registered; the configuration's model module (``spec.model_of``) makes
+the inputs, registers the graph and gives the reference. ``closed_loop``
+and ``open_loop`` drive a started ``RequestQueue`` with a mix of
+``traffic``. ``run_cell`` puts these together as a run of the benchmark
+does and returns its result line.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import time
 import numpy as np
 
 from hgcn_bench import graphgen, traffic as traffic_mod, yardstick
-from hgcn_bench.reference import Reference, logit_err
+from hgcn_bench.reference import logit_err
+from hgcn_bench.spec import model_of
 
 CLOCK = time.monotonic
 # how long past the window's close a request still counts as late, not
@@ -27,38 +30,20 @@ CLOCK = time.monotonic
 LATE_S = 60.0
 # the short profiled window a traced run takes after the measured one
 PROFILE_S = 1.5
+# a reading not taken yet
+_UNSET = object()
 
 
 def log(*parts) -> None:
     print(*parts, file=sys.stderr, flush=True)
 
 
-def glorot(torch, gen, fan_in: int, fan_out: int, device):
-    lim = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand((fan_in, fan_out), generator=gen, device=device,
-                   dtype=torch.float32)
-    return u * (2.0 * lim) - lim
-
-
 def make_inputs(torch, config: dict, traffic: dict, seed: int, n: int,
                 device) -> tuple:
-    """The weights (glorot) and the feature pool (Bernoulli), made on
-    the device from the seed in a few large calls, float32."""
-    graph, model = config["graph"], config["model"]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    f_in = int(graph["n_features"])
-    dims = [f_in] + [int(model["d_hidden"])] * (int(model["n_layers"]) - 1) \
-        + [int(graph["n_classes"])]
-    weights = [glorot(torch, gen, a, b, device)
-               for a, b in zip(dims[:-1], dims[1:])]
-    p = float(traffic["feature_density"])
-    k = int(traffic["snapshots"])
-    pool = torch.empty((k, n, f_in), dtype=torch.float32, device=device)
-    for s in range(k):
-        torch.lt(torch.rand((n, f_in), generator=gen, device=device), p,
-                 out=pool[s])
-    return weights, pool
+    """The weights and the feature pool of the configuration's model,
+    made on the device from the seed (its module's ``make_inputs``)."""
+    return model_of(config).make_inputs(torch, config, traffic, seed, n,
+                                        device)
 
 
 class Session:
@@ -80,7 +65,8 @@ class Session:
         self.traffic = traffic
         self.seed = int(seed)
         self.device = torch.device(device)
-        graph, model = config["graph"], config["model"]
+        graph = config["graph"]
+        self.model = model_of(config)
         self.name = config["name"]
         t0 = time.perf_counter()
         self.atil, self.labels, cached = graphgen.load_graph(
@@ -93,15 +79,12 @@ class Session:
         if want is not None and want != self.nnz:
             raise ValueError(f"{self.name}: A_tilde has {self.nnz} nonzeros, "
                              f"the configuration states {want}")
-        self.f_in = int(graph["n_features"])
-        self.hidden = int(model["d_hidden"])
-        self.classes = int(graph["n_classes"])
         self.weights, self.pool = self.make_inputs()
         self.engine = Engine(device=self.device)
         t0 = time.perf_counter()
-        self.handle = self.engine.register(
-            self.name, csr_from_scipy(self.atil), reorder=graph["reorder"],
-            labels=self.labels, weights=self.weights)
+        self.handle = self.model.register(
+            self.engine, self.name, csr_from_scipy(self.atil), graph,
+            self.labels, self.weights)
         self._sync()
         self.register_s = time.perf_counter() - t0
 
@@ -110,8 +93,8 @@ class Session:
             self.torch.cuda.synchronize(self.device)
 
     def make_inputs(self) -> tuple:
-        return make_inputs(self.torch, self.config, self.traffic, self.seed,
-                           self.n, self.device)
+        return self.model.make_inputs(self.torch, self.config, self.traffic,
+                                      self.seed, self.n, self.device)
 
     def warm(self) -> None:
         """Build every executor and kernel the mix's batches use: one
@@ -390,7 +373,7 @@ class Context:
         self.profile = None        # the profiled window's reading
         self.notes: list = []      # lines for standard error
         self._values: dict = {}
-        self._l1 = None
+        self._l1 = _UNSET
 
     def value(self, metric: str):
         """The value of ``metric`` (its reader runs once a run)."""
@@ -400,15 +383,15 @@ class Context:
         return self._values[metric]
 
     # shared readings ---------------------------------------------------
-    def layer1_operands(self) -> tuple:
-        """Layer 1's X·W operands as the executor gets them: one
-        snapshot permuted and padded to the class's rows, [1, rows, F],
-        and the registered W1, [1, F, H]."""
-        if self._l1 is None:
-            from repro_torch.engine import Engine
+    def layer1_operands(self):
+        """Layer 1's X·W operands of one snapshot as the executor gets
+        them, ``(x, w)``, from the model module's ``layer1_operands``;
+        None where the module has none."""
+        if self._l1 is _UNSET:
             s = self.sess
-            x = Engine.prepare_x(s.engine, s.name, s.pool[0])[None]
-            self._l1 = (x, s.handle.weights[0][None])
+            hook = getattr(s.model, "layer1_operands", None)
+            self._l1 = None if hook is None else hook(
+                s.engine, s.name, s.handle, s.pool[0])
         return self._l1
 
     def latencies_ms(self) -> list:
@@ -509,7 +492,7 @@ def compare(sess: Session, kept: list) -> tuple:
     """The largest ``logit_err`` of the kept outputs against the float64
     reference of their snapshots, and how many were compared."""
     torch = sess.torch
-    ref = Reference(sess.atil, sess.device, "float64")
+    ref = sess.model.reference(sess.atil, sess.device, "float64")
     by_snap: dict = {}
     for snap, y in kept:
         by_snap.setdefault(snap, []).append(y)

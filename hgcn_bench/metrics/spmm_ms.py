@@ -1,7 +1,8 @@
 """spmm_ms: device ms of one layer-1 hybrid SpMM (F = hidden width,
 G = 1) on the registered handle, through the engine's own SpMM executor
 for the class (the dispatch, partition, plan and tuning it serves
-with), timed alone after the window."""
+with), timed alone after the window; nothing where the model module
+gives no layer-1 operands."""
 from hgcn_bench.yardstick import device_ms
 
 
@@ -11,7 +12,10 @@ def read(ctx):
         return None
     from repro_torch.core.hybrid_spmm import member_matmul
 
-    x, w = ctx.layer1_operands()
+    ops = ctx.layer1_operands()
+    if ops is None:
+        return None
+    x, w = ops
     b = member_matmul(x, w)[0]
     h = s.handle
     fn = s.engine.executors.spmm(h.sclass, int(b.shape[1]))

@@ -4,6 +4,8 @@
 vanilla GCN (H-GCN §V-A), computed from the benchmark's own CSR,
 weights and features. It imports nothing of the program: the
 comparison it serves holds the program's served logits to it.
+``Reference`` is the ``reference`` of ``models/gcn.py``; ``round_tf32``,
+``csr_tensor`` and ``logit_err`` serve every model module.
 
 ``precision="float64"`` is the reference: float64 sparse CSR products
 and float64 dense products. ``precision="tf32"`` is the control: the

@@ -12,9 +12,10 @@ or with ``--trace 1`` its per-layer metrics), ``device``, optionally
 ``breakdown``, and ``checks`` last (each compared number with its
 limit, also the last lines of standard error).
 
-Exits non-zero and prints no result without a card (or with fewer cards
-than the cell asks for), without the program beside the benchmark, or
-when JAX or the JAX package has been loaded.
+Exits non-zero and prints no result for a workload, configuration or
+model module (``models/<model.kind>.py``) it cannot find, without a card
+(or with fewer cards than the cell asks for), without the program beside
+the benchmark, or when JAX or the JAX package has been loaded.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 
-from hgcn_bench.spec import ROOT, resolve  # noqa: E402
+from hgcn_bench.spec import ROOT, model_of, resolve  # noqa: E402
 
 # top-level module names that must never be loaded by a run: JAX and the
 # JAX package the program was ported from (``repro_torch`` is not
@@ -54,6 +55,7 @@ def main(argv=None) -> int:
     args = parse(argv)
     try:
         cell = resolve(args.workload)
+        model_of(cell.config)
     except (OSError, KeyError, ValueError) as err:
         print(f"hgcn_bench: {err}", file=sys.stderr)
         return 2

@@ -1,13 +1,39 @@
 """Find a cell's files by the names in ``BENCHMARK.json``.
 
 A cell names a configuration and a traffic mix; each metric is a
-reader of its own. Their files sit at fixed places under the
-benchmark's folder, so a later cell or metric is a new file and a new
-entry, never an edit:
+reader of its own, and each configuration names its model. Their files
+sit at fixed places under the benchmark's folder, so a later cell,
+metric or model is a new file and a new entry, never an edit:
 
   configurations  the ``file`` of the ``configs`` entry
   traffic mixes   ``traffic/<traffic>.json``
-  metric readers  ``metrics/<metric name>.py``, each with ``read(ctx)``
+  metric readers  ``metrics/<metric name>.py``, each with ``read(ctx)``;
+                  ``<base>.<qualifier>`` with no file of its own is read
+                  by ``<base>``'s (the same quantity in cells that
+                  report another end-to-end metric)
+  models          ``models/<kind>.py``, ``kind`` the configuration's
+                  ``model.kind``
+
+A model module provides
+
+  ``make_inputs(torch, config, traffic, seed, n, device)``
+      ``(weights, pool)``: the weights in any structure the module
+      defines, and the feature pool ``[snapshots, n, f_in]`` float32,
+      both made on the device from the seed;
+  ``register(engine, name, csr, graph, labels, weights)``
+      the program's ``Engine.register`` called with what the model
+      needs (``csr`` the program's CSR of A_tilde, ``graph`` the
+      configuration's graph block); returns the handle;
+  ``reference(csr, device, precision)``
+      an object with ``logits(x, weights)``: the plain forward over the
+      benchmark's scipy CSR, ``precision`` "float64" (the reference) or
+      "tf32" (the control); it imports nothing of the program or JAX;
+  ``request_flops(config, n, nnz)``
+      the model FLOPs of one request on the unpadded graph;
+
+and optionally ``layer1_operands(engine, name, handle, x)``, layer 1's
+X·W operands as the executor gets them, which the ``xw_ms`` and
+``spmm_ms`` readers time (without it they read nothing).
 """
 from __future__ import annotations
 
@@ -18,6 +44,11 @@ from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
+# where ``load_model`` looks; a module constant, so a test can point it
+# at a directory of its own
+MODELS_DIR = BENCH_DIR / "models"
+# the reader and model modules loaded so far, by path
+_LOADED: dict = {}
 
 
 @dataclasses.dataclass
@@ -43,7 +74,17 @@ def traffic_path(traffic: str) -> Path:
 
 
 def reader_path(metric: str) -> Path:
-    return BENCH_DIR / "metrics" / f"{metric}.py"
+    """``metrics/<metric>.py``; a metric ``<base>.<qualifier>`` with no
+    file of its own is ``<base>`` read in other cells, by
+    ``metrics/<base>.py``."""
+    path = BENCH_DIR / "metrics" / f"{metric}.py"
+    if not path.is_file() and "." in metric:
+        return BENCH_DIR / "metrics" / f"{metric.split('.')[0]}.py"
+    return path
+
+
+def model_path(kind: str) -> Path:
+    return Path(MODELS_DIR) / f"{kind}.py"
 
 
 def metrics_of(bench: dict, workload: str) -> tuple:
@@ -78,13 +119,32 @@ def resolve(workload: str, root: Path = ROOT) -> Cell:
                 per_layer=per)
 
 
+def _load_file(prefix: str, name: str, path: Path):
+    """The module at ``path``, loaded once a process; FileNotFoundError
+    naming the path where there is none."""
+    key = str(path)
+    if key not in _LOADED:
+        if not path.is_file():
+            raise FileNotFoundError(f"no {prefix} {path} for {name!r}")
+        mod_name = f"hgcn_bench_{prefix}_" + name.replace(".", "_").replace(
+            "-", "_")
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _LOADED[key] = mod
+    return _LOADED[key]
+
+
 def load_reader(metric: str):
     """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
-    path = reader_path(metric)
-    mod_name = "hgcn_bench_metric_" + metric.replace(".", "_").replace("-", "_")
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    if spec is None:
-        raise FileNotFoundError(f"no reader {path}")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load_file("metric", metric, reader_path(metric)).read
+
+
+def load_model(kind: str):
+    """The module ``models/<kind>.py`` (``kind`` a ``model.kind``)."""
+    return _load_file("model", kind, model_path(kind))
+
+
+def model_of(config: dict):
+    """The model module of a configuration (its ``model.kind``)."""
+    return load_model(config["model"]["kind"])

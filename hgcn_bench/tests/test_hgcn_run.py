@@ -161,4 +161,4 @@ def test_cuda_one_short_run_of_the_smallest_cell():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["correct"] is True
     assert out["device"]["platform"] == "gpu" and out["device"]["count"] == 1
-    assert out["metrics"]["requests_per_s"]["value"] > 0
+    assert out["metrics"]["requests_per_s.flickr"]["value"] > 0

@@ -77,6 +77,19 @@ def arrivals(traffic: dict, seed: int, seconds: float) -> np.ndarray:
     return np.cumsum(g)
 
 
+def feature_pool(torch, gen, traffic: dict, n: int, f_in: int, device):
+    """The mix's feature pool: ``snapshots`` matrices [n, f_in] of
+    float32 Bernoulli(``feature_density``), drawn on the device from the
+    generator ``gen``, one snapshot a call."""
+    p = float(traffic["feature_density"])
+    k = int(traffic["snapshots"])
+    pool = torch.empty((k, n, f_in), dtype=torch.float32, device=device)
+    for s in range(k):
+        torch.lt(torch.rand((n, f_in), generator=gen, device=device), p,
+                 out=pool[s])
+    return pool
+
+
 class Reservoir:
     """Keeps ``k`` items of a stream, each offered item equally likely to
     stay (Algorithm R), drawn from the seed; the last item offered is
