@@ -5937,6 +5937,338 @@ def coo_phase(torch, engine, graphs, launches: int, build_log) -> tuple:
         ptxas=ptxas_summary(log), cases=rows)
 
 
+# The edge-coefficient kernels' Reddit-sized shape: the benchmark's
+# gcn-reddit graph (A + I), its rows' neighbour lists, and the served
+# GAT's head counts (layers 1-2 and 3).
+GAT_SHAPE = dict(rows=232_965, entries=11_777_543, heads=(4, 6))
+
+
+def gat_coef_case(torch, heads: int, dev="cuda") -> dict:
+    """The GAT's edge softmax outside the engines at ``GAT_SHAPE``:
+    ``gat_row_stats`` over 232 965 rows of neighbour lists (11 777 543
+    entries, row lengths geometric about their mean, columns uniform),
+    then ``gat_edge_coef`` over the entries laid out as one COO part
+    (the per-slot work is the same in every layout), ``heads`` heads,
+    scores seeded normal.
+
+    Gates: the maxima bit for bit; each denominator within 2^-23 times
+    its row's length, relative, of the plain version's (two float32 sums
+    of the same positive terms in another order: the kernel's lanes and
+    shuffles, the plain version's one chain); the coefficients within
+    1e-6 relative (CUDA's ``expf`` and PyTorch's exponential). Yardsticks: the plain versions (CUDA events
+    around one call: ``repeat_interleave`` reads its lengths on the host,
+    so they cannot be captured in a graph), and each
+    kernel's bound from its bytes (``gat_coef.row_stats_work``; for the
+    coefficients each slot's value, row, column and H outputs, and s, t
+    and m once a row and head)."""
+    from repro_torch.core.formats import (CooResidual, DenseTiles,
+                                          TriPartition, empty_ragged_ell)
+    from repro_torch.kernels import gat_coef
+    from repro_torch.kernels.ref import gat_edge_coef_ref, gat_row_stats_ref
+
+    rng = np.random.default_rng(SEED)
+    n, e = GAT_SHAPE["rows"], GAT_SHAPE["entries"]
+    lengths = rng.geometric(n / e, n)
+    lengths = np.maximum((lengths * (e / lengths.sum())).astype(np.int64), 1)
+    lengths[: e - int(lengths.sum())] += 1
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])
+                               ).to(dev)
+    e = int(lengths.sum())
+    cols = torch.from_numpy(rng.integers(0, n, e).astype(np.int32)).to(dev)
+    rows = torch.from_numpy(np.repeat(np.arange(n), lengths).astype(
+        np.int32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = torch.randn((1, n, heads), generator=gen, device=dev) * 3
+    t = torch.randn((1, n, heads), generator=gen, device=dev) * 3
+    part = TriPartition(
+        DenseTiles(*(torch.zeros(shape, dtype=dt, device=dev) for shape, dt in
+                     (((1, 0, 64, 64), torch.float32),
+                      ((1, 0), torch.int32), ((1, 0), torch.int32)))),
+        type(empty_ragged_ell(device=dev))(*(
+            x[None] for x in empty_ragged_ell(device=dev))),
+        CooResidual(rows[None], cols[None],
+                    torch.ones((1, e), dtype=torch.float32, device=dev)))
+    m, d = gat_coef.gat_row_stats(offsets, cols, s, t, 0.2, device=dev)
+    coef = gat_coef.gat_edge_coef(part, s, t, m, 0.2, 64, device=dev)[2]
+    mw, dw = gat_row_stats_ref(offsets, cols, s, t, 0.2)
+    cw = gat_edge_coef_ref(part, s, t, m, 0.2, 64)[2]
+    lens = torch.from_numpy(lengths).to(dev)[None, :, None].float()
+    d_over = float(((d - dw).abs() / (dw * lens * 2.0 ** -23)).max())
+    rel = float(((coef - cw).abs() / cw.abs().clamp_min(1e-30)).max())
+    ok = torch.equal(m, mw) and d_over <= 1.0 and rel <= 1e-6
+    stats_bytes, stats_flops = gat_coef.row_stats_work(n, e, heads)
+    coef_bytes = e * (4 + 4 + 4 + 4 * heads) + 3 * 4 * n * heads
+    return dict(
+        heads=heads, rows=n, entries=e, ok=ok, max_rel_err=rel,
+        d_err_over_bound=d_over,
+        stats_ms=device_ms(torch, lambda: gat_coef.gat_row_stats(
+            offsets, cols, s, t, 0.2, device=dev)),
+        stats_plain_ms=call_ms(torch, lambda: gat_row_stats_ref(
+            offsets, cols, s, t, 0.2)),
+        stats_bound=bound(stats_bytes, stats_flops),
+        coef_ms=device_ms(torch, lambda: gat_coef.gat_edge_coef(
+            part, s, t, m, 0.2, 64, device=dev)),
+        coef_plain_ms=call_ms(torch, lambda: gat_edge_coef_ref(
+            part, s, t, m, 0.2, 64)),
+        coef_bound=bound(coef_bytes, 6.0 * e * heads))
+
+
+def gat_coef_phase(torch, build_log, launches: dict, dev="cuda") -> tuple:
+    """Hold the edge-coefficient kernels against their plain versions at
+    ``GAT_SHAPE`` for each head count, and time them and their bounds.
+    Fails on a disagreement or on a spill of any instance. ``launches``:
+    each kernel's launches in one served GAT request
+    (``gat_served_phase``). Returns (problems, the kernel table's
+    entry)."""
+    from repro_torch.kernels._build import ptxas_entries
+
+    problems, rows = [], []
+    print("GAT edge-coefficient kernels (device ms a call, Reddit-sized):")
+    for h in GAT_SHAPE["heads"]:
+        r = gat_coef_case(torch, h, dev)
+        rows.append(r)
+        print(f"  heads {h}: row stats {r['stats_ms']:.4f} ms (plain "
+              f"{r['stats_plain_ms']:.4f}, bound {r['stats_bound'][0]:.4f} "
+              f"{r['stats_bound'][1]})  coefficients {r['coef_ms']:.4f} ms "
+              f"(plain {r['coef_plain_ms']:.4f}, bound "
+              f"{r['coef_bound'][0]:.4f} {r['coef_bound'][1]})  "
+              f"{r['entries']} entries, coefficients' max rel err "
+              f"{r['max_rel_err']:.3g}, denominators' err / bound "
+              f"{r['d_err_over_bound']:.3g}")
+        if not r["ok"]:
+            problems.append(f"gat_coef heads {h}: disagrees with its plain "
+                            f"version ({r})")
+    log = build_log["gat_coef"]["log"]
+    for e in ptxas_entries(log):
+        if e["spill_stores"] or e["spill_loads"]:
+            problems.append(f"gat_coef: {e['name']} spills "
+                            f"{e['spill_stores']} / {e['spill_loads']} bytes")
+    head = rows[0]
+    return problems, dict(
+        name="gat_coef", route="cuda",
+        source="src/repro_torch/kernels/csrc/gat_coef.cu",
+        replaces="none (the reference serves the GCN alone)",
+        launches=launches, ms=head["stats_ms"] + head["coef_ms"],
+        plain_ms=head["stats_plain_ms"] + head["coef_plain_ms"],
+        bound_ms=head["stats_bound"][0] + head["coef_bound"][0],
+        shape=f"rows={head['rows']}, entries={head['entries']}, "
+              f"heads={head['heads']}",
+        ptxas=ptxas_summary(log), cases=rows)
+
+
+# The served GAT at the paper's inductive widths, as the benchmark's
+# gat-reddit configuration: (heads, head width, concat, ELU, skip) a
+# layer; 41 is Reddit's class count.
+GAT_LAYERS = ((4, 256, True, True, False), (4, 256, True, True, True),
+              (6, 41, False, False, False))
+# float32 logits against the float64 plain forward, max |y - ref| over
+# max |ref| (the gat-reddit configuration's limit)
+GAT_LOGIT_ERR = 2e-5
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal float32 tensors, the sign of zero included."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def gat_served_phase(torch, dev="cuda", scale: float = 1.0) -> tuple:
+    """The GAT served through ``Engine.register(..., model="gat")`` at
+    ``GAT_LAYERS`` on the program's Reddit-sized graph (232 965
+    vertices, density 0.0004, labels reorder), then its kernels on the
+    registered partition.
+
+    Gates: the partition fills all three layouts; one launch of each
+    engine kernel and of each edge-coefficient kernel a layer, for
+    ``infer`` and for a group of two (``serve_group``), the counters set
+    to 0 just before each; each member of the group bitwise its own
+    ``infer``; the logits within ``GAT_LOGIT_ERR`` of the float64 plain
+    forward (``models.gat_ref``). Then, at each served (H, F') = (4, 256)
+    and (6, 41), with seeded scores and B over the registered partition:
+    the edge-coefficient kernels against their plain versions in all
+    three layouts (row maxima bit for bit, each denominator within
+    2^-23 times its row's length, relative, zero where a row has no
+    neighbour; the coefficients within 1e-6 relative and zero exactly
+    where the layout holds no entry); the multi-head ELL and COO engines
+    bitwise their plain versions (``ragged_ell_rows_ref``,
+    ``coo_rows_ref``) a head at a time, on the head's values and
+    columns (a head's columns depend on that head alone, and at F = 1024
+    the ELL plain version would gather 40 GB of B tiles at once); the
+    multi-head dense engine bitwise the
+    single-value kernel run on each head's columns and within
+    ``KERNEL_TOL`` of its plain version (``bsr_heads_ref``, which adds
+    each 64-term dot product in another order, as ``bsr_case`` says);
+    one launch of each engine. ``scale`` < 1 shrinks the graph. Returns
+    (problems, record)."""
+    from repro_torch.core.formats import b_tiles_of
+    from repro_torch.core.gat import GatLayer
+    from repro_torch.data.graphs import make_paper_dataset
+    from repro_torch.engine import Engine
+    from repro_torch.kernels import gat_coef, ops
+    from repro_torch.kernels.ref import (bsr_spmm_rows_ref, coo_rows_ref,
+                                         gat_edge_coef_ref,
+                                         gat_row_stats_ref,
+                                         ragged_ell_rows_ref)
+    from repro_torch.models.gat_ref import gat_forward_ref
+
+    t_phase = time.perf_counter()
+    problems, dev, name = [], torch.device(dev), "reddit-gat"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    csr, x0, _, st = make_paper_dataset("reddit", scale=scale, seed=SEED)
+    labels = make_paper_dataset.last_labels
+    rng = np.random.default_rng(SEED)
+    layers, f = [], st.n_features
+    for heads, width, concat, elu, skip in GAT_LAYERS:
+        layers.append(GatLayer(glorot(rng, f, heads * width),
+                               glorot(rng, heads, width),
+                               glorot(rng, heads, width), concat=concat,
+                               elu=elu, skip=skip))
+        f = heads * width if concat else width
+    engine = Engine(device=dev)
+    t0 = time.perf_counter()
+    h = engine.register(name, csr, reorder="labels", labels=labels,
+                        weights=layers, model="gat")
+    register_s = time.perf_counter() - t0
+    layouts = dict(dense_tiles=int(h.meta.n_dense_tiles),
+                   ell_entries=int(h.meta.nnz_ell),
+                   coo_entries=int(h.meta.nnz_coo))
+    if not all(layouts.values()):
+        problems.append(f"gat: a layout of the Reddit partition is empty "
+                        f"({layouts})")
+    xs = [x0, (rng.random(x0.shape) < 0.05).astype(np.float32)]
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        gat_coef.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = dict(ops.launch_counts())
+        c.update({f"gat_{k}": v for k, v in gat_coef.launches.items()})
+        return out, c
+
+    n_layers = len(GAT_LAYERS)
+    want = dict(bsr_spmm=n_layers, ragged_ell_spmm=n_layers, ell_spmm=0,
+                tile_matmul=0, coo_rows=n_layers, gat_row_stats=n_layers,
+                gat_edge_coef=n_layers)
+    y1, c_infer = counted(lambda: engine.infer(name, xs[0]))
+    ys, c_group = counted(lambda: engine.serve_group(
+        [(name, x) for x in xs]))
+    for what, c in (("infer", c_infer), ("serve_group of 2", c_group)):
+        if c != want:
+            problems.append(f"gat: {what} launches {c}, want {want}")
+    group_bitwise = same_bits(ys[0], y1) and same_bits(
+        ys[1], engine.infer(name, xs[1]))
+    if not group_bitwise:
+        problems.append("gat: a member of serve_group is not bitwise its "
+                        "own infer")
+    ref = gat_forward_ref(csr.indptr, csr.indices,
+                          torch.from_numpy(xs[0]).to(dev), layers,
+                          dtype=torch.float64)
+    logit_err = float((y1.double() - ref).abs().max() / ref.abs().max())
+    if not logit_err <= GAT_LOGIT_ERR:
+        problems.append(f"gat: logits {logit_err:.3g} from the float64 "
+                        f"plain forward (limit {GAT_LOGIT_ERR})")
+    del ref, ys
+    x_dev = torch.from_numpy(xs[0]).to(dev)
+    infer_ms = wall_ms(torch, lambda: engine.infer(name, x_dev))
+
+    part = type(h.part)(*(type(c)(*(a[None] for a in c)) for c in h.part))
+    meta, plan, p = h.padded_meta, h.plan, h.padded_meta.n_padded_rows
+    lengths = torch.as_tensor(np.diff(h.host_rows.offsets)).to(dev)
+    lengths = lengths[None, :, None].float()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = []
+    for heads, width in ((4, 256), (6, 41)):
+        f = heads * width
+        s = torch.randn((1, p, heads), generator=gen, device=dev) * 3
+        t = torch.randn((1, p, heads), generator=gen, device=dev) * 3
+        mx, d = gat_coef.gat_row_stats(h.rows.offsets, h.rows.cols, s, t,
+                                       0.2, device=dev)
+        coef = gat_coef.gat_edge_coef(part, s, t, mx, 0.2, meta.tile,
+                                      device=dev)
+        mw, dw = gat_row_stats_ref(h.rows.offsets, h.rows.cols, s, t, 0.2)
+        live = dw > 0
+        d_over = float(torch.where(
+            live, (d - dw).abs() / (dw * lengths * 2.0 ** -23), 0.0).max())
+        stats_ok = (torch.equal(mx, mw) and d_over <= 1.0
+                    and bool((d[~live] == 0).all()))
+        coef_rel, zeros_ok = {}, True
+        for what, got, exp in zip(("dense", "ell", "coo"), coef,
+                                  gat_edge_coef_ref(part, s, t, mx, 0.2,
+                                                    meta.tile)):
+            zeros_ok = zeros_ok and torch.equal(got == 0, exp == 0)
+            coef_rel[what] = float(((got - exp).abs()
+                                    / exp.abs().clamp_min(1e-30)).max())
+        coef_ok = zeros_ok and max(coef_rel.values()) <= 1e-6
+        b = torch.randn((1, p, f), generator=gen, device=dev)
+        zeros = torch.zeros((1, p, f), device=dev)
+        ops.reset_launch_counts()
+        yd = ops.dense_heads_matmul(part, coef[0], b, meta, plan)
+        ye = ops.ell_heads_matmul(part, coef[1], b, meta, plan, zeros.clone())
+        yc = ops.coo_heads_matmul(part, coef[2], b, meta, plan, zeros.clone())
+        torch.cuda.synchronize()
+        engine_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        ell_bitwise = coo_bitwise = dense_bitwise = True
+        for k in range(heads):
+            cols = slice(k * width, (k + 1) * width)
+            bk = b[..., cols].contiguous()
+            zk = torch.zeros((1, p, width), device=dev)
+            ell_bitwise = ell_bitwise and same_bits(
+                ye[..., cols].contiguous(), ragged_ell_rows_ref(
+                    part.ell.cols, coef[1][..., k:k + 1], part.ell.tile_col,
+                    part.ell.unit_k, b_tiles_of(bk, meta), plan.ell,
+                    zk.clone(), segments=tuple(meta.ell_segments)))
+            coo_bitwise = coo_bitwise and same_bits(
+                yc[..., cols].contiguous(), coo_rows_ref(
+                    part.coo.cols, coef[2][..., k:k + 1], bk, plan.coo,
+                    zk.clone()))
+            one = type(part)(part.dense._replace(
+                tiles=coef[0][:, :, k].contiguous()), part.ell, part.coo)
+            dense_bitwise = dense_bitwise and same_bits(
+                yd[..., cols].contiguous(), ops.dense_tiles_matmul(
+                    one, bk, meta, plan))
+        bt = b_tiles_of(b, meta)
+        want_d = bsr_spmm_rows_ref(coef[0], part.dense.tile_col, bt,
+                                   plan.dense).reshape(yd.shape)
+        scale = bsr_spmm_rows_ref(coef[0].abs(), part.dense.tile_col,
+                                  bt.abs(), plan.dense).reshape(yd.shape)
+        dense_close = bool(((yd - want_d).abs() <= KERNEL_TOL["atol"]
+                            + KERNEL_TOL["rtol"] * scale).all())
+        row = dict(heads=heads, width=width, stats_ok=stats_ok,
+                   d_err_over_bound=d_over, coef_max_rel_err=coef_rel,
+                   coef_zeros_ok=zeros_ok, dense_bitwise=dense_bitwise,
+                   dense_close=dense_close,
+                   dense_err=max_err(yd, want_d), ell_bitwise=ell_bitwise,
+                   coo_bitwise=coo_bitwise, launches=engine_launches)
+        cases.append(row)
+        print(f"  gat (H, F') = ({heads}, {width}): " + json.dumps(row))
+        bad = [k for k in ("stats_ok", "dense_bitwise", "dense_close",
+                           "ell_bitwise", "coo_bitwise") if not row[k]]
+        if not coef_ok:
+            bad.append("coefficients")
+        if engine_launches != {"bsr_spmm": 1, "ragged_ell_spmm": 1,
+                               "coo_rows": 1}:
+            bad.append(f"launches {engine_launches}")
+        if bad:
+            problems.append(f"gat ({heads}, {width}) on the Reddit "
+                            f"partition: {bad}")
+        del coef, b, yd, ye, yc, bt, want_d, scale, zeros
+    record = dict(
+        graph="reddit", n=int(h.n_rows), nnz=int(csr.indices.shape[0]),
+        register_s=register_s, phases=dict(h.phases), layouts=layouts,
+        split_rows=dict(h.split_rows), class_=h.sclass.summary(),
+        launches={"infer": c_infer, "group2": c_group},
+        group_bitwise=group_bitwise, logit_err=logit_err,
+        infer_ms=infer_ms, cases=cases,
+        peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+        phase_s=time.perf_counter() - t_phase)
+    del engine, h, part, x_dev, y1
+    torch.cuda.empty_cache()
+    return problems, record
+
+
 KERNELS = (
     ("ragged_ell_spmm", "src/repro_torch/kernels/csrc/ragged_ell_spmm.cu",
      "src/repro/kernels/ell_spmm.py:433", ell_case, "ell"),
@@ -6364,6 +6696,15 @@ def main() -> None:
                                         counts["coo_rows"], log)
     problems += coo_problems
     entries.append(coo_entry)
+    gs_problems, gat_served = gat_served_phase(torch)
+    problems += gs_problems
+    print(f"gat served ({smi}): " + json.dumps(
+        {k: v for k, v in gat_served.items() if k != "cases"}))
+    gat_problems, gat_entry = gat_coef_phase(
+        torch, log, launches={k: gat_served["launches"]["infer"][k]
+                              for k in ("gat_row_stats", "gat_edge_coef")})
+    problems += gat_problems
+    entries.append(gat_entry)
     print(json.dumps({"e2e": e2e, "reordered": reordered,
                       "dispatch_ab": ab_rows, "lifecycle": lifecycle,
                       "xw": xw, "autotune": autotune,

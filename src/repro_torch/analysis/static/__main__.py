@@ -91,8 +91,9 @@ def main(argv=None) -> int:
             engine = fixture_engine(device=device)
         if pass_name == "launch":
             from repro_torch.analysis.static.launch_pass import (
-                run_launch_pass)
+                run_gat_launch_pass, run_launch_pass)
             report.extend(run_launch_pass(engine))
+            report.extend(run_gat_launch_pass(device=device))
         else:
             from repro_torch.analysis.static.kernel_pass import (
                 run_kernel_pass)

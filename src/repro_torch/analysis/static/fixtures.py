@@ -21,6 +21,9 @@ FIXTURE_N = 256
 FIXTURE_F_IN = 48       # deliberately not a multiple of 4 x 32 features
 FIXTURE_F_HID = 32
 FIXTURE_F_OUT = 8
+# the GAT fixture: a layer of 4 heads x 8 concatenated, then 6 heads x 3
+# averaged (head widths that are and are not whole 16-byte rows)
+FIXTURE_GAT_HEADS = ((4, 8), (6, 3))
 
 
 def fixture_adjacency(n: int = FIXTURE_N, seed: int = 7) -> np.ndarray:
@@ -68,3 +71,34 @@ def fixture_x(n_cols: int, f_in: int = FIXTURE_F_IN,
               seed: int = 13) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n_cols, f_in)).astype(np.float32)
+
+
+def fixture_gat_layers(f_in: int = FIXTURE_F_IN, seed: int = 17) -> list:
+    """The GAT fixture's layers (``core.gat.GatLayer``): the heads and
+    widths of ``FIXTURE_GAT_HEADS``, ELU then none, the last averaged."""
+    from repro_torch.core.gat import GatLayer
+
+    rng = np.random.default_rng(seed)
+    out, f = [], f_in
+    for i, (h, fh) in enumerate(FIXTURE_GAT_HEADS):
+        last = i == len(FIXTURE_GAT_HEADS) - 1
+        out.append(GatLayer(
+            (rng.standard_normal((f, h * fh)) / np.sqrt(f)).astype(
+                np.float32),
+            rng.standard_normal((h, fh)).astype(np.float32),
+            rng.standard_normal((h, fh)).astype(np.float32),
+            concat=not last, elu=not last))
+        f = h * fh
+    return out
+
+
+def fixture_gat_engine(device="cuda", name: str = "lint-fixture-gat",
+                       **engine_kw) -> Engine:
+    """An Engine on ``device`` with the fixture graph (as A + I's
+    pattern) registered as a GAT of ``fixture_gat_layers``."""
+    eng = Engine(device=device, **engine_kw)
+    a = fixture_adjacency()
+    a = ((a != 0) | np.eye(a.shape[0], dtype=bool)).astype(np.float32)
+    eng.register(name, csr_from_dense(a), weights=fixture_gat_layers(),
+                 model="gat")
+    return eng

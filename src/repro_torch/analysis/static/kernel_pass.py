@@ -57,11 +57,14 @@ from repro_torch.engine.shape_class import (ClassNeed, ShapeClass,
                                            ShapePolicy, class_fits)
 from repro_torch.kernels import _build
 from repro_torch.kernels.bands import VALUE_BANDS, band_mode, unit_bounds
+from repro_torch.kernels import gat_coef
 from repro_torch.kernels.coo_spmm import SHAPES as COO_SHAPES
-from repro_torch.kernels.coo_spmm import coo_rows_contract
+from repro_torch.kernels.coo_spmm import (coo_rows_contract,
+                                          coo_rows_heads_contract)
 from repro_torch.kernels.ell_spmm import (INDEX_LIMIT, TUNE_KC, TUNE_THREADS,
                                           TUNE_VEC, TUNE_W, ell_contract,
-                                          ragged_ell_contract)
+                                          ragged_ell_contract,
+                                          ragged_ell_heads_contract)
 from repro_torch.kernels.tile_matmul import (CONFIGS, TILES, WG_TILES,
                                              matmul_contract)
 
@@ -83,9 +86,16 @@ ELL_DTYPES = tuple(itertools.product(("float32", "bfloat16"), repeat=2))
 MATMUL_DTYPES = (torch.float32, torch.bfloat16)
 
 # The kernel instances each source is built with (the ELL kernels' launch
-# shapes followed by their (vals, B) type names).
+# shapes followed by their (vals, B) type names; the multi-head instances'
+# default shapes followed by the head count).
 _RAGGED_BUILT = {shape + types for shape in itertools.product(
     TUNE_W, TUNE_VEC, TUNE_KC, TUNE_THREADS) for types in ELL_DTYPES}
+_HEADS_BUILT = {(w, vec, h) for w, vec in ((8, 1), (16, 1), (32, 1), (32, 4))
+                for h in _build.HEADS}
+# The multi-head widths audited for each head count: a head of 256
+# features (16-byte rows) and one of 41 (one element a lane), the
+# served GAT's two.
+HEAD_WIDTHS = (256, 41)
 BUILT = {
     "ell_rows_kernel": _RAGGED_BUILT,
     "ell_rows_table_kernel": _RAGGED_BUILT,
@@ -93,6 +103,12 @@ BUILT = {
         TUNE_W, TUNE_VEC) for types in ELL_DTYPES},
     "coo_rows_kernel": {shape + types for shape in COO_SHAPES
                         for types in ELL_DTYPES},
+    "ell_rows_heads_kernel": _HEADS_BUILT,
+    "ell_rows_heads_table_kernel": _HEADS_BUILT,
+    "coo_rows_heads_kernel": {shape + (h,) for shape in COO_SHAPES
+                              for h in _build.HEADS},
+    "gat_row_stats_kernel": {(h,) for h in _build.HEADS},
+    "gat_edge_coef_kernel": {(h,) for h in _build.HEADS},
     "matmul_kernel": set(TILES.values()),
     "wgmma_matmul_kernel": set(WG_TILES.values()),
 }
@@ -347,6 +363,31 @@ def contracts_for_class(sc: ShapeClass, f_widths: Sequence[int],
     return out
 
 
+def heads_contracts_for_class(sc: ShapeClass, heads: int,
+                              f: int) -> List[tuple]:
+    """(contract, scalar_args) pairs a GAT layer of ``heads`` heads and
+    ``f`` features (H * F') launches for one member of ``sc``: the
+    multi-head COO row kernel and ragged ELL kernel (worst-case index
+    stand-ins as ``contracts_for_class``), the row statistics over every
+    padded row and the edge coefficients over the class's slots."""
+    from repro_torch.kernels.autotune import class_stand_ins
+    out = []
+    nb = sc.n_col_tiles * sc.tile
+    p = sc.n_row_tiles * sc.tile
+    if sc.coo_nnz:
+        out.append((coo_rows_heads_contract(1, sc.coo_nnz, nb, p, f, heads),
+                    (np.full((1, sc.coo_nnz), nb - 1, np.int32),)))
+    if sc.ell_units and sc.ell_kmax:
+        out.append((ragged_ell_heads_contract(
+            1, sc.ell_units, sc.r_block, sc.ell_kmax, sc.n_col_tiles,
+            sc.tile, f, heads, segments=sc.bands), class_stand_ins(sc)))
+    slots = (sc.n_dense_tiles * sc.tile * sc.tile
+             + sc.ell_units * sc.r_block * sc.ell_kmax + sc.coo_nnz)
+    out.append((gat_coef.row_stats_contract(p, heads), ()))
+    out.append((gat_coef.edge_coef_contract(slots, heads), ()))
+    return out
+
+
 def run_kernel_pass(engine=None, *, device="cuda",
                     policy: Optional[ShapePolicy] = None,
                     f_widths: Optional[Sequence[int]] = None
@@ -383,6 +424,13 @@ def run_kernel_pass(engine=None, *, device="cuda",
                 tune = engine.executors.tuned_for(h.sclass, f) or None
                 for contract, scalars in contracts_for_class(
                         h.sclass, (f,), tune):
+                    findings.extend(check_contract(contract,
+                                                   scalar_args=scalars))
+            # the multi-head instances a GAT over this class launches
+            for heads, width in itertools.product(_build.HEADS,
+                                                  HEAD_WIDTHS):
+                for contract, scalars in heads_contracts_for_class(
+                        h.sclass, heads, heads * width):
                     findings.extend(check_contract(contract,
                                                    scalar_args=scalars))
         if h.need is not None:

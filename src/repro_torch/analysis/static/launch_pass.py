@@ -59,6 +59,12 @@ SYNC_CALLS = frozenset({"cudaStreamSynchronize", "cudaDeviceSynchronize",
                         "cudaEventSynchronize", "cudaMemcpy"})
 FLOAT_OK = frozenset({torch.float32})
 
+# the GAT's wrappers and kernels (``core.gat``), one call of each a layer
+GAT_WRAPPERS = ("gat_row_stats", "gat_edge_coef", "bsr_spmm_rows_heads",
+                "ragged_ell_rows_heads", "coo_rows")
+GAT_KERNELS = ("gat_row_stats_kernel", "gat_edge_coef_kernel",
+               "bsr_heads_kernel", "ell_rows_heads_kernel",
+               "coo_rows_heads_kernel")
 RAGGED_WRAPPER = "ragged_ell_rows"
 DENSE_WRAPPER = "bsr_spmm_rows"
 COO_WRAPPER = "coo_rows"
@@ -359,4 +365,87 @@ def run_launch_pass(engine=None, name: str = "lint-fixture", *,
         findings += check_profile(kernels, runtime, n_layers, calls,
                                   bool(h.sclass.n_dense_tiles), label,
                                   has_coo=has_coo)
+    return findings
+
+
+def check_gat_launches(counts: dict, n_layers: int, has_coo: bool,
+                       label: str = "gat") -> List[Finding]:
+    """A GAT forward of multi-head layers: per layer one call of each of
+    ``GAT_WRAPPERS`` (the COO engine's where the class holds COO
+    entries), none of the single-value ELL wrappers and no fixed-K
+    call (wrapper call counters)."""
+    want = {w: n_layers for w in GAT_WRAPPERS}
+    want["coo_rows"] = n_layers if has_coo else 0
+    want[RAGGED_WRAPPER] = 0
+    want.update(dict.fromkeys(FIXED_WRAPPERS, 0))
+    got = {w: counts.get(w, 0) for w in want}
+    if got == want:
+        return []
+    return [Finding("launch", "single-launch", "error", label,
+                    f"expected calls {want}, counted {got}")]
+
+
+def check_gat_profile(kernels: dict, n_layers: int, calls: int,
+                      has_coo: bool, label: str = "gat") -> List[Finding]:
+    """A card's profile of ``calls`` GAT forwards: one launch of each of
+    ``GAT_KERNELS`` a layer (the COO one where the class holds COO
+    entries), and none of the single-value ELL kernel."""
+    want = {k: n_layers * calls for k in GAT_KERNELS}
+    want["coo_rows_heads_kernel"] = n_layers * calls if has_coo else 0
+    got = {k: sum(n for name, n in kernels.items() if k in name)
+           for k in want}
+    got[RAGGED_KERNEL + "<"] = sum(n for name, n in kernels.items()
+                                   if RAGGED_KERNEL + "<" in name)
+    want[RAGGED_KERNEL + "<"] = 0
+    if got == want:
+        return []
+    return [Finding("launch", "single-launch", "error", label,
+                    f"profiled launches {got}, want {want}")]
+
+
+def run_gat_launch_pass(engine=None, name: str = "lint-fixture-gat", *,
+                        device="cuda") -> List[Finding]:
+    """The GAT's dispatch (``ExecutorCache.gat`` over the fixture graph
+    as a GAT, ``fixtures.fixture_gat_engine``): one call of each engine's
+    multi-head wrapper and of the edge-coefficient wrappers a layer, no
+    host sync, float32 throughout, the class's padded rows out with
+    every padding row 0; on a card the profile's launches."""
+    from repro_torch.analysis.static.fixtures import (fixture_gat_engine,
+                                                      fixture_x)
+    if engine is None:
+        engine = fixture_gat_engine(device=device)
+    h = engine.handle(name)
+    f_in = int(h.weights[0].shape[0])
+    fn = engine.executors.gat(h.sclass, f_in, tuple(
+        tuple(w.shape) for w in h.weights), h.gat)
+    x = engine.prepare_x(name, fixture_x(h.meta.n_cols, f_in))
+    n_layers = len(h.gat.heads)
+    label = "gat-executor"
+
+    def run():
+        return fn(h.part, x, h.weights, h.plan, h.rows)
+
+    run()                                     # build and warm outside
+    rec = OpRecorder()
+    ops.reset_entry_counts()
+    with rec:
+        y = run()
+    has_coo = bool(h.sclass.coo_nnz)
+    findings = check_gat_launches(ops.entry_counts(), n_layers, has_coo,
+                                  label)
+    findings += check_no_host_sync(rec.ops, label)
+    findings += check_dtype_flow(
+        rec.ops, x, y, n_in_rows=h.sclass.n_col_tiles * h.sclass.tile,
+        n_out_rows=h.padded_meta.n_padded_rows, f_out=h.gat.out_width,
+        n_rows=h.meta.n_rows, label=label)
+    if not bool(torch.isfinite(y).all()) or bool(
+            (y[h.meta.n_rows:] != 0).any()):
+        findings.append(Finding("launch", "sentinel-safety", "error", label,
+                                "class padding rows of the GAT's logits "
+                                "are not all 0 (or a logit is not finite)"))
+    if engine.device.type == "cuda":
+        calls = 2
+        kernels, _ = profile_forward(run, calls)
+        findings += check_gat_profile(kernels, n_layers, calls, has_coo,
+                                      label)
     return findings

@@ -26,6 +26,7 @@ from __future__ import annotations
 import collections
 import threading
 
+from repro_torch.core.gat import gat_forward
 from repro_torch.core.hybrid_spmm import (EVERY_WIDTH, gcn_forward,
                                          hybrid_spmm, tune_at)
 from repro_torch.kernels.ops import check_ell_dispatch
@@ -322,6 +323,41 @@ class ExecutorCache:
         with self._lock:
             key = self._gcn_key(sc, f_in, w_shapes) + ("batch", batch)
             return self._get(key, lambda: self._gcn_build(sc))
+
+    # ------------------------------------------------------------- gat -----
+    def _gat_key(self, sc, f_in, w_shapes, spec):
+        return ("gat", sc, f_in, w_shapes, spec, self.backend)
+
+    def _gat_build(self, sc, spec):
+        meta = sc.to_meta()
+        backend, device = self.backend, self.device
+
+        def fwd(part, x, weights, plan, rows, chain=None):
+            return gat_forward(part, x, weights, spec, meta=meta, plan=plan,
+                               rows=rows, backend=backend, device=device,
+                               chain=chain)
+        return fwd
+
+    def gat(self, sc: ShapeClass, f_in: int, w_shapes: tuple, spec):
+        """Executor for the GAT forward (``core.gat.gat_forward``) over
+        one padded graph of ``spec``'s structure.
+
+        Signature: fn(part, x[n_cols_padded, f_in], weights, plan, rows,
+        chain=None) -> logits[n_rows_padded, spec.out_width]; ``rows``
+        the graph's placed ``RowLists``. The ELL engine runs the ragged
+        dispatch at its default launch shape whatever the cache's
+        dispatch and tuning."""
+        with self._lock:
+            return self._get(self._gat_key(sc, f_in, w_shapes, spec),
+                             lambda: self._gat_build(sc, spec))
+
+    def gat_batched(self, sc: ShapeClass, f_in: int, w_shapes: tuple, spec,
+                    batch: int):
+        """GAT executor over a stacked class group of ``batch`` graphs
+        (leaves, ``x``, weights and the row lists stacked)."""
+        with self._lock:
+            key = self._gat_key(sc, f_in, w_shapes, spec) + ("batch", batch)
+            return self._get(key, lambda: self._gat_build(sc, spec))
 
     def summary(self) -> str:
         with self._lock:

@@ -7,6 +7,10 @@ Port of ``repro.engine.serving``. Request path:
              padded partition, plan and weights on the device once.
   online   — ``spmm`` / ``infer``: pad the request features, run the
              class's cached executor, slice + un-permute the output.
+             The model is the GCN, or a GAT registered with
+             ``model="gat"`` (``core.gat``): the same classes, plans and
+             queue, its own executor (``ExecutorCache.gat``), each bound
+             to the handle at ``register`` (``engine.models``).
            — ``serve_batch``: group requests by (shape class, widths),
              then ``serve_group`` stacks each group and runs it with one
              launch of each kernel per layer.
@@ -50,6 +54,7 @@ from repro_torch.core.formats import (CSRMatrix, PartitionMeta,
                                       ReductionPlan, TriPartition,
                                       partition_to, plan_to, reduction_plan,
                                       stack_plans, to_numpy)
+from repro_torch.core.gat import GatSpec, RowLists
 from repro_torch.core.hybrid_spmm import BACKENDS
 from repro_torch.core.partition import PartitionConfig, analyze_and_partition
 from repro_torch.core.reorder import reorder as reorder_csr
@@ -63,6 +68,7 @@ from repro_torch.serving.chaos import NULL_INJECTOR, InjectedFault
 
 from .executor import ExecutorCache
 from .lifecycle import RetirementPlan
+from .models import GCN, MODELS, Gcn
 from .shape_class import (ClassNeed, ClassRegistry, ShapeClass, ShapePolicy,
                           class_requirements, pad_to_class, unpad_from_class)
 
@@ -87,6 +93,18 @@ class GraphHandle:
     # (analyze_and_partition), "place" (class fit, padding, plan and
     # placement); they sum to at most preprocess_s
     phases: dict = dataclasses.field(default_factory=dict)
+    # the served model (``engine.models``): GCN (weights a list of
+    # [f_in, f_out]) or GAT (weights gat_weights' flat list, the
+    # structure in ``gat``)
+    model: Gcn = GCN
+    gat: Optional[GatSpec] = None
+    # GAT: the reordered pattern's CSR (host), its row lists over the
+    # class's padded rows (host and placed), and the rows whose
+    # neighbours lie in two and in three engines ({"two", "three"})
+    pattern: Optional[tuple] = None
+    host_rows: Optional[RowLists] = None
+    rows: Optional[RowLists] = None
+    split_rows: Optional[dict] = None
 
     @property
     def n_rows(self) -> int:
@@ -238,7 +256,8 @@ class Engine:
     def register(self, name: str, csr: CSRMatrix, *,
                  reorder: Optional[str] = None, labels=None,
                  weights=None,
-                 part_meta: Optional[tuple] = None) -> GraphHandle:
+                 part_meta: Optional[tuple] = None,
+                 model: str = "gcn") -> GraphHandle:
         """Preprocess one graph into its shape class.
 
         ``reorder`` names a ``repro_torch.core.reorder`` strategy (None
@@ -249,7 +268,26 @@ class Engine:
         The handle's ``phases`` holds each phase's host seconds; with a
         tracer attached they are also child spans of a ``register``
         span.
+
+        ``model="gat"`` serves a graph attention network
+        (``core.gat``): ``weights`` is a list of ``core.gat.GatLayer``
+        (W, a_l, a_r and the layer's flags; LeakyReLU's slope is the
+        paper's 0.2). The graph is taken as the pattern of ``csr``
+        (A + I: every stored entry 1), partitioned and padded as the
+        GCN's; the handle also keeps the rows' neighbour lists for the
+        softmax statistics and ``split_rows``, the rows whose
+        neighbours lie in two and in three engines (the ``register``
+        span's end carries them too). ``part_meta`` is the GCN's alone.
+        A layer's heads are one of ``kernels._build.HEADS`` (the counts
+        the multi-head kernels are built for), else ValueError. The
+        handle keeps its model (``engine.models``), which every later
+        call goes through.
         """
+        if model not in MODELS:
+            raise ValueError(f"unknown model {model!r}; choose from "
+                             f"{tuple(MODELS)}")
+        served = MODELS[model]
+        csr = served.prepare(csr, weights, part_meta)
         t0 = time.perf_counter()
         tr = self.tracer
         sp_reg = tr.begin("register", "engine", args={"name": name}) \
@@ -286,6 +324,8 @@ class Engine:
             sc = self.registry.classify_need(need)
             padded, pmeta = pad_to_class(part, meta, sc)
             placed, plan, host_plan = self._place(padded, pmeta)
+            fields = served.fields(csr, weights, padded, pmeta, self.device)
+            weights = fields.pop("weights")
         handle = GraphHandle(
             name=name, part=placed, meta=meta, padded_meta=pmeta, sclass=sc,
             plan=plan, host_plan=host_plan,
@@ -295,8 +335,9 @@ class Engine:
             weights=None if weights is None else [
                 torch.as_tensor(np.asarray(to_numpy(w), np.float32)).to(
                     self.device) for w in weights],
-            preprocess_s=time.perf_counter() - t0, need=need, phases=phases)
-        tr.end(sp_reg)
+            preprocess_s=time.perf_counter() - t0, need=need, phases=phases,
+            model=served, **fields)
+        tr.end(sp_reg, args=served.span_args(handle))
         self._graphs[name] = handle
         with self._stack_lock:
             self._stacks = collections.OrderedDict(
@@ -412,24 +453,23 @@ class Engine:
         return cfg
 
     def infer(self, name: str, x) -> torch.Tensor:
-        """GCN forward logits for one request."""
+        """The model's forward logits for one request (GCN or GAT)."""
         h = self._graphs[name]
-        if h.weights is None:
-            raise ValueError(f"graph {name!r} registered without weights")
-        w_shapes = tuple(tuple(w.shape) for w in h.weights)
-        fn = self.executors.gcn(h.sclass, int(x.shape[1]), w_shapes)
+        fn = h.model.executor(self.executors, self._group_key(h, x))
         return self._unpad_y(h, fn(h.part, self._pad_x(h, x), h.weights,
-                                   h.plan))
+                                   h.plan, *h.model.operands(h)))
 
     def _group_key(self, h: GraphHandle, x) -> tuple:
         if h.weights is None:
             raise ValueError(f"graph {h.name!r} registered without weights")
         w_shapes = tuple(tuple(w.shape) for w in h.weights)
-        return (h.sclass, int(x.shape[1]), w_shapes)
+        return h.model.key(h, int(x.shape[1]), w_shapes)
 
     def group_key(self, name: str, x) -> tuple:
         """The (shape class, f_in, weight shapes) tuple that decides
-        which requests may share one ``serve_group`` dispatch."""
+        which requests may share one ``serve_group`` dispatch; a GAT's
+        adds ``"gat"`` and its ``GatSpec``, so the two models never
+        share one."""
         return self._group_key(self._graphs[name], x)
 
     def serve_batch(self, requests) -> list:
@@ -489,7 +529,8 @@ class Engine:
         return chain
 
     def _stack(self, padded) -> tuple:
-        """The cached (part, weights, plan) stack of a padded member list."""
+        """The cached (part, weights, plan, operands) stack of a padded
+        member list; ``operands`` the model's own, stacked."""
         stack_key = tuple(h.name for _, h, _, _ in padded)
         with self._stack_lock:
             stacks = self._stacks.get(stack_key)
@@ -505,11 +546,12 @@ class Engine:
                            for ws in zip(*[h.weights for h in hs])]
                 plan = plan_to(stack_plans([h.host_plan for h in hs]),
                                self.device)
+                operands = hs[0].model.stacked(hs, self.device)
                 while len(self._stacks) >= self._max_stacks:
                     self._stacks.popitem(last=False)       # LRU out
                     self._stack_evictions.inc()
                 stacks = self._stacks[stack_key] = (part_stack, w_stack,
-                                                    plan)
+                                                    plan, operands)
             else:
                 self._stacks.move_to_end(stack_key)        # mark MRU
                 self._stack_hits.inc()
@@ -572,11 +614,11 @@ class Engine:
             elif key != key0:
                 raise ValueError(
                     f"serve_group members must share one (class, f_in, "
-                    f"weight-shapes) key; {requests[0][0]!r} and {name!r} "
-                    f"differ")
+                    f"weight-shapes, model) key; {requests[0][0]!r} and "
+                    f"{name!r} differ")
             xp = prepared[i] if prepared is not None else None
             members.append((i, h, x, xp))
-        sc, f_in, w_shapes = key0
+        model = members[0][1].model
         misses0 = ex.stats.misses
         chain = self._chain(prepared)
 
@@ -585,12 +627,12 @@ class Engine:
 
         if len(members) == 1:
             i, h, x, xp = members[0]
-            fn = ex.gcn(sc, f_in, w_shapes)
+            fn = model.executor(ex, key0)
             xpad = pad(h, x, xp)
             if chain is not None:
                 chain.mark("stage")
             outs = [self._unpad_y(h, fn(h.part, xpad, h.weights, h.plan,
-                                        chain=chain))]
+                                        *model.operands(h), chain=chain))]
             meta = self._completion_meta(misses0, ex, chain)
             if inj.enabled:
                 outs, meta = self._inject_async(inj, requests, outs, meta)
@@ -601,12 +643,12 @@ class Engine:
         members.sort(key=lambda m: m[1].name)
         bs = 1 << (len(members) - 1).bit_length()
         padded = members + [members[-1]] * (bs - len(members))
-        fn = ex.gcn_batched(sc, f_in, w_shapes, bs)
-        part_stack, w_stack, plan = self._stack(padded)
+        fn = model.executor(ex, key0, bs)
+        part_stack, w_stack, plan, operands = self._stack(padded)
         x_stack = torch.stack([pad(h, x, xp) for _, h, x, xp in padded])
         if chain is not None:
             chain.mark("stage")
-        ys = fn(part_stack, x_stack, w_stack, plan, chain=chain)
+        ys = fn(part_stack, x_stack, w_stack, plan, *operands, chain=chain)
         results: list = [None] * len(members)
         for j, (i, h, _, _) in enumerate(members):
             results[i] = self._unpad_y(h, ys[j])
@@ -838,6 +880,7 @@ class Engine:
             padded, pmeta = pad_to_class(part, h.meta, target)
             h.part, h.plan, h.host_plan = self._place(padded, pmeta)
             h.padded_meta = pmeta
+            h.model.repadded(h, self.device)
             h.sclass = target
             moved.append(name)
         invalidated = self.executors.invalidate_class(sc)

@@ -121,6 +121,11 @@ def build_all() -> dict:
         return BUILD_LOG
 
 
+# The head counts the multi-head instances of the engines' kernels and
+# the GAT's coefficient kernels are built for: the served GAT's, 4 heads
+# in layers 1-2 and 6 in layer 3 (``Engine.register`` refuses others).
+HEADS = (4, 6)
+
 # The operand types the kernels take (the TPU kernels' MXU types), and
 # each one's name in C++ mangling.
 DTYPES = (torch.float32, torch.bfloat16)

@@ -151,6 +151,71 @@ def bsr_spmm_rows(tiles: torch.Tensor, tile_col: torch.Tensor,
                    n_seg // g, dev)
 
 
+def _heads_kernel():
+    if "heads" not in _fns:
+        lib = _build.library("bsr_spmm")
+        fn = lib.bsr_spmm_rows_heads_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns["heads"] = (lib, fn)
+    return _fns["heads"]
+
+
+def bsr_spmm_rows_heads(tiles: torch.Tensor, tile_col: torch.Tensor,
+                        b_tiles: torch.Tensor, plan: SegmentPlan, *,
+                        device="cuda") -> torch.Tensor:
+    """The dense engine with multi-head tiles: tiles [G, n_t, H, T, T]
+    f32 (head h's values of each tile), tile_col [G, n_t] int32, b_tiles
+    [G, nct, T, F] f32 (F a multiple of H) and the dense ``plan`` ->
+    [G, n_rt, T, F] f32: column block h of B (F / H columns) times head
+    h's tile, each row tile's products summed in plan order (zeros where
+    it has none).
+
+    CPU tensors take the plain version (``bsr_spmm_rows_ref``); CUDA
+    tensors launch the kernel (H in ``_build.HEADS``), one launch for the
+    group, or raise."""
+    _build.tick("bsr_spmm_rows_heads")
+    dev = resolve_device(device)
+    _check(tiles.dim() == 5 and tiles.shape[-1] == tiles.shape[-2],
+           f"expected tiles [G,n_t,H,T,T], got {tuple(tiles.shape)}")
+    g, n_t, h, t, _ = tiles.shape
+    f = b_tiles.shape[-1]
+    _check(b_tiles.dim() == 4 and b_tiles.shape[0] == g
+           and b_tiles.shape[2] == t and tuple(tile_col.shape) == (g, n_t)
+           and tile_col.dtype == torch.int32, f"tiles {tuple(tiles.shape)}, "
+           f"tile_col {tuple(tile_col.shape)} {tile_col.dtype}, b_tiles "
+           f"{tuple(b_tiles.shape)}")
+    for x in (tiles, tile_col, b_tiles):
+        _check(x.device == dev, f"tensor on {x.device}, device={dev}")
+        _check(dev.type == "cpu" or x.is_contiguous(),
+               "CUDA kernel needs contiguous tensors")
+    _check(tiles.dtype == torch.float32 and b_tiles.dtype == torch.float32,
+           f"multi-head tiles and B are float32 (got {tiles.dtype}, "
+           f"{b_tiles.dtype})")
+    _check(f % h == 0, f"{f} columns do not split over {h} heads")
+    n_seg = plan.lengths.shape[0]
+    _check(n_seg % g == 0, f"{n_seg} segments do not split over {g} members")
+    if dev.type == "cpu":
+        return bsr_spmm_rows_ref(tiles, tile_col, b_tiles, plan)
+    _check(h in _build.HEADS,
+           f"{h} heads: the kernel is built for {_build.HEADS}")
+    n_rt = n_seg // g
+    out = torch.zeros((g, n_rt, t, f), dtype=torch.float32, device=dev)
+    if n_t == 0 or plan.order.shape[0] == 0 or f == 0:
+        return out
+    lib, fn = _heads_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(tiles.data_ptr(), tile_col.data_ptr(), b_tiles.data_ptr(),
+                 plan.order.data_ptr(), plan.offsets.data_ptr(),
+                 out.data_ptr(), g, n_rt, b_tiles.shape[1], t, f, h, stream)
+    _build.check(lib, err, "bsr_spmm heads launch")
+    with _build.count_lock:
+        launches["float32"] += 1
+    return out
+
+
 def bsr_spmm(tiles: torch.Tensor, tile_col: torch.Tensor,
              b_tiles: torch.Tensor, *, device="cuda") -> torch.Tensor:
     """tiles [(G,) n_t, T, T] f32 or bf16, tile_col [(G,) n_t] int32,

@@ -160,12 +160,61 @@ def _kernel(vals_dtype, b_dtype):
     return _fns[entry]
 
 
+HEADS_KERNEL = "coo_rows_heads_kernel"
+
+
+def _heads_kernel():
+    entry = "coo_rows_heads_f32"
+    if entry not in _fns:
+        lib = _build.library(SOURCE)
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[entry] = (lib, fn)
+    return _fns[entry]
+
+
+def heads_stage(w: int, h: int) -> int:
+    """Entries of a long-row stage of the instance with ``w`` features a
+    chunk and ``h`` values an entry (the source's ``fit_stage``): halved
+    until the block's static shared memory fits 48 KiB."""
+    e = min(LOADS * THREADS // w, STAGE)
+    while h > 1 and 4 * e * (w + 2 + 2 * h) > 48 * 1024:
+        e //= 2
+    return e
+
+
+def coo_rows_heads_contract(g: int, nnz: int, nb: int, p: int, f: int,
+                            h: int, *, n_live: int = None, n_long: int = 0,
+                            aligned: bool = True) -> dict:
+    """The launch contract of one multi-head ``coo_rows`` launch (float32
+    vals [G, nnz, H] and B): ``coo_rows_contract``'s keys at the
+    instance ``launch_shape`` picks, ``vec`` 4 only where a head's F / H
+    features are whole vectors, the kernel
+    ``coo_rows_heads_kernel``, the instance (w, vec, nv, h), and the long
+    path's shared memory with H values an entry staged."""
+    c = coo_rows_contract(g, nnz, nb, p, f, n_live=n_live, n_long=n_long,
+                          aligned=aligned and (f // h) % 4 == 0)
+    instance = (c["w"], c["vec"], c["nv"], h)
+    stage = heads_stage(c["w"], h)
+    c.update(kernel=HEADS_KERNEL, instance=instance,
+             ptxas_name=HEADS_KERNEL + _build.mangled_args(instance),
+             static_smem=4 * stage * (c["w"] + 2 + 2 * h))
+    c["shapes"] = dict(c["shapes"], vals=(g, nnz, h))
+    c["extents"] = dict(c["extents"], **{"value lanes": g * nnz * h})
+    return c
+
+
 def coo_rows(cols: torch.Tensor, vals: torch.Tensor, b_tiles: torch.Tensor,
              plan: SegmentPlan, rows: RowOrder, out: torch.Tensor, *,
              device="cuda") -> torch.Tensor:
     """The flexible engine's rows, added onto ``out`` in place.
 
-    cols [G, nnz] int32 (B rows), vals [G, nnz] f32 or bf16, b_tiles
+    cols [G, nnz] int32 (B rows), vals [G, nnz] f32 or bf16 (or
+    [G, nnz, H] f32, H values an entry: feature f of B takes the value of
+    its head f / (F / H), with B f32 and H in ``_build.HEADS``), b_tiles
     [G, nct, T, F] f32 or bf16 (B's rows as the ELL kernels take them,
     ``formats.b_tiles_of``), ``plan`` the COO ``SegmentPlan`` (entries
     ``g*nnz + i`` onto segments ``g*P + row``), ``rows`` its ``RowOrder``
@@ -183,13 +232,19 @@ def coo_rows(cols: torch.Tensor, vals: torch.Tensor, b_tiles: torch.Tensor,
     """
     _build.tick("coo_rows")
     dev = resolve_device(device)
-    _check(cols.dim() == 2 and vals.dim() == 2 and b_tiles.dim() == 4
-           and out.dim() == 3, "expected cols/vals [G,nnz], b_tiles "
-           "[G,nct,T,F] and out [G,P,F]")
+    heads = vals.dim() == 3
+    h = vals.shape[-1] if heads else 1
+    _check(cols.dim() == 2 and vals.dim() in (2, 3) and b_tiles.dim() == 4
+           and out.dim() == 3, "expected cols [G,nnz], vals [G,nnz] (or "
+           "[G,nnz,H]), b_tiles [G,nct,T,F] and out [G,P,F]")
     g, nnz = cols.shape
     _, nct, t, f = b_tiles.shape
     n_seg = plan.lengths.shape[0]
-    _check(tuple(vals.shape) == (g, nnz) and b_tiles.shape[0] == g
+    _check(not heads or (vals.dtype == b_tiles.dtype == torch.float32
+                         and f % h == 0),
+           f"multi-head values: float32 vals and B, {f} columns over {h} "
+           "heads")
+    _check(tuple(vals.shape[:2]) == (g, nnz) and b_tiles.shape[0] == g
            and tuple(out.shape) == (g, n_seg // max(g, 1), f)
            and out.shape[0] * out.shape[1] == n_seg,
            f"shapes differ: cols {tuple(cols.shape)}, vals "
@@ -224,13 +279,20 @@ def coo_rows(cols: torch.Tensor, vals: torch.Tensor, b_tiles: torch.Tensor,
     n_long = rows.n_at_least(long_row(plan.order.shape[0]))
     if not (n_live and f):
         return out
-    lib, fn = _kernel(vals.dtype, b_tiles.dtype)
+    if heads:
+        _check(h in _build.HEADS,
+               f"{h} heads: the kernel is built for {_build.HEADS}")
+        lib, fn = _heads_kernel()
+        extra = (h,)
+    else:
+        lib, fn = _kernel(vals.dtype, b_tiles.dtype)
+        extra = ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(cols.data_ptr(), vals.data_ptr(), b_tiles.data_ptr(),
                  plan.order.data_ptr(), plan.offsets.data_ptr(),
                  rows.rows.data_ptr(), out.data_ptr(), n_long, n_live,
-                 n_seg // g, nct * t, f, stream)
+                 n_seg // g, nct * t, f, *extra, stream)
     _build.check(lib, err, "coo_rows launch")
     f32 = instance_dtypes(vals.dtype, b_tiles.dtype) == ("float32",) * 2
     with _build.count_lock:

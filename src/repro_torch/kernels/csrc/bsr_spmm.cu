@@ -72,22 +72,29 @@ constexpr int kIndexBatch = 256;  // tile indices staged per pass
 constexpr int kNarrowMaxF = 16;   // widest F the narrow shape takes
 
 // A16/B16: tile rows / B rows are copied 16 bytes at a time (else 4).
-template <class C, bool A16, bool B16>
-__global__ void __launch_bounds__(C::THREADS)
-bsr_rows_kernel(const float* __restrict__ tiles,
-                const int* __restrict__ tile_col,
-                const float* __restrict__ b,
-                const long long* __restrict__ order,
-                const long long* __restrict__ offsets,
-                float* __restrict__ out, int n_rt, int nct, int T, int F,
-                bool c16) {
+// H > 1 (multi-head tiles [G, n_t, H, T, T]): column block h of B (F / H
+// columns) is multiplied by head h's tile. blockIdx.y numbers (head, slab
+// of the head's columns), so a slab never crosses a head and each block
+// reads one head's tile; H = 1 is the single-tile block alone.
+template <class C, bool A16, bool B16, int H>
+__device__ __forceinline__ void bsr_rows(const float* __restrict__ tiles,
+                                         const int* __restrict__ tile_col,
+                                         const float* __restrict__ b,
+                                         const long long* __restrict__ order,
+                                         const long long* __restrict__ offsets,
+                                         float* __restrict__ out, int n_rt,
+                                         int nct, int T, int F, bool c16) {
   extern __shared__ __align__(16) float smem[];
   __shared__ long long s_tile[kIndexBatch];  // tile entry e
   __shared__ long long s_b[kIndexBatch];     // B tile (member, col)
   const int row_blocks = (T + C::BM - 1) / C::BM;
   const int r = blockIdx.x / row_blocks;
   const int m0 = (blockIdx.x % row_blocks) * C::BM;
-  const int f0 = blockIdx.y * C::BN;
+  const int fh = F / H;                       // a head's columns
+  const int slabs = (fh + C::BN - 1) / C::BN;  // H > 1: slabs a head
+  const int hd = H > 1 ? blockIdx.y / slabs : 0;
+  const int f0 = H > 1 ? hd * fh + blockIdx.y % slabs * C::BN
+                       : blockIdx.y * C::BN;
   const long long g = blockIdx.z;
   const long long s = g * n_rt + r;
   const long long begin = offsets ? offsets[s] : s;
@@ -95,7 +102,8 @@ bsr_rows_kernel(const float* __restrict__ tiles,
   const int tx = threadIdx.x % C::TCOLS;
   const int ty = threadIdx.x / C::TCOLS;
   const int rows = min(C::BM, T - m0);
-  const int cols = min(C::BN, F - f0);
+  const int cols = H > 1 ? min(C::BN, (hd + 1) * fh - f0)
+                         : min(C::BN, F - f0);
   const int k_chunks = (T + C::BK - 1) / C::BK;
   const long long tt = static_cast<long long>(T) * T;
   const long long tf = static_cast<long long>(T) * F;
@@ -109,7 +117,7 @@ bsr_rows_kernel(const float* __restrict__ tiles,
     __syncthreads();  // the previous batch's indices are no longer read
     for (int i = threadIdx.x; i < nb; i += C::THREADS) {
       const long long e = order ? order[b0 + i] : b0 + i;
-      s_tile[i] = e;
+      s_tile[i] = H > 1 ? e * H + hd : e;  // the tile (of this head)
       s_b[i] = g * nct + tile_col[e];
     }
     __syncthreads();
@@ -143,6 +151,79 @@ bsr_rows_kernel(const float* __restrict__ tiles,
   }
   ffma_tile::store<C>(row, out + (s * T + m0) * F + f0, F, rows, cols, ty,
                       tx, c16);
+}
+
+template <class C, bool A16, bool B16>
+__global__ void __launch_bounds__(C::THREADS)
+bsr_rows_kernel(const float* __restrict__ tiles,
+                const int* __restrict__ tile_col,
+                const float* __restrict__ b,
+                const long long* __restrict__ order,
+                const long long* __restrict__ offsets,
+                float* __restrict__ out, int n_rt, int nct, int T, int F,
+                bool c16) {
+  bsr_rows<C, A16, B16, 1>(tiles, tile_col, b, order, offsets, out, n_rt,
+                           nct, T, F, c16);
+}
+
+// The multi-head rows kernel: tiles [G, n_t, H, T, T], grid y (head, slab).
+template <class C, bool A16, bool B16, int H>
+__global__ void __launch_bounds__(C::THREADS)
+bsr_heads_kernel(const float* __restrict__ tiles,
+                 const int* __restrict__ tile_col,
+                 const float* __restrict__ b,
+                 const long long* __restrict__ order,
+                 const long long* __restrict__ offsets,
+                 float* __restrict__ out, int n_rt, int nct, int T, int F,
+                 bool c16) {
+  bsr_rows<C, A16, B16, H>(tiles, tile_col, b, order, offsets, out, n_rt,
+                           nct, T, F, c16);
+}
+
+template <class C, bool A16, bool B16, int H>
+int launch_heads(const float* tiles, const int* tile_col, const float* b,
+                 const long long* order, const long long* offsets,
+                 float* out, int G, int n_rt, int nct, int T, int F,
+                 cudaStream_t stream) {
+  static bool smem_allowed[64] = {};
+  const int err = ffma_tile::allow_smem(bsr_heads_kernel<C, A16, B16, H>,
+                                        C::SMEM_BYTES, smem_allowed);
+  if (err) return err;
+  const int fh = F / H;
+  const dim3 grid(n_rt * ((T + C::BM - 1) / C::BM),
+                  H * ((fh + C::BN - 1) / C::BN), G);
+  const bool c16 = fh % 4 == 0 && ffma_tile::aligned16(out);
+  bsr_heads_kernel<C, A16, B16, H>
+      <<<grid, C::THREADS, C::SMEM_BYTES, stream>>>(
+          tiles, tile_col, b, order, offsets, out, n_rt, nct, T, F, c16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The multi-head instance for H heads of F / H columns: the shape from a
+// head's width, 16-byte B copies where a head's columns start on whole
+// vectors.
+template <int H>
+int launch_h(const float* tiles, const int* tile_col, const float* b,
+                 const long long* order, const long long* offsets,
+                 float* out, int G, int n_rt, int nct, int T, int F,
+                 cudaStream_t stream) {
+  const bool a16 = T % 4 == 0 && ffma_tile::aligned16(tiles);
+  const bool b16 = (F / H) % 4 == 0 && ffma_tile::aligned16(b);
+  const bool narrow = F / H <= kNarrowMaxF;
+#define BSR_HEADS(SHAPE, A, B)                                              \
+  return launch_heads<SHAPE, A, B, H>(tiles, tile_col, b, order, offsets,   \
+                                      out, G, n_rt, nct, T, F, stream)
+  if (narrow) {
+    if (a16 && b16) BSR_HEADS(Narrow, true, true);
+    if (a16) BSR_HEADS(Narrow, true, false);
+    if (b16) BSR_HEADS(Narrow, false, true);
+    BSR_HEADS(Narrow, false, false);
+  }
+  if (a16 && b16) BSR_HEADS(Wide, true, true);
+  if (a16) BSR_HEADS(Wide, true, false);
+  if (b16) BSR_HEADS(Wide, false, true);
+  BSR_HEADS(Wide, false, false);
+#undef BSR_HEADS
 }
 
 template <class C, bool A16, bool B16>
@@ -347,6 +428,32 @@ int bsr_spmm_rows_f32(const void* tiles, const void* tile_col, const void* b,
   if (F <= kNarrowMaxF)
     return launch<Narrow>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
   return launch<Wide>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T, F, st);
+}
+
+// bsr_spmm_rows_f32's arguments with multi-head tiles [G,n_t,H,T,T]:
+// column block h of B (F / H columns) times head h's tile; H 4 or 6 (the
+// served GAT's, kernels/_build.py HEADS) dividing F, and a plan (order,
+// offsets) given; else cudaErrorInvalidValue without a launch.
+int bsr_spmm_rows_heads_f32(const void* tiles, const void* tile_col,
+                            const void* b, const void* order,
+                            const void* offsets, void* out, int G, int n_rt,
+                            int nct, int T, int F, int H, void* stream) {
+  const auto* pt = static_cast<const float*>(tiles);
+  const auto* pc = static_cast<const int*>(tile_col);
+  const auto* pb = static_cast<const float*>(b);
+  const auto* po = static_cast<const long long*>(order);
+  const auto* ps = static_cast<const long long*>(offsets);
+  auto* pout = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (order == nullptr || offsets == nullptr || H < 2 || F % H != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (H) {
+    case 4: return launch_h<4>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T,
+                                   F, st);
+    case 6: return launch_h<6>(pt, pc, pb, po, ps, pout, G, n_rt, nct, T,
+                                   F, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // bsr_spmm_rows_f32's arguments with tiles and b bfloat16 and out float32;

@@ -101,7 +101,11 @@ struct Entries {
 };
 
 // A short row: W lanes, NV loads of VEC features each per lane and pass.
-template <int W, int VEC, int NV, class VT, class BT>
+// H > 1: vals holds H values an entry ([G, nnz, H]) and feature f takes
+// the value of its head f / (F / H): each lane loads its heads' values
+// beside the B rows, where H = 1 passes the one value round by shuffle; a
+// lane's VEC features lie in one head (VEC = 1 where F / H % 4 != 0).
+template <int W, int VEC, int NV, class VT, class BT, int H = 1>
 __device__ __forceinline__ void short_row(const Entries<VT>& a, const BT* bg,
                                           float* yr, int begin, int end,
                                           int F) {
@@ -114,11 +118,13 @@ __device__ __forceinline__ void short_row(const Entries<VT>& a, const BT* bg,
               : ((1u << W) - 1u) << ((threadIdx.x % 32) / W * W);
   for (int fb = 0; fb < F; fb += W * VEC * NV) {
     bool on[NV];
+    int hv[NV];  // H > 1: the head of each load's features
     typename Y::T yv[NV];
     float acc[NV][VEC];
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       on[v] = fb + (v * W + lane) * VEC < F;
+      hv[v] = H > 1 && on[v] ? (fb + (v * W + lane) * VEC) / (F / H) : 0;
       if (on[v]) yv[v] = Y::load(yr + fb + (v * W + lane) * VEC);
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[v][q] = 0.f;
@@ -128,28 +134,42 @@ __device__ __forceinline__ void short_row(const Entries<VT>& a, const BT* bg,
       // passed round the group chunk by chunk
       int c = 0;
       float w = 0.f;
+      int ex = 0;  // H > 1: the entry, for the lanes' own value loads
       if (k1 + lane < end) {
         const long long e = a.order[k1 + lane];
         c = a.cols[e];
-        w = ell_rows::widen(a.vals[e]);
+        if constexpr (H == 1)
+          w = ell_rows::widen(a.vals[e]);
+        else
+          ex = static_cast<int>(e);
       }
       const int n = min(W, end - k1);
       for (int k0 = 0; k0 < n; k0 += kKC) {  // kKC divides W: k0 + i < W
         typename V::T x[kKC][NV];
+        float wh[kKC][NV];  // H > 1: each load's head's value
 #pragma unroll
         for (int i = 0; i < kKC; ++i) {
           const long long ci = __shfl_sync(mask, c, k0 + i, W);
-#pragma unroll
-          for (int v = 0; v < NV; ++v)
-            if (on[v] && k0 + i < n)
-              x[i][v] = V::load(bg + ci * F + fb + (v * W + lane) * VEC);
-        }
-#pragma unroll
-        for (int i = 0; i < kKC; ++i) {
-          const float wi = __shfl_sync(mask, w, k0 + i, W);
+          long long eh = 0;
+          if constexpr (H > 1)
+            eh = static_cast<long long>(__shfl_sync(mask, ex, k0 + i, W)) *
+                 H;
 #pragma unroll
           for (int v = 0; v < NV; ++v)
             if (on[v] && k0 + i < n) {
+              x[i][v] = V::load(bg + ci * F + fb + (v * W + lane) * VEC);
+              if constexpr (H > 1)
+                wh[i][v] = ell_rows::widen(a.vals[eh + hv[v]]);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < kKC; ++i) {
+          float wi = 0.f;
+          if constexpr (H == 1) wi = __shfl_sync(mask, w, k0 + i, W);
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            if (on[v] && k0 + i < n) {
+              if constexpr (H > 1) wi = wh[i][v];
 #pragma unroll
               for (int q = 0; q < VEC; ++q)
                 acc[v][q] = __fadd_rn(acc[v][q],
@@ -169,20 +189,32 @@ __device__ __forceinline__ void short_row(const Entries<VT>& a, const BT* bg,
   }
 }
 
+// The entries of a long-row stage: ``e``, halved while a block's static
+// shared memory for features ``fcw`` and ``h`` values an entry would pass
+// 48 KiB (H = 1 always fits: ``e`` itself).
+__host__ __device__ constexpr int fit_stage(int e, int fcw, int h) {
+  return h == 1 || 4 * e * (fcw + 2 + 2 * h) <= 48 * 1024
+             ? e
+             : fit_stage(e / 2, fcw, h);
+}
+
 // A long row's features [f0, f0 + FCW): the whole block, stage by stage.
-template <int FCW, class VT, class BT>
+// H > 1: each entry's H values are staged, and a feature adds with its
+// head's.
+template <int FCW, class VT, class BT, int H = 1>
 __device__ __forceinline__ void long_row(const Entries<VT>& a, const BT* bg,
                                          float* yr, int begin, int end,
                                          int f0, int F) {
   constexpr int RPS = kThreads / FCW;  // entries one block-wide load covers
-  constexpr int E = kLoads * RPS < kStage ? kLoads * RPS : kStage;
+  constexpr int E =
+      fit_stage(kLoads * RPS < kStage ? kLoads * RPS : kStage, FCW, H);
   constexpr int NL = E / RPS;          // B elements a thread stages a stage
   constexpr int EPT = (E + kThreads - 1) / kThreads;  // indices a thread loads
   static_assert(kThreads % FCW == 0 && (E % kThreads == 0 || E < kThreads),
                 "stage shape");
   __shared__ float sb[E * FCW];   // the stage's B chunk, [entry][feature]
   __shared__ int scol[2][E];      // two stages' B rows
-  __shared__ float sval[2][E];    // and values
+  __shared__ float sval[2][E * H];  // and values ([entry][head])
   const int t = threadIdx.x;
   const int fl = t % FCW;  // the feature this thread loads
   const int jl = t / FCW;  // its first entry of a stage
@@ -193,7 +225,7 @@ __device__ __forceinline__ void long_row(const Entries<VT>& a, const BT* bg,
 
   long long e[EPT];
   int mc[EPT];
-  float mv[EPT];
+  float mv[EPT][H];
   auto order_of = [&](int k) {  // stage k's entries
 #pragma unroll
     for (int i = 0; i < EPT; ++i) {
@@ -205,7 +237,9 @@ __device__ __forceinline__ void long_row(const Entries<VT>& a, const BT* bg,
 #pragma unroll
     for (int i = 0; i < EPT; ++i) {
       mc[i] = e[i] >= 0 ? a.cols[e[i]] : 0;
-      mv[i] = e[i] >= 0 ? ell_rows::widen(a.vals[e[i]]) : 0.f;
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        mv[i][h] = e[i] >= 0 ? ell_rows::widen(a.vals[e[i] * H + h]) : 0.f;
     }
   };
   auto store_meta = [&](int slot) {
@@ -213,7 +247,9 @@ __device__ __forceinline__ void long_row(const Entries<VT>& a, const BT* bg,
     for (int i = 0; i < EPT; ++i)
       if (i * kThreads + t < E) {
         scol[slot][i * kThreads + t] = mc[i];
-        sval[slot][i * kThreads + t] = mv[i];
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+          sval[slot][(i * kThreads + t) * H + h] = mv[i][h];
       }
   };
   float x[NL];
@@ -256,10 +292,12 @@ __device__ __forceinline__ void long_row(const Entries<VT>& a, const BT* bg,
     if (after) meta_of();
     if (k + 3 < stages) order_of(k + 3);
     if (t < FCW) {
-      const float* val = sval[k & 1];
+      // this thread's head's values (H = 1: the one value an entry)
+      const float* val =
+          sval[k & 1] + (H > 1 && fon ? (f0 + t) / (F / H) : 0);
       const int cnt = min(E, n - k * E);
       for (int j = 0; j < cnt; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(val[j], sb[j * FCW + t]));
+        acc = __fadd_rn(acc, __fmul_rn(val[j * H], sb[j * FCW + t]));
     }
     __syncthreads();
     if (next) store_b();
@@ -298,6 +336,37 @@ coo_rows_kernel(Entries<VT> a, const BT* __restrict__ b,
     long_row<W>(a, bg, yr, begin, end, (blockIdx.x % chunks) * W, F);
   else
     short_row<W, VEC, NV>(a, bg, yr, begin, end, F);
+}
+
+// The multi-head instances (float vals [G, nnz, H] and B), H values an
+// entry: the paths above with H; at least two blocks an SM (the values a
+// lane keeps beside its B rows take registers past 64).
+template <int W, int VEC, int NV, int H>
+__global__ void __launch_bounds__(kThreads, 2)
+coo_rows_heads_kernel(Entries<float> a, const float* __restrict__ b,
+                      float* __restrict__ out, int n_long, int chunks,
+                      int n_live, int P, long long nb, int F) {
+  const int long_blocks = n_long * chunks;
+  const bool is_long = static_cast<int>(blockIdx.x) < long_blocks;
+  int slot;
+  if (is_long) {
+    slot = blockIdx.x / chunks;
+  } else {
+    slot = n_long + (blockIdx.x - long_blocks) * (kThreads / W) +
+           threadIdx.x / W;
+    if (slot >= n_live) return;
+  }
+  const long long s = a.rows[slot];
+  const long long g = s / P;
+  const int begin = static_cast<int>(a.offsets[s]);
+  const int end = static_cast<int>(a.offsets[s + 1]);
+  const float* bg = b + g * nb * F;
+  float* yr = out + s * F;
+  if (is_long)
+    long_row<W, float, float, H>(a, bg, yr, begin, end,
+                                 (blockIdx.x % chunks) * W, F);
+  else
+    short_row<W, VEC, NV, float, float, H>(a, bg, yr, begin, end, F);
 }
 
 // The instance for a row of F features whose pointers are `aligned` for
@@ -347,9 +416,57 @@ cudaError_t launch(const void* cols, const void* vals, const void* b,
               });
 }
 
+// One multi-head launch: `launch`'s arguments for float operands, with
+// the head count H (4 or 6, the served GAT's: kernels/_build.py HEADS)
+// dividing F; VEC 4 only where a head's F / H features are whole vectors.
+inline cudaError_t launch_heads(const void* cols, const void* vals,
+                                const void* b, const void* order,
+                                const void* offsets, const void* rows,
+                                void* out, int n_long, int n_live, int P,
+                                long long nb, int F, int H, void* stream) {
+  if (H < 2 || F % H != 0) return cudaErrorInvalidValue;
+  const Entries<float> a{static_cast<const int*>(cols),
+                         static_cast<const float*>(vals),
+                         static_cast<const long long*>(order),
+                         static_cast<const long long*>(offsets),
+                         static_cast<const long long*>(rows)};
+  const auto* bb = static_cast<const float*>(b);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool aligned =
+      ell_rows::vec_aligned<float>(b, out) && (F / H) % 4 == 0;
+  return ell_rows::select<4, 6>(H, [&](auto h) {
+    return pick(F, aligned, [&](auto w, auto vec, auto nv) {
+      constexpr int W = decltype(w)::value;
+      constexpr int per_block = kThreads / W;
+      const int chunks = (F + W - 1) / W;
+      const long long blocks = static_cast<long long>(n_long) * chunks +
+                               (n_live - n_long + per_block - 1) / per_block;
+      coo_rows_heads_kernel<W, decltype(vec)::value, decltype(nv)::value,
+                            decltype(h)::value>
+          <<<dim3(static_cast<unsigned>(blocks)), kThreads, 0, st>>>(
+              a, bb, o, n_long, chunks, n_live, P, nb, F);
+      return cudaGetLastError();
+    });
+  });
+}
+
 }  // namespace coo_rows
 
 extern "C" {
+
+// coo_rows_f32's arguments with H values an entry (vals [G, nnz, H] float;
+// feature f of B takes the value of its head f / (F / H)); H 4 or 6
+// dividing F, else cudaErrorInvalidValue without a launch.
+int coo_rows_heads_f32(const void* cols, const void* vals, const void* b,
+                       const void* order, const void* offsets,
+                       const void* rows, void* out, int n_long, int n_live,
+                       int P, long long nb, int F, int H, void* stream) {
+  return static_cast<int>(coo_rows::launch_heads(cols, vals, b, order,
+                                                 offsets, rows, out, n_long,
+                                                 n_live, P, nb, F, H,
+                                                 stream));
+}
 
 // cols/vals [G, nnz] (int32 / vals of the entry's type), b [G, nb, F] (B's
 // rows, contiguous; cols[...] < nb), order/offsets the COO plan (entries

@@ -237,13 +237,21 @@ __device__ __forceinline__ void add_vec(float* p, const float (&x)[VEC]) {
 // and row stride s_r. MODE and ADD are template arguments, not flags, so
 // that no register holds them through the loop: a caller with both
 // epilogues or walks instantiates both.
-template <int W, int VEC, int KC, int MODE, bool ADD, class VT, class BT>
+// H > 1 (multi-head values, the slab modes): vals holds H values a lane,
+// [.., K, H], and feature f is multiplied by the value of its head f / (F /
+// H); each lane loads its own head's value where the chunk's B rows are
+// loaded (the lanes of a head read one address), in place of the shuffle.
+// A lane's VEC features lie in one head (VEC = 1 where F / H % 4 != 0).
+// H = 1 compiles to the single-value loop alone.
+template <int W, int VEC, int KC, int MODE, bool ADD, class VT, class BT,
+          int H = 1>
 __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
                                     const long long* __restrict__ order,
                                     int begin, int end, long long g, int nct,
                                     int T, int F, float* dst) {
   static_assert(KC <= W && W % KC == 0,
                 "a chunk's cols/vals are spread over the group");
+  static_assert(H == 1 || MODE != kView, "heads read the slab");
   constexpr bool SLAB = MODE != kView;
   using V = BLoad<BT, VEC>;
   const int lane = threadIdx.x % W;
@@ -261,6 +269,7 @@ __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
   for (int fb = 0; fb < F; fb += W * VEC) {
     const int f = fb + lane * VEC;
     const bool on = f < F;
+    const int hd = H > 1 && on ? f / (F / H) : 0;  // this lane's head
     float acc[VEC];
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
@@ -284,7 +293,7 @@ __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
       }
       const BT* bt = bg + static_cast<long long>(tb[unit]) * T * F + f;
       const int* ce = cb + static_cast<long long>(e) * stride;
-      const VT* ve = vb + static_cast<long long>(e) * stride;
+      const VT* ve = vb + static_cast<long long>(e) * stride * H;
       float p[VEC];
 #pragma unroll
       for (int q = 0; q < VEC; ++q) p[q] = 0.f;
@@ -295,19 +304,30 @@ __device__ __forceinline__ void row(const Units<VT>& a, const BT* b,
         float v = 0.f;
         if (k1 + lane < kb) {
           c = ce[k1 + lane];
-          v = k1 + lane < ku ? widen(ve[k1 + lane]) : 0.f;  // mask values
+          if constexpr (H == 1)
+            v = k1 + lane < ku ? widen(ve[k1 + lane]) : 0.f;  // mask values
         }
         const int n = min(W, kb - k1);
         for (int k0 = 0; k0 < n; k0 += KC) {  // KC divides W: k0 + i < W
           typename V::T x[KC];
+          float vh[KC];  // H > 1: this lane's head's values, masked
 #pragma unroll
           for (int i = 0; i < KC; ++i) {
             const int ci = __shfl_sync(mask, c, k0 + i, W);
             if (on && k0 + i < n) x[i] = V::load(bt + ci * F);
+            if constexpr (H > 1) {
+              const int kk = k1 + k0 + i;
+              vh[i] = on && k0 + i < n && kk < ku ? widen(ve[kk * H + hd])
+                                                  : 0.f;
+            }
           }
 #pragma unroll
           for (int i = 0; i < KC; ++i) {
-            const float vi = __shfl_sync(mask, v, k0 + i, W);
+            float vi;
+            if constexpr (H == 1)
+              vi = __shfl_sync(mask, v, k0 + i, W);
+            else
+              vi = vh[i];
             if (on && k0 + i < n) {
 #pragma unroll
               for (int q = 0; q < VEC; ++q)

@@ -9,8 +9,9 @@
 namespace ragged_ell {
 
 // One grid row: a live segment of the plan (row mode) or a unit row (unit
-// mode, `live` null), walked in MODE (kBanded or kTable).
-template <int MODE, int W, int VEC, int KC, class VT, class BT>
+// mode, `live` null), walked in MODE (kBanded or kTable); H values an entry
+// (ell_rows::row).
+template <int MODE, int W, int VEC, int KC, class VT, class BT, int H = 1>
 __device__ __forceinline__ void rows(const ell_rows::Units<VT>& a,
                                      const BT* __restrict__ b,
                                      const long long* __restrict__ order,
@@ -33,11 +34,13 @@ __device__ __forceinline__ void rows(const ell_rows::Units<VT>& a,
     end = begin + 1;
   }
   if (live)
-    ell_rows::row<W, VEC, KC, MODE, true>(a, b, order, begin, end, g, nct, T,
-                                          F, out + s * F);
+    ell_rows::row<W, VEC, KC, MODE, true, VT, BT, H>(a, b, order, begin, end,
+                                                     g, nct, T, F,
+                                                     out + s * F);
   else
-    ell_rows::row<W, VEC, KC, MODE, false>(a, b, order, begin, end, g, nct,
-                                           T, F, out + s * F);
+    ell_rows::row<W, VEC, KC, MODE, false, VT, BT, H>(a, b, order, begin,
+                                                      end, g, nct, T, F,
+                                                      out + s * F);
 }
 
 // W lanes per segment, VEC features per lane, KC K lanes in flight,
@@ -69,6 +72,38 @@ ell_rows_table_kernel(ell_rows::Units<VT> a, const BT* __restrict__ b,
   rows<ell_rows::kTable, W, VEC, KC>(
       a, b, order, offsets, live, out,
       blockIdx.x * (THREADS / W) + threadIdx.x / W, n_slots, nct, T, F);
+}
+
+// The multi-head instances (float vals [G, U, R, Kmax, H] and B): row mode,
+// the default launch shape, H values an entry, each unit to its band's K
+// (by value, or from the [U] table past 4 bands).
+template <int W, int VEC, int H>
+__global__ void __launch_bounds__(ell_rows::kDefaultThreads, 1)
+ell_rows_heads_kernel(ell_rows::Units<float> a, const float* __restrict__ b,
+                      const long long* __restrict__ order,
+                      const long long* __restrict__ offsets,
+                      const long long* __restrict__ live,
+                      float* __restrict__ out, int n_slots, int nct, int T,
+                      int F) {
+  rows<ell_rows::kBanded, W, VEC, ell_rows::kDefaultKC, float, float, H>(
+      a, b, order, offsets, live, out,
+      blockIdx.x * (ell_rows::kDefaultThreads / W) + threadIdx.x / W,
+      n_slots, nct, T, F);
+}
+
+template <int W, int VEC, int H>
+__global__ void __launch_bounds__(ell_rows::kDefaultThreads, 1)
+ell_rows_heads_table_kernel(ell_rows::Units<float> a,
+                            const float* __restrict__ b,
+                            const long long* __restrict__ order,
+                            const long long* __restrict__ offsets,
+                            const long long* __restrict__ live,
+                            float* __restrict__ out, int n_slots, int nct,
+                            int T, int F) {
+  rows<ell_rows::kTable, W, VEC, ell_rows::kDefaultKC, float, float, H>(
+      a, b, order, offsets, live, out,
+      blockIdx.x * (ell_rows::kDefaultThreads / W) + threadIdx.x / W,
+      n_slots, nct, T, F);
 }
 
 // One launch (the C entries' arguments, ragged_ell_spmm.cu). `band_k` null:

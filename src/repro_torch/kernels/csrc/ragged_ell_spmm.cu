@@ -78,3 +78,82 @@
 // per block (128, 256, 512); 0 takes the default (ell_rows.cuh). Any
 // other value returns cudaErrorInvalidValue without a launch.
 RAGGED_ELL_ENTRIES(f32, float, float)
+
+namespace ragged_ell {
+
+// The head counts the multi-head instances are built for: the served
+// GAT's (kernels/_build.py HEADS).
+template <class F>
+cudaError_t heads(int h, F&& f) {
+  return ell_rows::select<4, 6>(h, f);
+}
+
+// One multi-head launch in row mode: the arguments of `launch`
+// (ragged_ell.cuh) with
+// the launch shape at its defaults (ell_rows::pick; VEC 4 only where a
+// head's F / H features are whole vectors) and the head count H.
+inline cudaError_t launch_heads(const void* cols, const void* vals,
+                                const void* tile_col, const void* unit_k,
+                                const void* b, const void* order,
+                                const void* offsets, const void* live,
+                                void* out, const int* bands,
+                                const void* band_k, int G, int n_slots, int U,
+                                int R, int Kmax, int nct, int T, int F, int H,
+                                void* stream) {
+  if (H < 2 || F % H != 0 || !live) return cudaErrorInvalidValue;
+  ell_rows::Bands bd{};
+  if (!band_k) {
+    for (int i = 0; i < 4; ++i) bd.k[i] = bands[i];
+    for (int i = 0; i < 3; ++i) bd.off[i] = bands[4 + i];
+  }
+  ell_rows::Units<float> a{static_cast<const int*>(cols),
+                           static_cast<const float*>(vals),
+                           static_cast<const int*>(tile_col),
+                           static_cast<const int*>(unit_k),
+                           static_cast<const int*>(band_k), bd, 0, 0, 0, U,
+                           R, Kmax};
+  const auto* bb = static_cast<const float*>(b);
+  const auto* od = static_cast<const long long*>(order);
+  const auto* of = static_cast<const long long*>(offsets);
+  const auto* lv = static_cast<const long long*>(live);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool aligned =
+      ell_rows::vec_aligned<float>(b, out) && (F / H) % 4 == 0;
+  return heads(H, [&](auto h_) {
+    return ell_rows::pick(F, aligned, [&](auto w_, auto vec_) {
+      constexpr int W = decltype(w_)::value;
+      constexpr int VEC = decltype(vec_)::value;
+      constexpr int HH = decltype(h_)::value;
+      constexpr int per_block = ell_rows::kDefaultThreads / W;
+      const dim3 grid((n_slots + per_block - 1) / per_block, G);
+      if (band_k)
+        ell_rows_heads_table_kernel<W, VEC, HH>
+            <<<grid, ell_rows::kDefaultThreads, 0, st>>>(a, bb, od, of, lv, o,
+                                                         n_slots, nct, T, F);
+      else
+        ell_rows_heads_kernel<W, VEC, HH>
+            <<<grid, ell_rows::kDefaultThreads, 0, st>>>(a, bb, od, of, lv, o,
+                                                         n_slots, nct, T, F);
+      return cudaGetLastError();
+    });
+  });
+}
+
+}  // namespace ragged_ell
+
+// ragged_ell_rows_heads_f32: ragged_ell_rows_f32 in row mode with H values
+// an entry: vals [G,U,R,Kmax,H] float, feature f of B multiplied by the
+// value of its head f / (F / H) (ell_rows.cuh); H 4 or 6 dividing F; the
+// launch shape the defaults. Any other H returns cudaErrorInvalidValue
+// without a launch.
+extern "C" int ragged_ell_rows_heads_f32(
+    const void* cols, const void* vals, const void* tile_col,
+    const void* unit_k, const void* b, const void* order, const void* offsets,
+    const void* live, void* out, const int* bands, const void* band_k, int G,
+    int n_slots, int U, int R, int Kmax, int nct, int T, int F, int H,
+    void* stream) {
+  return static_cast<int>(ragged_ell::launch_heads(
+      cols, vals, tile_col, unit_k, b, order, offsets, live, out, bands,
+      band_k, G, n_slots, U, R, Kmax, nct, T, F, H, stream));
+}

@@ -541,6 +541,111 @@ def ragged_ell_rows(cols: torch.Tensor, vals: torch.Tensor,
     return out
 
 
+HEADS_KERNELS = ("ell_rows_heads_kernel", "ell_rows_heads_table_kernel")
+
+
+def ragged_ell_heads_contract(g: int, u: int, r: int, kmax: int, nct: int,
+                              t: int, f: int, h: int, *,
+                              segments: tuple = (), n_slots: int = None,
+                              aligned: bool = True) -> dict:
+    """The launch contract of one ``ragged_ell_rows_heads`` launch with
+    ``h`` values an entry: ``ragged_ell_contract``'s keys at the
+    multi-head instance's launch shape (the defaults, ``vec`` 4 only where
+    a head's F / H features are whole vectors), its
+    kernel (``ell_rows_heads_kernel``, or ``ell_rows_heads_table_kernel``
+    past ``VALUE_BANDS`` bands), the instance (w, vec, h) and vals
+    [G, U, R, Kmax, H]."""
+    c = ragged_ell_contract(g, u, r, kmax, nct, t, f, segments=segments,
+                            n_slots=n_slots,
+                            aligned=aligned and (f // h) % 4 == 0)
+    kernel = HEADS_KERNELS[c["band_mode"] == "table"]
+    instance = (c["w"], c["vec"], h)
+    c.update(name="ragged_ell_rows_heads", kernel=kernel, instance=instance,
+             dtypes=("float32", "float32"),
+             ptxas_name=kernel + _build.mangled_args(instance))
+    c["shapes"] = dict(c["shapes"], vals=(g, u, r, kmax, h))
+    c["extents"] = dict(c["extents"], **{"value lanes": g * u * r * kmax * h})
+    return c
+
+
+def ragged_ell_rows_heads(cols: torch.Tensor, vals: torch.Tensor,
+                          tile_col: torch.Tensor, unit_k: torch.Tensor,
+                          b_tiles: torch.Tensor, plan: SegmentPlan,
+                          out: torch.Tensor, *, segments: tuple = (),
+                          max_bands: int = None,
+                          device="cuda") -> torch.Tensor:
+    """``ragged_ell_rows`` with H values an entry: vals [G, U, R, Kmax, H]
+    f32, feature f of B (f32, F a multiple of H) multiplied by the value
+    of its head f / (F / H); the launch shape the defaults (``vec`` 4
+    where a head's F / H features are whole vectors), the K bands as
+    there. Returns ``out``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (H in ``_build.HEADS``), one launch for the group, or raise."""
+    what = "ragged_ell_rows_heads"
+    _build.tick(what)
+    dev = resolve_device(device)
+    _check(vals.dim() == 5, f"expected vals [G,U,R,Kmax,H], got "
+           f"{tuple(vals.shape)}", what)
+    h = vals.shape[-1]
+    _check(cols.dim() == 4 and b_tiles.dim() == 4
+           and tuple(vals.shape[:4]) == tuple(cols.shape)
+           and tuple(tile_col.shape) == tuple(unit_k.shape)
+           == tuple(cols.shape[:2]) and b_tiles.shape[0] == cols.shape[0],
+           f"shapes differ: cols {tuple(cols.shape)}, vals "
+           f"{tuple(vals.shape)}, tile_col {tuple(tile_col.shape)}, unit_k "
+           f"{tuple(unit_k.shape)}, b_tiles {tuple(b_tiles.shape)}", what)
+    _check(cols.dtype == tile_col.dtype == unit_k.dtype == torch.int32,
+           "expected int32 cols/tile_col/unit_k", what)
+    for x in (cols, vals, tile_col, unit_k, b_tiles):
+        _check(x.device == dev, f"tensor on {x.device}, device={dev}", what)
+        _check(dev.type == "cpu" or x.is_contiguous(),
+               "CUDA kernel needs contiguous tensors", what)
+    g, u, r, kmax = cols.shape
+    f = b_tiles.shape[-1]
+    _check(vals.dtype == torch.float32 and b_tiles.dtype == torch.float32
+           and f % h == 0, f"float32 vals and B, {f} columns over {h} heads",
+           what)
+    bands = _bands_of(segments, u, kmax, band_cap(max_bands))
+    n_seg = plan.lengths.shape[0]
+    _check(out.dim() == 3 and tuple(out.shape) == (g, n_seg // g, f)
+           and out.dtype == torch.float32 and out.device == dev,
+           f"out {tuple(out.shape)} {out.dtype}: want float32 "
+           f"[{g}, {n_seg // g}, {f}] on {dev}", what)
+    if dev.type == "cpu":
+        return ragged_ell_rows_ref(cols, vals, tile_col, unit_k, b_tiles,
+                                   plan, out, segments=segments,
+                                   max_bands=band_cap(max_bands))
+    _check(h in _build.HEADS,
+           f"{h} heads: the kernel is built for {_build.HEADS}", what)
+    _check(vals.is_contiguous() and out.is_contiguous(),
+           "CUDA kernel needs contiguous tensors", what)
+    _check(g * u * r * kmax * h < INDEX_LIMIT, "the kernel numbers "
+           "value lanes in 32 bits", what)
+    n_slots = plan.live.shape[1]
+    if not (g and n_slots and f):
+        return out
+    lib, fn = _entry("ragged_ell_spmm", "ragged_ell_rows_heads_f32",
+                     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                     + [ctypes.c_void_p])
+    table = band_table(bands, dev) if band_mode(bands) == "table" else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cols.data_ptr(), vals.data_ptr(), tile_col.data_ptr(),
+                 unit_k.data_ptr(), b_tiles.data_ptr(), plan.order.data_ptr(),
+                 plan.offsets.data_ptr(), plan.live.data_ptr(),
+                 out.data_ptr(), band_args(() if table is not None else bands),
+                 None if table is None else table.data_ptr(),
+                 g, n_slots, u, r, kmax, b_tiles.shape[1], b_tiles.shape[2],
+                 f, h, stream)
+    _build.check(lib, err, "ragged_ell_spmm heads launch")
+    with _build.count_lock:
+        launches["float32"] += 1
+        if table is not None:
+            table_launches["float32"] += 1
+    return out
+
+
 def ragged_ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
                     tile_col: torch.Tensor, unit_k: torch.Tensor,
                     b_tiles: torch.Tensor, *, segments: tuple = (),

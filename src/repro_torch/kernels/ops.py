@@ -166,3 +166,41 @@ def coo_matmul(part: TriPartition, b: torch.Tensor, meta: PartitionMeta,
         return y
     return _coo.coo_rows(part.coo.cols, part.coo.vals, b_tiles_of(b, meta),
                          plan.coo, plan.coo_rows, y, device=b.device)
+
+
+def dense_heads_matmul(part: TriPartition, coef: torch.Tensor,
+                       b: torch.Tensor, meta: PartitionMeta,
+                       plan: ReductionPlan) -> torch.Tensor:
+    """The dense engine with multi-head values ``coef`` [G, n_t, H, T, T]
+    (``gat_coef.gat_edge_coef``) in place of the tiles: column block h of
+    B times head h's tile, [G, n_padded_rows, F] float32, one launch."""
+    g, _, f = b.shape
+    out = _bsr.bsr_spmm_rows_heads(coef, part.dense.tile_col,
+                                   b_tiles_of(b, meta), plan.dense,
+                                   device=b.device)
+    return out.reshape(g, meta.n_row_tiles * meta.tile, f)
+
+
+def ell_heads_matmul(part: TriPartition, coef: torch.Tensor,
+                     b: torch.Tensor, meta: PartitionMeta,
+                     plan: ReductionPlan, yd: torch.Tensor) -> torch.Tensor:
+    """``ell_matmul`` ("ragged") with multi-head values ``coef``
+    [G, U, R, Kmax, H] in place of the units' values, added onto ``yd``
+    in place; one launch."""
+    if part.ell.cols.shape[-3] == 0:
+        return yd
+    return _ell.ragged_ell_rows_heads(
+        part.ell.cols, coef, part.ell.tile_col, part.ell.unit_k,
+        b_tiles_of(b, meta), plan.ell, yd,
+        segments=tuple(meta.ell_segments), device=b.device)
+
+
+def coo_heads_matmul(part: TriPartition, coef: torch.Tensor,
+                     b: torch.Tensor, meta: PartitionMeta,
+                     plan: ReductionPlan, y: torch.Tensor) -> torch.Tensor:
+    """``coo_matmul`` with multi-head values ``coef`` [G, nnz, H] in place
+    of the entries' values, added onto ``y`` in place; one launch."""
+    if part.coo.vals.shape[-1] == 0:
+        return y
+    return _coo.coo_rows(part.coo.cols, coef, b_tiles_of(b, meta), plan.coo,
+                         plan.coo_rows, y, device=b.device)

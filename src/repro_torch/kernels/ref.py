@@ -68,6 +68,13 @@ def _gather_b_tiles(b_tiles: torch.Tensor, tile_col: torch.Tensor):
     return b_tiles[g, tile_col.long()]
 
 
+def head_values(vals: torch.Tensor, f: int) -> torch.Tensor:
+    """Multi-head values [..., H] spread over ``f`` features, float32:
+    head h's value over its block of F/H columns (columns h*F/H ..
+    (h+1)*F/H - 1), the factor each column of B is multiplied by."""
+    return vals.float().repeat_interleave(f // vals.shape[-1], dim=-1)
+
+
 def bsr_spmm_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
                  b_tiles: torch.Tensor) -> torch.Tensor:
     """Per-tile products of a BSR stack against tile-sliced B.
@@ -99,11 +106,29 @@ def bsr_spmm_rows_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
     kept in float32): the reference's dense engine rounds its rows to B's
     type before the other engines' rows are added.
     """
-    g, n_t, t, _ = tiles.shape
+    g, n_t = tiles.shape[:2]
+    t = tiles.shape[-1]
     f = b_tiles.shape[-1]
-    prod = bsr_spmm_ref(tiles, tile_col, b_tiles)
+    if tiles.dim() == 5:
+        prod = bsr_heads_ref(tiles, tile_col, b_tiles)
+    else:
+        prod = bsr_spmm_ref(tiles, tile_col, b_tiles)
     out = segment_sum(prod.reshape(g * n_t, t * f), plan)
     return rounded_to(out.reshape(g, -1, t, f), b_tiles.dtype)
+
+
+def bsr_heads_ref(tiles: torch.Tensor, tile_col: torch.Tensor,
+                  b_tiles: torch.Tensor) -> torch.Tensor:
+    """Per-tile products of multi-head tiles [G, n_t, H, T, T]: column
+    block h of B (F/H columns) times head h's tile. Returns
+    [G, n_t, T, F] float32."""
+    g, n_t, h, t, _ = tiles.shape
+    f = b_tiles.shape[-1]
+    pin_ieee_f32()
+    bt = _gather_b_tiles(b_tiles, tile_col).float()          # [G,n_t,T,F]
+    bt = bt.reshape(g, n_t, t, h, f // h).transpose(2, 3)    # [G,n_t,H,T,F/H]
+    out = torch.matmul(tiles.float(), bt)                     # [G,n_t,H,T,F/H]
+    return out.transpose(2, 3).reshape(g, n_t, t, f)
 
 
 def rounded_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -166,9 +191,12 @@ def _chains(cols, vals, tile_col, b_tiles, lanes, bound, unit_k=None):
     lanes past the bound are never read into a sum. ``unit_k`` masks the
     VALUES (a masked lane multiplies 0 by its B row, as in the
     reference); without it every lane inside the bound is live.
-    ``lanes``: no unit reads past it (at most Kmax)."""
+    ``lanes``: no unit reads past it (at most Kmax). Multi-head ``vals``
+    [G, U, R, Kmax, H] scale each head's block of F/H columns by that
+    head's value (``head_values``)."""
     g, u, r, _ = cols.shape
     f = b_tiles.shape[-1]
+    heads = vals.dim() == cols.dim() + 1
     bt = _gather_b_tiles(b_tiles, tile_col)                  # [G, U, T, F]
     bound = bound.to(b_tiles.device).expand(g, u)[..., None, None]
     acc = torch.zeros((g, u, r, f), dtype=torch.float32,
@@ -177,11 +205,12 @@ def _chains(cols, vals, tile_col, b_tiles, lanes, bound, unit_k=None):
     for kk in range(lanes):
         idx = cols[..., kk].long()[..., None].expand(g, u, r, f)
         rows = torch.gather(bt, 2, idx)                      # [G, U, R, F]
-        v = vals[..., kk]
+        v = vals[:, :, :, kk]
         if unit_k is not None:
-            v = torch.where((kk < unit_k)[..., None], v, zero)
-        acc = torch.where(kk < bound, acc + v[..., None].float()
-                          * rows.float(), acc)
+            live = (kk < unit_k)[..., None]
+            v = torch.where(live[..., None] if heads else live, v, zero)
+        v = head_values(v, f) if heads else v[..., None].float()
+        acc = torch.where(kk < bound, acc + v * rows.float(), acc)
     return acc
 
 
@@ -273,6 +302,87 @@ def coo_rows_ref(cols: torch.Tensor, vals: torch.Tensor, b: torch.Tensor,
     g, nnz = cols.shape
     f = b.shape[-1]
     idx = cols.long()[..., None].expand(g, nnz, f)
-    msgs = vals[..., None].float() * torch.gather(b, 1, idx).float()
+    v = head_values(vals, f) if vals.dim() == 3 else vals[..., None].float()
+    msgs = v * torch.gather(b, 1, idx).float()
     rows = segment_sum(msgs.reshape(g * nnz, f), plan)
     return out.add_(rows.reshape(out.shape))
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """LeakyReLU as the edge-coefficient kernel computes it: ``x`` where
+    ``x > 0``, else ``slope * x`` (one rounded multiply)."""
+    return torch.where(x > 0, x, x * slope)
+
+
+def gat_row_stats_ref(offsets: torch.Tensor, cols: torch.Tensor,
+                      s: torch.Tensor, t: torch.Tensor, slope: float
+                      ) -> tuple:
+    """Each row's softmax statistics over all its neighbours, per head.
+
+    ``offsets`` [G * P + 1] int64 and ``cols`` [E] int32 are the rows'
+    neighbour lists (row g*P + i's entries are ``cols[offsets[g*P+i] :
+    offsets[g*P+i+1]]``, columns of member g), ``s`` [G, P, H] the
+    destination scores, ``t`` [G, N, H] the source scores. Returns
+    (m, d), each [G, P, H] float32: ``m`` the row maximum of
+    LeakyReLU(s_i + t_j), taken as LeakyReLU(s_i + max_j t_j) (LeakyReLU
+    is monotone), and ``d`` the denominator sum_j exp(LeakyReLU(s_i +
+    t_j) - m). A row without a neighbour (class padding) reads m = d = 0.
+    """
+    g, p, h = s.shape
+    lengths = offsets[1:] - offsets[:-1]
+    seg = torch.arange(g * p, device=s.device).repeat_interleave(lengths)
+    tj = t[seg // p, cols.long()].float()                          # [E, H]
+    sf = s.reshape(g * p, h).float()
+    if cols.shape[0] == 0:
+        z = torch.zeros((g, p, h), dtype=torch.float32, device=s.device)
+        return z, z.clone()
+    tmax = torch.segment_reduce(tj, "max", lengths=lengths, axis=0,
+                                unsafe=True)
+    live = (lengths > 0)[:, None]
+    m = torch.where(live, leaky_relu(sf + torch.where(live, tmax, 0.0),
+                                     slope), 0.0)
+    pe = torch.exp(leaky_relu(sf[seg] + tj, slope) - m[seg])
+    d = torch.segment_reduce(pe, "sum", lengths=lengths, axis=0, unsafe=True)
+    d = torch.where(live, d, 0.0)
+    return m.reshape(g, p, h), d.reshape(g, p, h)
+
+
+def _coef(valid, rows, cols, s, t, m, slope):
+    """exp(LeakyReLU(s_row + t_col) - m_row) [..., H] where ``valid``,
+    else +0; rows/cols index member g of s/m and t ([G, ...] leading)."""
+    g = torch.arange(s.shape[0], device=s.device).reshape(
+        (-1,) + (1,) * (rows.dim() - 1))
+    r = torch.where(valid, rows.long(), 0)
+    c = torch.where(valid, cols.long(), 0)
+    e = leaky_relu(s[g, r] + t[g, c], slope) - m[g, r]
+    return torch.where(valid[..., None], torch.exp(e), 0.0)
+
+
+def gat_edge_coef_ref(part, s: torch.Tensor, t: torch.Tensor,
+                      m: torch.Tensor, slope: float, tile: int) -> tuple:
+    """The unnormalised attention coefficients of every stored entry of
+    each engine's layout, per head: exp(LeakyReLU(s_i + t_j) - m_i), +0
+    where the layout holds no entry (a stored value of 0: tile zeros, ELL
+    lanes past ``unit_k`` and padded unit rows, class padding's COO
+    triples).
+
+    ``part`` is a grouped ``TriPartition`` whose values are the graph's
+    pattern; ``s``/``m`` [G, P, H] (rows), ``t`` [G, N, H] (columns).
+    Returns (dense [G, n_t, H, T, T], ell [G, U, R, Kmax, H], coo
+    [G, nnz, H]) float32: the layouts the multi-head engines read.
+    """
+    T = tile
+    ar = torch.arange(T, device=s.device)
+    dt = part.dense
+    rows = (dt.tile_row.long()[..., None] * T + ar)[..., :, None]
+    cols = (dt.tile_col.long()[..., None] * T + ar)[..., None, :]
+    rows, cols = torch.broadcast_tensors(rows, cols)          # [G,n_t,T,T]
+    dense = _coef(dt.tiles != 0, rows, cols, s, t, m, slope)
+    dense = dense.permute(0, 1, 4, 2, 3).contiguous()         # [G,n_t,H,T,T]
+    el = part.ell
+    erows = el.rows.long()[..., None].expand(el.cols.shape)
+    ecols = el.tile_col.long()[..., None, None] * T + el.cols.long()
+    ell = _coef(el.vals != 0, erows, ecols, s, t, m, slope)
+    co = part.coo
+    coo = _coef(co.vals != 0, co.rows, co.cols, s, t, m, slope)
+    return dense, ell, coo

@@ -8,7 +8,8 @@ engine boundary of the forward; consecutive boundaries share their
 event, so the segments tile the dispatch's device interval exactly:
 
   stage   the features' permutation gather, padding and group stack
-  xw      X·W of one layer (``member_matmul``)
+  xw      X·W of one layer (``member_matmul``; a GAT's scores with it)
+  attn    a GAT layer's row statistics and edge coefficients
   dense   the dense-tile engine (``dense_tiles_matmul``)
   ell     the ELL engine and its sum onto the dense engine's rows
   coo     the COO engine and its add

@@ -44,16 +44,21 @@ from repro_torch.analysis.static.concurrency_pass import (LOCK_ORDER,
 from repro_torch.analysis.static.fixtures import (FIXTURE_F_HID,
                                                   FIXTURE_F_IN,
                                                   fixture_engine)
+from repro_torch.analysis.static import kernel_pass
 from repro_torch.analysis.static.kernel_pass import (CLAMP_F, ELL_DTYPES,
                                                      check_class_fit,
                                                      check_contract,
                                                      contracts_for_class,
+                                                     heads_contracts_for_class,
                                                      run_kernel_pass)
 from repro_torch.analysis.static.launch_pass import (check_sentinel_layout,
+                                                     run_gat_launch_pass,
                                                      run_launch_pass)
 from repro_torch.engine.shape_class import ClassNeed
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, gat_coef, ops
 from repro_torch.kernels._build import mangled_args
+from repro_torch.kernels.coo_spmm import (coo_rows_contract,
+                                          coo_rows_heads_contract)
 from repro_torch.kernels.ell_spmm import ell_contract, ragged_ell_contract
 from repro_torch.kernels.tile_matmul import CONFIGS, matmul_contract
 
@@ -257,6 +262,88 @@ class TestKernelPass:
             assert [(f.rule, f.message) for f in got] == [
                 (f.rule, f.message) for f in want]
         assert isinstance(h.need, ClassNeed)
+
+
+class TestGatKernelContracts:
+    """The multi-head instances and the edge-coefficient kernels in the
+    contract audit, as ``coo_rows`` is."""
+
+    @pytest.mark.parametrize("h,fh", [(4, 256), (6, 41), (4, 3), (6, 16)])
+    def test_heads_contracts_are_built_and_legal(self, engine, h, fh):
+        sc = engine.handle("lint-fixture").sclass
+        pairs = heads_contracts_for_class(sc, h, h * fh)
+        assert [c["kernel"] for c, _ in pairs] == [
+            "coo_rows_heads_kernel", "ell_rows_heads_kernel",
+            "gat_row_stats_kernel", "gat_edge_coef_kernel"]
+        for c, scalars in pairs:
+            assert c["instance"][-1] == h
+            assert c["ptxas_name"].endswith(f"Li{h}EE")
+            assert _errors(check_contract(c, scalar_args=scalars,
+                                          ptxas_log=_log_for(c, 0))) == []
+        coo, ell = pairs[0][0], pairs[1][0]
+        # a head of whole 16-byte rows reads 4 features a lane
+        assert ell["vec"] == coo["vec"] == (4 if fh % 4 == 0 else 1)
+        assert ell["shapes"]["vals"][-1] == coo["shapes"]["vals"][-1] == h
+
+    def test_heads_contract_shared_memory_counts_the_staged_values(self):
+        one = coo_rows_contract(1, 100, 64, 64, 128)
+        four = coo_rows_heads_contract(1, 100, 64, 64, 128, 4)
+        stage = one["static_smem"] // (4 * (one["w"] + 4))
+        assert four["static_smem"] - one["static_smem"] == 4 * stage * 6
+
+    def test_head_count_outside_the_build_caught(self):
+        for c in (coo_rows_heads_contract(1, 100, 64, 64, 96, 3),
+                  gat_coef.row_stats_contract(64, 3)):
+            assert "instance" in _rules(check_contract(
+                c, scalar_args=(np.zeros((1, 100), np.int32),)
+                if c["index_bounds"] else ()))
+
+    def test_spilling_heads_instance_rejected(self):
+        c = coo_rows_heads_contract(1, 100, 64, 64, 246, 6)
+        assert "registers" in _rules(check_contract(
+            c, scalar_args=(np.zeros((1, 100), np.int32),),
+            ptxas_log=_log_for(c, 8)))
+
+    def test_kernel_pass_audits_the_heads_instances(self, engine,
+                                                     monkeypatch):
+        seen = []
+        real = kernel_pass.check_contract
+
+        def spy(c, **kw):
+            seen.append(c["kernel"])
+            return real(c, **kw)
+        monkeypatch.setattr(kernel_pass, "check_contract", spy)
+        kernel_pass.run_kernel_pass(engine)
+        for k in ("ell_rows_heads_kernel", "coo_rows_heads_kernel",
+                  "gat_row_stats_kernel", "gat_edge_coef_kernel"):
+            assert seen.count(k) == len(_build.HEADS) * len(
+                kernel_pass.HEAD_WIDTHS), k
+
+
+class TestGatLaunchPass:
+    def test_repo_clean(self):
+        assert _errors(run_gat_launch_pass(device="cpu")) == []
+
+    def test_double_heads_launch_caught(self, monkeypatch):
+        real = ops.ell_heads_matmul
+
+        def twice(part, coef, b, meta, plan, yd):
+            real(part, coef, b, meta, plan, yd.clone())
+            return real(part, coef, b, meta, plan, yd)
+        monkeypatch.setattr(ops, "ell_heads_matmul", twice)
+        assert "single-launch" in _rules(run_gat_launch_pass(device="cpu"))
+
+    def test_profile_counts(self):
+        from repro_torch.analysis.static import launch_pass as lp
+        good = {"void gat_coef::gat_row_stats_kernel<4>": 4,
+                "void gat_coef::gat_edge_coef_kernel<4>": 4,
+                "void bsr_heads_kernel<Tile, true, true, 4>": 4,
+                "void ragged_ell::ell_rows_heads_kernel<32, 4, 4>": 4,
+                "void coo_rows::coo_rows_heads_kernel<32, 4, 1, 4>": 4}
+        assert lp.check_gat_profile(good, 2, 2, True) == []
+        single = dict(good, **{"ragged_ell::ell_rows_kernel<32, 4>": 1})
+        assert _rules(lp.check_gat_profile(single, 2, 2, True)) == {
+            "single-launch"}
 
 
 class TestLaunchPass:
